@@ -5,22 +5,32 @@
 
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from csrc/ with nvcc;
-  3. hold each kernel against its plain PyTorch version at the SSD-300 bs=64
-     shape (R=1280 rows, k=512, max_out=100): dense, sparse and tie-heavy
-     scores, bit-equal;
-  4. serve the full-width ssd300_vgg16_voc model through the Predictor at
-     bs=1 (seeded random weights), check that the NMS kernel ran, hold the
-     kernel against its plain version on that path's own rows (R=20) and
-     time the float path's bs=1 p50;
+  2. build every CUDA kernel from csrc/ with nvcc, one process per source;
+  3. hold the NMS kernel against its plain PyTorch version at the SSD-300
+     bs=64 shape (R=1280 rows, k=512, max_out=100): dense, sparse and
+     tie-heavy scores, bit-equal; hold the stem and L2Norm kernels against
+     theirs on synthetic saturating, all-negative-bias and all-zero inputs;
+  4. serve the full-width ssd300_vgg16_voc float model through the Predictor
+     at bs=1 (seeded random weights), check that the NMS kernel ran, hold it
+     against its plain version on that path's own rows and time the bs=1 p50;
   5. serve ssd300_infer_bs64 at bs=64 through make_predict_fn, check that the
-     NMS kernel ran, hold its detections against the plain path (the same
-     logits with nms_rows_reference in place of the kernel), time img/s;
-  6. profile both paths (device time by kernel, device busy share), and time
-     each kernel against its plain version on the bs=64 path's inputs;
-  7. check the outputs against a reference on small inputs: the card against
+     NMS kernel ran, hold its detections against the plain path, time img/s;
+  6. profile both float paths and time the NMS kernel against its plain
+     version on the bs=64 path's inputs;
+  7. serve ssd300_infer_bs64 at bs=64 through make_int8_predict_fn
+     (calibrated on 8 synthesized images): check that the stem, L2Norm and
+     NMS kernels all ran, hold the detections bit-equal to the same
+     QuantParams run with the plain versions of the stem and L2Norm, hold
+     each kernel bit-equal to its plain version on the path's own inputs,
+     time img/s;
+  8. serve one image through Predictor(int8=True) at full width, bs=1, and
+     time its p50 beside the float path's;
+  9. profile both int8 paths and time the stem and L2Norm kernels
+     against their plain versions on the bs=64 path's own inputs;
+ 10. check the outputs against a reference on small inputs: the card against
      the CPU, float32 with TF32 off, for the tiny config's detections and the
-     full-width model's logits.
+     full-width model's logits; and on the same QuantParams, the int8 tap
+     codes (tiny and full width) and the tiny config's int8 detections.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -37,11 +47,13 @@ import sys
 import time
 
 R, K, MAX_OUT = 1280, 512, 100
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and float32 operations/s
-# outside the tensor cores. The sheet's 67 TFLOP/s counts an FMA as two
-# operations; the NMS scan has no FMA (it builds with -fmad=false), so each
-# of its operations is one instruction at half that rate.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, int8 tensor-core
+# operations/s, and float32 operations/s outside the tensor cores. The
+# sheet's 67 TFLOP/s counts an FMA as two operations; the NMS scan and the
+# L2Norm have no FMA (they build with -fmad=false), so each of their
+# operations is one instruction at half that rate.
 HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12 / 2
 # float32 operations per column per emit step of the NMS scan: 2 argmax
 # compares (greater, equal for the tie-break), 4 for iw (min, max, subtract,
@@ -52,6 +64,9 @@ NMS_OPS_PER_COLUMN_STEP = 2 + 4 + 3 + 1 + 1 + 1
 # Per column once per row: 2 subtracts, 2 clamps, the area multiply and its
 # multiply by t.
 NMS_OPS_PER_COLUMN_HOISTED = 6
+# float32 operations per element of the L2Norm: square and add into the
+# sum, the two products, the divide, the rounding and the two clamps.
+L2NORM_OPS_PER_ELEMENT = 2 + 2 + 1 + 1 + 2
 
 
 def fail(msg: str) -> None:
@@ -118,6 +133,16 @@ def host_ms(torch, fn, iters: int) -> list:
     return times
 
 
+# Kernel-name fragments that group the profile's device time.
+PROFILE_GROUPS = (
+    ("nms_kernel", ("nms_rows_kernel",)),
+    ("stem_kernel", ("stem_conv12_pool_kernel",)),
+    ("l2norm_kernel", ("l2norm_requant_kernel",)),
+    ("conv_or_gemm", ("conv", "cudnn", "gemm", "xmma", "implicit", "wgrad", "dgrad", "cutlass",
+                      "imma", "sm90")),
+)
+
+
 def profile_window(torch, fn, iters: int) -> dict:
     """Device time by kernel over iters calls of fn() (torch.profiler), and
     the device's busy share of the window's wall time. Reports "not
@@ -143,15 +168,12 @@ def profile_window(torch, fn, iters: int) -> dict:
     busy_us = sum(kernels.values())
     if busy_us <= 0:
         return {"device_time": "not measured"}
-    groups = {"nms_kernel": 0.0, "conv": 0.0, "other": 0.0}
+    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    groups["other"] = 0.0
     for name, us in kernels.items():
         low = name.lower()
-        if "nms_rows_kernel" in low:
-            groups["nms_kernel"] += us
-        elif any(t in low for t in ("conv", "cudnn", "gemm", "xmma", "implicit", "wgrad", "dgrad")):
-            groups["conv"] += us
-        else:
-            groups["other"] += us
+        group = next((g for g, frags in PROFILE_GROUPS if any(f in low for f in frags)), "other")
+        groups[group] += us
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {
         "wall_ms_per_call": wall_us / iters / 1e3,
@@ -162,6 +184,13 @@ def profile_window(torch, fn, iters: int) -> dict:
     }
 
 
+def bound(bytes_moved: float, ops: float, ops_per_s: float):
+    """(least ms, "bytes" or "operations") for work of these sizes."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def nms_bound_ms(scores_out, rows: int, k: int, max_out: int):
     """Least time for the NMS scan on these inputs: bytes (5 planes read once,
     2 outputs written once) over HBM bandwidth, against the float32
@@ -170,9 +199,24 @@ def nms_bound_ms(scores_out, rows: int, k: int, max_out: int):
     steps = (scores_out > 0).sum(dim=1).add(1).clamp(max=max_out).sum().item()
     bytes_moved = 5 * rows * k * 4 + rows * max_out * 8
     ops = NMS_OPS_PER_COLUMN_STEP * k * steps + NMS_OPS_PER_COLUMN_HOISTED * rows * k
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound(bytes_moved, ops, F32_OPS_PER_S)
+
+
+def stem_bound_ms(q1, out):
+    """conv1_2's multiply-adds as 2 int8 operations each over the int8
+    tensor-core peak, against q1 read once, the weights, deq and bias read
+    once and the pooled codes written once."""
+    b, h, w, c = q1.shape
+    ops = 2 * b * h * w * c * c * 9
+    bytes_moved = q1.numel() + 9 * c * c + 2 * 4 * c + out.numel()
+    return bound(bytes_moved, ops, INT8_OPS_PER_S)
+
+
+def l2norm_bound_ms(q0):
+    """The tap read once and written once (and gamma), against the float32
+    operations per element over the non-FMA float32 rate."""
+    c = q0.shape[-1]
+    return bound(2 * q0.numel() + 4 * c, L2NORM_OPS_PER_ELEMENT * q0.numel(), F32_OPS_PER_S)
 
 
 def main() -> int:
@@ -187,18 +231,30 @@ def main() -> int:
         from object_detector_tpu_torch.convert import init_params
         from object_detector_tpu_torch.core.config import get_config
         from object_detector_tpu_torch.data.voc import VOC_CLASSES
-        from object_detector_tpu_torch.eval.evaluator import make_predict_fn
-        from object_detector_tpu_torch.kernels import build
+        from object_detector_tpu_torch.eval.evaluator import make_int8_predict_fn, make_predict_fn
+        from object_detector_tpu_torch.kernels import build, l2norm, stem
         from object_detector_tpu_torch.kernels import nms as nms_kernel
         from object_detector_tpu_torch.models.ssd import SSDModel
         from object_detector_tpu_torch.ops.augment import normalize
         from object_detector_tpu_torch.ops.postprocess import postprocess
+        from object_detector_tpu_torch.quant import engine
     except ImportError as e:
         fail(f"the object_detector_tpu_torch package is not importable here: {e}")
 
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    wrappers = {"nms_rows": nms_kernel.nms_rows, "stem_conv12_pool": stem.stem_conv12_pool,
+                "l2norm_requant": l2norm.l2norm_requant}
+
+    def counted(fn):
+        """Runs the main path fn() with every launch count set to 0 just
+        before; returns its result and the counts just after."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {name: w.launches for name, w in wrappers.items()}
 
     # 1. The card.
     gpu = gpu_line()
@@ -210,12 +266,14 @@ def main() -> int:
     logs = build.build()
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "built": sorted(logs)}))
+    check(set(logs) == set(build.SOURCES),
+          f"built {sorted(logs)}, expected {sorted(build.SOURCES)}")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"ptxas[{name}]: {line.strip()}")
 
-    # 3. The NMS kernel against its plain version, bit-equal.
+    # 3. Each kernel against its plain version on synthetic cases, bit-equal.
     kw = dict(max_out=MAX_OUT, iou_threshold=0.45, score_threshold=0.01)
     max_abs_err = 0.0
     for i, case in enumerate(("dense", "sparse", "ties")):
@@ -230,21 +288,53 @@ def main() -> int:
               f"{int((got_c != want_c).sum())} columns differ")
         print(json.dumps({"phase": "nms_kernel_vs_plain", "case": case, "bit_equal": True,
                           "emitted": int((got_s > 0).sum())}))
+    stem_err = l2norm_err = 0
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    w2 = torch.randint(-127, 128, (3, 3, 64, 64), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    for case in ("saturating", "negative_bias"):
+        high = 128 if case == "saturating" else 1  # all codes <= 0 with negative biases
+        q1 = torch.randint(-127, high, (4, 300, 300, 64), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        w = w2.abs() if case == "negative_bias" else w2
+        deq = torch.full((64,), 2e-3 if case == "saturating" else 1e-4, device="cuda")
+        bias = torch.full((64,), -1.0 if case == "negative_bias" else 0.1, device="cuda")
+        got = stem.stem_conv12_pool(q1, w, deq, bias, 0.021)
+        torch.cuda.synchronize()
+        want = stem.stem_conv12_pool_reference(q1, w, deq, bias, 0.021)
+        stem_err = max(stem_err, int((got.int() - want.int()).abs().max()))
+        check(torch.equal(got, want), f"stem kernel differs from its plain version ({case}): "
+                                      f"{int((got != want).sum())} codes differ")
+        share = float((want == (127 if case == "saturating" else 0)).float().mean())
+        print(json.dumps({"phase": "stem_kernel_vs_plain", "case": case, "bit_equal": True,
+                          "shape": list(q1.shape),
+                          ("share_at_127" if case == "saturating" else "share_zero"): share}))
+    q0 = torch.randint(-127, 128, (8, 38, 38, 512), generator=gen, device="cuda", dtype=torch.int8)
+    q0[:, ::3] = 0  # all-zero pixels
+    gamma = torch.rand(512, generator=gen, device="cuda") * 20.0
+    got = l2norm.l2norm_requant(q0, gamma, 0.137)
+    torch.cuda.synchronize()
+    want = l2norm.l2norm_requant_reference(q0, gamma, 0.137)
+    check(torch.equal(got, want) and not got[:, ::3].any(),
+          f"l2norm kernel differs from its plain version: {int((got != want).sum())} codes")
+    print(json.dumps({"phase": "l2norm_kernel_vs_plain", "case": "zero_pixels",
+                      "bit_equal": True, "shape": list(q0.shape)}))
 
     cfg1 = get_config("ssd300_vgg16_voc")
     cfg64 = get_config("ssd300_infer_bs64")
     params = init_params(SSDModel(cfg1), seed=0).state_dict()
     anchors_np = ssd_anchors(cfg64.anchors, cfg64.model.image_size)
     rng = np.random.default_rng(0)
+    launches = {}
 
     # 4. Full-width SSD-300 through the Predictor, bs=1.
     predictor = Predictor(cfg1, params, VOC_CLASSES, device="cuda")
     image = rng.integers(0, 80, (375, 500, 3), dtype=np.uint8)
     image[100:300, 150:400] = (200, 60, 40)
-    nms_kernel.nms_rows.launches = 0
-    dets = predictor.predict_array(image, score_threshold=0.0)
-    bs1_launches = nms_kernel.nms_rows.launches
-    check(bs1_launches >= 1, "the bs=1 Predictor path never launched the NMS kernel")
+    dets, launches["float_bs1"] = counted(
+        lambda: predictor.predict_array(image, score_threshold=0.0))
+    check(launches["float_bs1"]["nms_rows"] >= 1,
+          "the bs=1 Predictor path never launched the NMS kernel")
     check(len(dets) > 0, "the bs=1 Predictor returned no detections")
     for d in dets:
         check(np.all(np.isfinite(d.box)) and 0 <= d.box[0] <= d.box[2] <= 500
@@ -264,7 +354,7 @@ def main() -> int:
     canvas = rng.integers(0, 256, (1, 300, 300, 3), dtype=np.uint8)
     p50_bs1 = statistics.median(host_ms(torch, lambda: predict1(canvas), 50))
     print(json.dumps({"phase": "predictor_bs1", "detections": len(dets),
-                      "nms_launches": bs1_launches,
+                      "launches": launches["float_bs1"],
                       "nms_rows": list(bs1_rows["scores"].shape),
                       "kernel_vs_plain_bit_equal": True, "p50_ms": p50_bs1, **where}))
 
@@ -272,16 +362,11 @@ def main() -> int:
     model = SSDModel(cfg64)
     model.load_state_dict(params)
     predict = make_predict_fn(cfg64, model, anchors_np, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
     images = torch.randint(0, 256, (64, 300, 300, 3), generator=gen, device="cuda",
                            dtype=torch.uint8)
     predict(images)
-    torch.cuda.synchronize()
-    nms_kernel.nms_rows.launches = 0
-    det = predict(images)
-    torch.cuda.synchronize()
-    bs64_launches = nms_kernel.nms_rows.launches
-    check(bs64_launches >= 1, "the bs=64 path never launched the NMS kernel")
+    det, launches["float_bs64"] = counted(lambda: predict(images))
+    check(launches["float_bs64"]["nms_rows"] >= 1, "the bs=64 path never launched the NMS kernel")
     check(det.boxes.shape == (64, cfg64.eval.max_detections, 4)
           and bool(torch.isfinite(det.boxes).all()) and bool(torch.isfinite(det.scores).all()),
           "bs=64 detections are not finite or have the wrong shape")
@@ -297,7 +382,7 @@ def main() -> int:
     bs64_ms = host_ms(torch, lambda: predict(images), 10)
     img_per_s = 64 / (statistics.median(bs64_ms) / 1e3)
     print(json.dumps({"phase": "predict_bs64", "valid_detections": int(det.valid.sum()),
-                      "nms_launches": bs64_launches, "median_ms": statistics.median(bs64_ms),
+                      "launches": launches["float_bs64"], "median_ms": statistics.median(bs64_ms),
                       "img_per_s": img_per_s, **where}))
 
     print(json.dumps({"phase": "profile_bs64", **profile_window(torch, lambda: predict(images), 3),
@@ -305,18 +390,82 @@ def main() -> int:
     print(json.dumps({"phase": "profile_bs1",
                       **profile_window(torch, lambda: predict1(canvas), 10), **where}))
 
-    # 6. The kernel against its plain version on the bs=64 path's own inputs
-    # (held bit-equal in phase 5).
+    # 6. The NMS kernel against its plain version on the bs=64 path's own
+    # inputs (held bit-equal in phase 5).
     coords, scores, kwargs = bs64_rows["coords"], bs64_rows["scores"], bs64_rows["kwargs"]
     rows, k = scores.shape
-    ms = cuda_ms(torch, lambda: nms_kernel.nms_rows(coords, scores, **kwargs), 50)
-    plain_ms = cuda_ms(torch, lambda: nms_kernel.nms_rows_reference(coords, scores, **kwargs), 3)
-    bound_ms, bound_by = nms_bound_ms(bs64_rows["kernel_scores"], rows, k, kwargs["max_out"])
+    nms_ms = cuda_ms(torch, lambda: nms_kernel.nms_rows(coords, scores, **kwargs), 50)
+    nms_plain_ms = cuda_ms(
+        torch, lambda: nms_kernel.nms_rows_reference(coords, scores, **kwargs), 3)
+    nms_bound, nms_bound_by = nms_bound_ms(bs64_rows["kernel_scores"], rows, k, kwargs["max_out"])
     print(json.dumps({"phase": "nms_timing", "rows": rows, "k": k,
-                      "max_out": kwargs["max_out"], "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by, **where}))
+                      "max_out": kwargs["max_out"], "ms": nms_ms, "plain_ms": nms_plain_ms,
+                      "bound_ms": nms_bound, "bound_by": nms_bound_by, **where}))
+    del model, predict, bs64_rows, det, det_k, same_as_postprocess
 
-    # 7. Against a reference on small inputs: the card vs the CPU, float32.
+    # 7. The int8 engine at bs=64 through make_int8_predict_fn.
+    calib = rng.integers(0, 256, (8, 300, 300, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    predict8 = make_int8_predict_fn(cfg64, params, anchors_np, calib, device="cuda")
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    predict8(images)
+    det8, launches["int8_bs64"] = counted(lambda: predict8(images))
+    for name, n in launches["int8_bs64"].items():
+        check(n >= 1, f"the int8 bs=64 path never launched the {name} kernel")
+    check(det8.boxes.shape == (64, cfg64.eval.max_detections, 4)
+          and bool(torch.isfinite(det8.boxes).all()) and bool(torch.isfinite(det8.scores).all())
+          and bool(det8.valid.any()), "int8 bs=64 detections are not finite or are empty")
+    held = hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize, predict8, images,
+                          anchors_np, cfg64, det8)
+    stem_err = max(stem_err, held["stem_err"])
+    l2norm_err = max(l2norm_err, held["l2norm_err"])
+    int8_ms = host_ms(torch, lambda: predict8(images), 10)
+    int8_img_per_s = 64 / (statistics.median(int8_ms) / 1e3)
+    print(json.dumps({"phase": "int8_predict_bs64", "quantize_s": quantize_s,
+                      "valid_detections": int(det8.valid.sum()),
+                      "launches": launches["int8_bs64"], "kernels_vs_plain_bit_equal": True,
+                      "stem_input": list(held["stem_args"][0].shape),
+                      "l2norm_input": list(held["l2norm_args"][0].shape),
+                      "median_ms": statistics.median(int8_ms), "img_per_s": int8_img_per_s,
+                      "float_img_per_s": img_per_s, **where}))
+
+    # 8. Full-width int8 SSD-300 through the Predictor, bs=1.
+    predictor8 = Predictor(cfg1, params, VOC_CLASSES, device="cuda", int8=True)
+    dets8, launches["int8_bs1"] = counted(
+        lambda: predictor8.predict_array(image, score_threshold=0.0))
+    for name, n in launches["int8_bs1"].items():
+        check(n >= 1, f"the int8 bs=1 Predictor path never launched the {name} kernel")
+    check(len(dets8) > 0 and all(np.all(np.isfinite(d.box)) and 0 < d.score <= 1 for d in dets8),
+          "the int8 bs=1 Predictor returned no or bad detections")
+    p50_int8_bs1 = statistics.median(host_ms(torch, lambda: predictor8._predict(canvas), 50))
+    print(json.dumps({"phase": "int8_predictor_bs1", "detections": len(dets8),
+                      "launches": launches["int8_bs1"], "p50_ms": p50_int8_bs1,
+                      "float_p50_ms": p50_bs1, **where}))
+
+    # 9. Profile of the int8 bs=64 path; the stem and L2Norm kernels against
+    # their plain versions on that path's own inputs (held bit-equal in 7).
+    print(json.dumps({"phase": "profile_int8_bs64",
+                      **profile_window(torch, lambda: predict8(images), 3), **where}))
+    print(json.dumps({"phase": "profile_int8_bs1",
+                      **profile_window(torch, lambda: predictor8._predict(canvas), 10), **where}))
+    sa, la = held["stem_args"], held["l2norm_args"]
+    stem_out = stem.stem_conv12_pool(*sa)
+    stem_ms = cuda_ms(torch, lambda: stem.stem_conv12_pool(*sa), 20)
+    stem_plain_ms = cuda_ms(torch, lambda: stem.stem_conv12_pool_reference(*sa), 3)
+    stem_bound, stem_bound_by = stem_bound_ms(sa[0], stem_out)
+    l2norm_ms = cuda_ms(torch, lambda: l2norm.l2norm_requant(*la), 50)
+    l2norm_plain_ms = cuda_ms(torch, lambda: l2norm.l2norm_requant_reference(*la), 10)
+    l2norm_bound, l2norm_bound_by = l2norm_bound_ms(la[0])
+    print(json.dumps({"phase": "int8_kernel_timing",
+                      "stem": {"input": list(sa[0].shape), "ms": stem_ms, "plain_ms": stem_plain_ms,
+                               "bound_ms": stem_bound, "bound_by": stem_bound_by},
+                      "l2norm": {"input": list(la[0].shape), "ms": l2norm_ms,
+                                 "plain_ms": l2norm_plain_ms, "bound_ms": l2norm_bound,
+                                 "bound_by": l2norm_bound_by}, **where}))
+    del predict8, held, sa, la, stem_out
+
+    # 10. Against a reference on small inputs: the card vs the CPU.
     # TF32 off, so the card's float32 convs and matmuls are full float32.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -345,24 +494,62 @@ def main() -> int:
     err_full = max((a - b).abs().max().item() for a, b in zip(logits["cuda"], logits["cpu"]))
     check(logits["cuda"][0].shape == (1, 8732, 20) and err_full <= 1e-3,
           f"full-width float32 logits on the card differ from the CPU by {err_full}")
+    int8_check = int8_reference_check(torch, np, engine, postprocess, normalize,
+                                      make_int8_predict_fn, predictor8, tiny, tiny_params,
+                                      tiny_anchors, tiny_images, full, rng)
     print(json.dumps({"phase": "reference_check", "tiny_valid": int(gv.sum()),
-                      "full_width_f32_max_abs_err": err_full}))
+                      "full_width_f32_max_abs_err": err_full, **int8_check}))
 
-    print(json.dumps({"kernels": [{
-        "name": "nms_rows",
-        "route": "cuda",
-        "source": "object_detector_tpu_torch/csrc/nms.cu",
-        "replaces": "object_detector_tpu/kernels/nms_pallas.py:61",
-        "launches": bs1_launches + bs64_launches,
-        "bs1_launches": bs1_launches,
-        "bs64_launches": bs64_launches,
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes a greedy NMS scan
-    }]}))
+    def counts(name: str) -> dict:
+        return {"launches": sum(c[name] for c in launches.values()),
+                "launches_by_path": {path: c[name] for path, c in launches.items()}}
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "nms_rows",
+            "route": "cuda",
+            "source": "object_detector_tpu_torch/csrc/nms.cu",
+            "replaces": "object_detector_tpu/kernels/nms_pallas.py:61",
+            **counts("nms_rows"),
+            "max_abs_err": max_abs_err,
+            "ms": nms_ms,
+            "plain_ms": nms_plain_ms,
+            "bound_ms": nms_bound,
+            "bound_by": nms_bound_by,
+            "library_ms": None,
+            "library_none_because": "no single PyTorch call computes a greedy NMS scan",
+        },
+        {
+            "name": "stem_conv12_pool",
+            "route": "cuda",
+            "source": "object_detector_tpu_torch/csrc/stem.cu",
+            "replaces": "object_detector_tpu/kernels/stem_pallas.py:209",
+            **counts("stem_conv12_pool"),
+            "max_abs_err": stem_err,
+            "ms": stem_ms,
+            "plain_ms": stem_plain_ms,
+            "bound_ms": stem_bound,
+            "bound_by": stem_bound_by,
+            "library_ms": None,
+            "library_none_because": "no single PyTorch call computes an int8 conv with a "
+                                    "requant epilogue and a max pool",
+        },
+        {
+            "name": "l2norm_requant",
+            "route": "cuda",
+            "source": "object_detector_tpu_torch/csrc/l2norm.cu",
+            "replaces": "object_detector_tpu/kernels/l2norm_pallas.py:35",
+            **counts("l2norm_requant"),
+            "max_abs_err": l2norm_err,
+            "ms": l2norm_ms,
+            "plain_ms": l2norm_plain_ms,
+            "bound_ms": l2norm_bound,
+            "bound_by": l2norm_bound_by,
+            "library_ms": None,
+            "library_none_because": "no single PyTorch call computes an L2 norm over int8 codes "
+                                    "with a scale and a requant",
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 
@@ -395,12 +582,105 @@ def hold_path(torch, nms_kernel, normalize, model, images, anchors_np, cfg):
     err = (got_s - want_s).abs().max().item()
     check(torch.equal(got_s, want_s) and torch.equal(got_c, want_c),
           f"bs={b}: nms kernel differs from nms_rows_reference on the path's rows "
-          f"{tuple(scores.shape)}: max_abs_err {err}, {int((got_c != want_c).sum())} columns differ")
-    check(torch.equal(det_k.valid, det_p.valid) and torch.equal(det_k.classes, det_p.classes)
-          and torch.equal(det_k.scores, det_p.scores) and torch.equal(det_k.boxes, det_p.boxes),
+          f"{tuple(scores.shape)}: max_abs_err {err}, "
+          f"{int((got_c != want_c).sum())} columns differ")
+    check(_same_detections(torch, det_k, det_p),
           f"bs={b}: detections through the kernel differ from the plain path")
     captured.update(kernel_scores=got_s, max_abs_err=err, head=(cls_logits, box_offsets))
     return captured, det_k
+
+
+def hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize, predict8, images,
+                   anchors_np, cfg, det8):
+    """Runs the int8 path on ``images`` with its QuantParams, capturing the
+    stem's and the L2Norm's inputs. Holds the detections equal to
+    ``det8`` (the served ones) and to those of the same QuantParams with the
+    plain versions of both kernels, and each kernel bit-equal to its plain
+    version on the captured inputs."""
+    captured = {}
+
+    def capture(name, fn):
+        def run(*args):
+            captured[name] = args
+            return fn(*args)
+        return run
+
+    qp, spec = predict8.qp, predict8.spec
+    anchors = torch.from_numpy(anchors_np).cuda()
+    with torch.inference_mode():
+        x = normalize(images.float() / 255.0)
+        det_k = postprocess(*engine.int8_forward(
+            qp, spec, cfg, x, stem_fn=capture("stem", stem.stem_conv12_pool),
+            l2norm_fn=capture("l2norm", l2norm.l2norm_requant)), anchors, cfg)
+        det_p = postprocess(*engine.int8_forward(
+            qp, spec, cfg, x, stem_fn=stem.stem_conv12_pool_reference,
+            l2norm_fn=l2norm.l2norm_requant_reference), anchors, cfg)
+        sa, la = captured["stem"], captured["l2norm"]
+        stem_k, stem_p = stem.stem_conv12_pool(*sa), stem.stem_conv12_pool_reference(*sa)
+        l2_k, l2_p = l2norm.l2norm_requant(*la), l2norm.l2norm_requant_reference(*la)
+    torch.cuda.synchronize()
+    check(tuple(sa[0].shape) == (images.shape[0], 300, 300, 64),
+          f"the stem's input is {tuple(sa[0].shape)}")
+    check(torch.equal(stem_k, stem_p), "int8 bs=64: the stem kernel differs from its plain "
+          f"version on the path's codes: {int((stem_k != stem_p).sum())}")
+    check(torch.equal(l2_k, l2_p), "int8 bs=64: the L2Norm kernel differs from its plain "
+          f"version on the path's tap: {int((l2_k != l2_p).sum())}")
+    check(_same_detections(torch, det_k, det8), "int8 bs=64: the served detections differ "
+                                                "from the same QuantParams' rerun")
+    check(_same_detections(torch, det_k, det_p), "int8 bs=64: detections through the kernels "
+                                                 "differ from the plain versions'")
+    return {"stem_args": sa, "l2norm_args": la,
+            "stem_err": int((stem_k.int() - stem_p.int()).abs().max()),
+            "l2norm_err": int((l2_k.int() - l2_p.int()).abs().max())}
+
+
+def int8_reference_check(torch, np, engine, postprocess, normalize, make_int8_predict_fn,
+                         predictor8, tiny, tiny_params, tiny_anchors, tiny_images, full, rng):
+    """The int8 engine on the card against the CPU on the same QuantParams:
+    tap codes equal (tiny_test, and full-width SSD-300 at bs=1 with the int8
+    Predictor's QuantParams), the tiny config's logits equal and its
+    detections equal in valid and classes, scores and boxes within 1e-5 (the
+    postprocess' sigmoid and decode may round an ulp apart)."""
+    predict_cpu = make_int8_predict_fn(tiny, tiny_params, tiny_anchors, tiny_images,
+                                       use_pallas=True, device="cpu")
+    qp_cpu, spec = predict_cpu.qp, predict_cpu.spec
+    qp_gpu = qp_cpu.to("cuda")
+    x = normalize(torch.from_numpy(tiny_images).float() / 255.0)
+    with torch.inference_mode():
+        taps = {dev: engine.run_int8(qp, spec, x.to(dev), dequantize_taps=False)
+                for dev, qp in (("cuda", qp_gpu), ("cpu", qp_cpu))}
+        heads = {dev: engine.int8_forward(qp, spec, tiny, x.to(dev))
+                 for dev, qp in (("cuda", qp_gpu), ("cpu", qp_cpu))}
+        dets = {dev: postprocess(*heads[dev], torch.from_numpy(tiny_anchors).to(dev), tiny,
+                                 use_pallas=True) for dev in ("cuda", "cpu")}
+    for (g, _), (c, _) in zip(taps["cuda"], taps["cpu"]):
+        check(torch.equal(g.cpu(), c), "tiny_test int8 tap codes on the card differ from the CPU")
+    for g, c in zip(heads["cuda"], heads["cpu"]):
+        check(torch.equal(g.cpu(), c), "tiny_test int8 logits on the card differ from the CPU")
+    g, c = dets["cuda"], dets["cpu"]
+    gv, cv = g.valid.cpu(), c.valid
+    check(bool(gv.any()) and torch.equal(gv, cv) and torch.equal(g.classes.cpu()[gv], c.classes[cv])
+          and torch.allclose(g.scores.cpu()[gv], c.scores[cv], rtol=0, atol=1e-5)
+          and torch.allclose(g.boxes.cpu()[gv], c.boxes[cv], rtol=0, atol=1e-5),
+          "tiny_test int8 detections on the card differ from the CPU")
+    qp_full = predictor8._predict.qp
+    xf = normalize(torch.from_numpy(rng.integers(0, 256, (1, 300, 300, 3), dtype=np.uint8))
+                   .float() / 255.0)
+    spec_full = engine.build_spec(full)
+    with torch.inference_mode():
+        full_gpu = engine.run_int8(qp_full, spec_full, xf.cuda(), dequantize_taps=False)
+        full_cpu = engine.run_int8(qp_full.to("cpu"), spec_full, xf, dequantize_taps=False)
+    for (g, _), (c, _) in zip(full_gpu, full_cpu):
+        check(torch.equal(g.cpu(), c),
+              f"full-width int8 tap {tuple(c.shape)} on the card differs from the CPU: "
+              f"{int((g.cpu() != c).sum())} codes")
+    return {"int8_tiny_taps_equal": True, "int8_tiny_logits_equal": True,
+            "int8_tiny_valid": int(gv.sum()), "int8_full_width_taps_equal": len(full_cpu)}
+
+
+def _same_detections(torch, a, b) -> bool:
+    return (torch.equal(a.valid, b.valid) and torch.equal(a.classes, b.classes)
+            and torch.equal(a.scores, b.scores) and torch.equal(a.boxes, b.boxes))
 
 
 def _decode_kwargs(cfg) -> dict:

@@ -2,10 +2,11 @@
 
     python -m object_detector_tpu_torch predict --preset ssd300_vgg16_voc --image dog.jpg --output out.jpg
 
-``predict`` serves the float model with random weights from a seed (smoke
-mode), on the card unless ``--device cpu`` is given. Checkpoint restore,
-``--int8``, ``train`` and ``evaluate`` are not ported yet: they say so and
-exit with code 2. Config fields are overridable with
+``predict`` serves the float model, or with ``--int8`` the int8 engine
+(calibrated on 8 random images from a seed), with random weights from a seed
+(smoke mode), on the card unless ``--device cpu`` is given. Checkpoint
+restore, ``train`` and ``evaluate`` are not ported yet: they say so and exit
+with code 2. Config fields are overridable with
 ``--set eval.score_threshold=0.05`` (repeatable).
 """
 
@@ -51,8 +52,6 @@ def _not_ported(what: str) -> int:
 def cmd_predict(args: argparse.Namespace) -> int:
     if args.checkpoint:
         return _not_ported("checkpoint restore (--checkpoint)")
-    if args.int8:
-        return _not_ported("the int8 engine (--int8)")
     cfg = _load_config(args)
     from object_detector_tpu_torch.cli.predictor import Predictor
     from object_detector_tpu_torch.convert import init_params
@@ -64,7 +63,7 @@ def cmd_predict(args: argparse.Namespace) -> int:
         from object_detector_tpu_torch.data.voc import VOC_CLASSES
 
         class_names = VOC_CLASSES
-    predictor = Predictor(cfg, params, class_names, device=args.device)
+    predictor = Predictor(cfg, params, class_names, device=args.device, int8=args.int8)
     dets = predictor.predict_file(args.image, args.score_threshold, args.output)
     for d in dets:
         print(
@@ -91,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--checkpoint", default=None, help="not ported yet")
     sp.add_argument("--output", default=None, help="draw detections here")
     sp.add_argument("--score-threshold", type=float, default=0.3)
-    sp.add_argument("--int8", action="store_true", help="not ported yet")
+    sp.add_argument("--int8", action="store_true", help="serve the int8 PTQ engine")
     sp.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     sp.set_defaults(fn=cmd_predict)
 

@@ -1,8 +1,9 @@
 """Single-image prediction API.
 
 The port of ``object_detector_tpu/cli/predictor.py``: loads an image, runs
-the forward + decode + NMS, and returns detections in original-image pixel
-coordinates; optionally draws and saves them.
+the forward + decode + NMS (float, or the int8 engine), and returns
+detections in original-image pixel coordinates; optionally draws and saves
+them.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from object_detector_tpu_torch.anchors.priors import anchors_for_model
 from object_detector_tpu_torch.core.config import DetectorConfig
-from object_detector_tpu_torch.eval.evaluator import make_predict_fn
+from object_detector_tpu_torch.eval.evaluator import make_int8_predict_fn, make_predict_fn
 from object_detector_tpu_torch.models.ssd import SSDModel
 
 
@@ -28,10 +29,13 @@ class Detection:
 
 
 class Predictor:
-    """Float serving path for one image at a time.
+    """Serving path for one image at a time: the float model, or with
+    ``int8=True`` the int8 engine, quantized once at construction.
 
     ``params`` is the model's state_dict (from `convert.init_params` or
-    `convert.params_from_jax`).
+    `convert.params_from_jax`). The int8 engine calibrates on
+    ``calibration_images_u8``, by default 8 random uint8 images from
+    ``default_rng(0)``, as the reference does.
     """
 
     def __init__(
@@ -41,15 +45,28 @@ class Predictor:
         class_names: Optional[Sequence[str]] = None,
         use_pallas: Optional[bool] = None,
         device: str | torch.device = "cuda",
+        int8: bool = False,
+        calibration_images_u8: Optional[np.ndarray] = None,
     ):
         self.cfg = cfg
         self.class_names = list(class_names) if class_names else [
             f"class_{i}" for i in range(cfg.model.num_classes)
         ]
-        self.model = SSDModel(cfg)
-        self.model.load_state_dict(params)
         anchors = anchors_for_model(cfg.model.family, cfg.anchors, cfg.model.image_size)
-        self._predict = make_predict_fn(cfg, self.model, anchors, use_pallas, device)
+        if int8:
+            if calibration_images_u8 is None:
+                s = cfg.model.image_size
+                calibration_images_u8 = np.random.default_rng(0).integers(
+                    0, 255, (8, s, s, 3), dtype=np.uint8
+                )
+            self.model = None
+            self._predict = make_int8_predict_fn(
+                cfg, params, anchors, calibration_images_u8, use_pallas, device
+            )
+        else:
+            self.model = SSDModel(cfg)
+            self.model.load_state_dict(params)
+            self._predict = make_predict_fn(cfg, self.model, anchors, use_pallas, device)
 
     def predict_array(
         self, image_u8: np.ndarray, score_threshold: float = 0.3

@@ -5,7 +5,9 @@
 ``flatten_tree``, of which `flatten_tree` here is the port's copy) and
 returns the port's ``state_dict``. ``init_params`` is the port's own seeded
 initialiser, with the reference's init scheme; the two give different
-numbers from the same seed.
+numbers from the same seed. ``quant_params_from_jax`` carries the
+reference's int8 ``QuantParams`` across, so both engines can run on the
+same codes and scales.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch import nn
 
 from object_detector_tpu_torch.models.ssd import CLASS_BIAS_INIT, PredictionHead
 from object_detector_tpu_torch.models.vgg import Conv, L2Norm
+from object_detector_tpu_torch.quant.engine import QuantParams
 
 # Stddev correction of a normal truncated to +-2 stddevs (flax/jax
 # variance_scaling "truncated_normal").
@@ -52,6 +55,25 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unexpected flax param {path!r}")
         out[".".join([*scope, leaf])] = torch.tensor(arr)
     return out
+
+
+def quant_params_from_jax(qp: Any) -> QuantParams:
+    """The reference's ``quant.engine.QuantParams`` (arrays, a dict of float
+    activation scales, the flax params tree) -> the port's `QuantParams`.
+
+    A fused-stem ``QuantParams`` holds block 1's kernels packed for the TPU
+    and the plain ones under ``path + "#plain"``; the port takes the plain
+    ones, which is what its stem kernel reads."""
+    def arrays(d: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        # "#plain" entries come last and replace the packed ones.
+        plain_last = sorted(d, key=lambda k: k.endswith("#plain"))
+        return {k.removesuffix("#plain"): torch.from_numpy(np.array(d[k])) for k in plain_last}
+
+    return QuantParams(
+        w_int8=arrays(qp.w_int8), w_scale=arrays(qp.w_scale), bias=arrays(qp.bias),
+        act_scale={k: float(v) for k, v in qp.act_scale.items()},
+        float_params=params_from_jax(flatten_tree(qp.float_params)),
+    )
 
 
 @torch.no_grad()

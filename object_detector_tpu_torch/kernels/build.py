@@ -20,7 +20,7 @@ CSRC_DIR = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "build"
 
 # Kernel name -> source file under csrc/.
-SOURCES = {"nms": "nms.cu"}
+SOURCES = {"nms": "nms.cu", "stem": "stem.cu", "l2norm": "l2norm.cu"}
 
 # -fmad=false: no contraction of a * b + c into an FMA, so the kernels round
 # after every operation as their plain PyTorch versions do.
@@ -48,25 +48,36 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Compile the named kernels (all by default) with ``nvcc``. Returns each
-    new build's compiler output (the ``-Xptxas -v`` register and
-    shared-memory report); sources already built are skipped."""
+    """Compile the named kernels (all by default) with ``nvcc``, one process
+    per source, all started together. Returns each new build's compiler
+    output (the ``-Xptxas -v`` register and shared-memory report); sources
+    already built are skipped."""
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    logs: Dict[str, str] = {}
+    jobs = {}
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True, timeout=900)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, out)
+    logs: Dict[str, str] = {}
+    failed = []
+    for name, (proc, tmp, out) in jobs.items():
+        try:
+            log, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed building {name} (exit {proc.returncode}):\n{proc.stdout}")
+            failed.append(f"nvcc failed building {name} (exit {proc.returncode}):\n{log}")
+            continue
         os.replace(tmp, out)
-        logs[name] = proc.stdout
+        logs[name] = log
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return logs
 
 

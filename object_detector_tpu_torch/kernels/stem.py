@@ -1,0 +1,108 @@
+"""VGG block 1's tail in int8: conv1_2 + dequant + bias + ReLU + requant +
+2x2/s2 max pool, with the fused form as a hand-written CUDA kernel
+(``csrc/stem.cu``).
+
+The port of ``object_detector_tpu/kernels/stem_pallas.py``'s
+``_stem_kernel`` (launched by ``conv12_pool_pair``). The TPU kernel reads an
+odd-pair-packed, halo'd, batch-in-sublanes layout of the conv1_1 codes; that
+layout exists for the TPU's (8, 128) tiles and is not ported. The port's
+contract is the function itself, on NHWC codes:
+
+    stem_conv12_pool(q1, w2, deq, bias, out_scale)
+      q1    (B, H, W, 64) int8 conv1_1 codes, H and W even
+      w2    (3, 3, 64, 64) int8 HWIO conv1_2 kernel
+      deq   (64,) float32, conv1_1's activation scale * conv1_2's weight scale
+      bias  (64,) float32
+      out_scale  conv1_2's activation scale (a float32 scalar)
+    -> (B, H/2, W/2, 64) int8: maxpool2x2(clip(round(relu(
+           conv3x3_same(q1, w2).f32 * deq + bias) / out_scale), -127, 127))
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from object_detector_tpu_torch.kernels import build
+from object_detector_tpu_torch.ops import int8 as int8_ops
+
+Tensor = torch.Tensor
+
+CHANNELS = 64
+
+
+def stem_conv12_pool_reference(
+    q1: Tensor, w2: Tensor, deq: Tensor, bias: Tensor, out_scale: float
+) -> Tensor:
+    """Plain PyTorch version: the reference's unfused chain (int8 conv,
+    requant epilogue, then the int8 max pool), on either device."""
+    acc = int8_ops.conv_int8(q1, w2, 1, "SAME", 1)
+    scale = int8_ops.scale_tensor(float(out_scale), q1.device)
+    q2 = int8_ops.requant_epilogue(acc, deq, bias, scale, relu=True)
+    return int8_ops.max_pool(q2, 2, 2)
+
+
+def _check(q1: Tensor, w2: Tensor, deq: Tensor, bias: Tensor) -> None:
+    if q1.dim() != 4 or q1.shape[-1] != CHANNELS or q1.shape[1] % 2 or q1.shape[2] % 2:
+        raise ValueError(f"q1 must be (B, H, W, {CHANNELS}) with H, W even, got {tuple(q1.shape)}")
+    if tuple(w2.shape) != (3, 3, CHANNELS, CHANNELS):
+        raise ValueError(f"w2 must be (3, 3, {CHANNELS}, {CHANNELS}), got {tuple(w2.shape)}")
+    if tuple(deq.shape) != (CHANNELS,) or tuple(bias.shape) != (CHANNELS,):
+        raise ValueError(f"deq and bias must be ({CHANNELS},), got {tuple(deq.shape)}, "
+                         f"{tuple(bias.shape)}")
+    if q1.dtype != torch.int8 or w2.dtype != torch.int8:
+        raise TypeError(f"q1 and w2 must be int8, got {q1.dtype} and {w2.dtype}")
+    if deq.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError(f"deq and bias must be float32, got {deq.dtype} and {bias.dtype}")
+    for t in (w2, deq, bias):
+        if t.device != q1.device:
+            raise ValueError(f"all operands must be on {q1.device}, got one on {t.device}")
+
+
+def stem_conv12_pool(q1: Tensor, w2: Tensor, deq: Tensor, bias: Tensor, out_scale: float) -> Tensor:
+    """Launches the CUDA kernel for CUDA tensors and runs
+    `stem_conv12_pool_reference` for CPU tensors. ``stem_conv12_pool.launches``
+    counts kernel launches."""
+    _check(q1, w2, deq, bias)
+    if q1.device.type == "cpu":
+        return stem_conv12_pool_reference(q1, w2, deq, bias, out_scale)
+    if q1.device.type != "cuda":
+        raise ValueError(f"stem_conv12_pool runs on cuda or cpu tensors, got {q1.device}")
+    if not (q1.is_contiguous() and deq.is_contiguous() and bias.is_contiguous()) \
+            or q1.data_ptr() % 16:
+        raise ValueError("stem_conv12_pool takes contiguous, 16-byte aligned q1, deq and bias")
+    b, h, w, _ = q1.shape
+    out = torch.empty((b, h // 2, w // 2, CHANNELS), dtype=torch.int8, device=q1.device)
+    if out.numel() == 0:
+        return out
+    # (ky, kx, cin, cout) -> words (ky*3+kx, cin/4, cout) of 4 input channels,
+    # the operand layout of the kernel's __dp4a.
+    w_words = (w2.reshape(9, CHANNELS // 4, 4, CHANNELS).permute(0, 1, 3, 2)
+               .contiguous().view(torch.int32))
+    with torch.cuda.device(q1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().stem_conv12_pool(
+            q1.data_ptr(), w_words.data_ptr(), deq.data_ptr(), bias.data_ptr(),
+            float(out_scale), b, h, w, out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"stem_conv12_pool kernel launch failed with CUDA error {err}")
+    stem_conv12_pool.launches += 1
+    return out
+
+
+stem_conv12_pool.launches = 0
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("stem")
+    fn = lib.stem_conv12_pool
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return lib

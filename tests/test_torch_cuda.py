@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from object_detector_tpu_torch.kernels import l2norm, stem
 from object_detector_tpu_torch.kernels import nms as nms_kernel
 
 # The SSD-300 bs=64 shape: 64 images x 20 classes, 512 candidates, 100 out.
@@ -20,7 +21,7 @@ ROWS, K, MAX_OUT = 1280, 512, 100
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with CUDA: the NMS kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA GPU with CUDA: the port's CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -63,3 +64,41 @@ def test_nms_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         nms_kernel.nms_rows(coords[:, :, ::2], scores[:, ::2], **kw)
     with pytest.raises(ValueError):
         nms_kernel.nms_rows(coords, scores, **{**kw, "max_out": K + 1})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "saturating", "negative_bias", "ragged_tile"])
+def test_stem_kernel_bit_equal_to_plain_version(cuda_device, kind):
+    """The fused conv1_2 + pool against its plain version. "ragged_tile":
+    a pooled size that is not a multiple of the kernel's 8 x 8 tile."""
+    rng = np.random.default_rng(5)
+    h, w = (22, 36) if kind == "ragged_tile" else (32, 32)
+    lim = 128 if kind == "saturating" else 10
+    q1 = rng.integers(-lim + 1, lim, (3, h, w, 64), dtype=np.int8)
+    w2 = rng.integers(-lim + 1, lim, (3, 3, 64, 64)).astype(np.int8)
+    deq = ((rng.random(64) + 0.5) * (0.2 if kind == "saturating" else 1e-2)).astype(np.float32)
+    bias = (rng.normal(size=64) * 0.1).astype(np.float32)
+    if kind == "negative_bias":
+        bias = -np.abs(bias) - 100.0
+    args = [torch.from_numpy(a).to(cuda_device) for a in (q1, w2, deq, bias)]
+    before = stem.stem_conv12_pool.launches
+    got = stem.stem_conv12_pool(*args, 0.021)
+    torch.cuda.synchronize()
+    assert stem.stem_conv12_pool.launches == before + 1
+    want = stem.stem_conv12_pool_reference(*args, 0.021)
+    assert got.shape == (3, h // 2, w // 2, 64) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_l2norm_kernel_bit_equal_to_plain_version(cuda_device):
+    rng = np.random.default_rng(6)
+    q0 = rng.integers(-127, 128, (2, 38, 38, 512), dtype=np.int8)
+    q0[0, :3] = 0  # all-zero pixels
+    gamma = (rng.random(512) * 20.0).astype(np.float32)
+    q0_t, gamma_t = torch.from_numpy(q0).to(cuda_device), torch.from_numpy(gamma).to(cuda_device)
+    before = l2norm.l2norm_requant.launches
+    got = l2norm.l2norm_requant(q0_t, gamma_t, 0.137)
+    torch.cuda.synchronize()
+    assert l2norm.l2norm_requant.launches == before + 1
+    assert torch.equal(got, l2norm.l2norm_requant_reference(q0_t, gamma_t, 0.137))
+    assert not got[0, :3].any()

@@ -100,7 +100,7 @@ def test_cli_predict_runs_on_cpu(tmp_path):
 @pytest.mark.parametrize(
     "argv",
     [
-        ["predict", "--preset", "tiny_test", "--image", "x.png", "--int8"],
+        ["evaluate", "--preset", "tiny_test", "--int8"],
         ["predict", "--preset", "tiny_test", "--image", "x.png", "--checkpoint", "ck"],
         ["evaluate", "--preset", "tiny_test", "--checkpoint", "ck"],
         ["train", "--preset", "tiny_test"],
