@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from csrc/ with nvcc, one process per source;
+  2. build every CUDA kernel from csrc/ with nvcc, one process per source
+     (a source built before, unchanged, is reused);
   3. hold the NMS kernel against its plain PyTorch version at the SSD-300
      bs=64 shape (R=1280 rows, k=512, max_out=100): dense, sparse and
      tie-heavy scores, bit-equal; hold the stem and L2Norm kernels against
@@ -23,8 +24,12 @@ Phases, each fatal on failure:
      QuantParams run with the plain versions of the stem and L2Norm, hold
      each kernel bit-equal to its plain version on the path's own inputs,
      time img/s;
-  8. serve one image through Predictor(int8=True) at full width, bs=1, and
-     time its p50 beside the float path's;
+  8. serve one image through Predictor(int8=True) at full width, bs=1: check
+     that all three kernels ran, hold the stem and L2Norm kernels bit-equal
+     to their plain versions on that path's own inputs (its conv1_1 codes
+     (1, 300, 300, 64) and its tap (1, 38, 38, 512)), hold the served
+     detections bit-equal to the same QuantParams run with the plain
+     versions, and time its p50 beside the float path's;
   9. profile both int8 paths and time the stem and L2Norm kernels
      against their plain versions on the bs=64 path's own inputs;
  10. check the outputs against a reference on small inputs: the card against
@@ -144,9 +149,10 @@ PROFILE_GROUPS = (
 
 
 def profile_window(torch, fn, iters: int) -> dict:
-    """Device time by kernel over iters calls of fn() (torch.profiler), and
-    the device's busy share of the window's wall time. Reports "not
-    measured" if the profiler sees no device time."""
+    """Device time by kernel over iters calls of fn() (torch.profiler), the
+    device's busy share of the window's wall time, and the device operations
+    (kernels and copies) a call issues. Reports "not measured" if the
+    profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -158,6 +164,7 @@ def profile_window(torch, fn, iters: int) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = {}
+    launched = 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -165,6 +172,7 @@ def profile_window(torch, fn, iters: int) -> dict:
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         kernels[e.key] = kernels.get(e.key, 0.0) + us
+        launched += e.count
     busy_us = sum(kernels.values())
     if busy_us <= 0:
         return {"device_time": "not measured"}
@@ -179,6 +187,7 @@ def profile_window(torch, fn, iters: int) -> dict:
         "wall_ms_per_call": wall_us / iters / 1e3,
         "device_busy_ms_per_call": busy_us / iters / 1e3,
         "device_busy_share": busy_us / wall_us,
+        "device_ops_per_call": launched / iters,
         "device_ms_per_call_by_group": {g: us / iters / 1e3 for g, us in groups.items()},
         "top_kernels_ms_per_call": [[name[:90], us / iters / 1e3] for name, us in top],
     }
@@ -264,10 +273,10 @@ def main() -> int:
     # 2. Build every kernel.
     t0 = time.perf_counter()
     logs = build.build()
-    print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
-                      "built": sorted(logs)}))
-    check(set(logs) == set(build.SOURCES),
-          f"built {sorted(logs)}, expected {sorted(build.SOURCES)}")
+    missing = [n for n in build.SOURCES if not build.library_path(n).exists()]
+    print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0, "built": sorted(logs),
+                      "already_built": sorted(set(build.SOURCES) - set(logs))}))
+    check(not missing, f"no library for {missing} after the build")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -416,8 +425,10 @@ def main() -> int:
     check(det8.boxes.shape == (64, cfg64.eval.max_detections, 4)
           and bool(torch.isfinite(det8.boxes).all()) and bool(torch.isfinite(det8.scores).all())
           and bool(det8.valid.any()), "int8 bs=64 detections are not finite or are empty")
-    held = hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize, predict8, images,
-                          anchors_np, cfg64, det8)
+    held = hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize, predict8,
+                          images, anchors_np, cfg64)
+    check(_same_detections(torch, held["detections"], det8),
+          "int8 bs=64: the served detections differ from the same QuantParams' rerun")
     stem_err = max(stem_err, held["stem_err"])
     l2norm_err = max(l2norm_err, held["l2norm_err"])
     int8_ms = host_ms(torch, lambda: predict8(images), 10)
@@ -438,10 +449,29 @@ def main() -> int:
         check(n >= 1, f"the int8 bs=1 Predictor path never launched the {name} kernel")
     check(len(dets8) > 0 and all(np.all(np.isfinite(d.box)) and 0 < d.score <= 1 for d in dets8),
           "the int8 bs=1 Predictor returned no or bad detections")
+    # The kernels against their plain versions on the inputs this path gave
+    # them, and the served detections against the plain versions' run.
+    held1 = hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize,
+                           predictor8._predict, torch.from_numpy(canvas1[None]).cuda(),
+                           anchors_np, cfg1)
+    stem_err = max(stem_err, held1["stem_err"])
+    l2norm_err = max(l2norm_err, held1["l2norm_err"])
+    det1 = held1["detections"]
+    v1 = det1.valid[0]
+    ih, iw = image.shape[:2]
+    served = torch.tensor([[d.score, d.class_id, *d.box] for d in dets8], dtype=torch.float32)
+    want = torch.cat([det1.scores[0][v1, None], det1.classes[0][v1, None].float(),
+                      det1.boxes[0][v1] * torch.tensor([iw, ih, iw, ih], dtype=torch.float32,
+                                                       device="cuda")], dim=1).cpu()
+    check(torch.equal(served, want), "int8 bs=1: the served detections differ from the "
+                                     "plain versions' run on the same canvas")
     p50_int8_bs1 = statistics.median(host_ms(torch, lambda: predictor8._predict(canvas), 50))
     print(json.dumps({"phase": "int8_predictor_bs1", "detections": len(dets8),
-                      "launches": launches["int8_bs1"], "p50_ms": p50_int8_bs1,
-                      "float_p50_ms": p50_bs1, **where}))
+                      "launches": launches["int8_bs1"], "kernels_vs_plain_bit_equal": True,
+                      "stem_input": list(held1["stem_args"][0].shape),
+                      "l2norm_input": list(held1["l2norm_args"][0].shape),
+                      "p50_ms": p50_int8_bs1, "float_p50_ms": p50_bs1, **where}))
+    del held1, det1
 
     # 9. Profile of the int8 bs=64 path; the stem and L2Norm kernels against
     # their plain versions on that path's own inputs (held bit-equal in 7).
@@ -591,12 +621,14 @@ def hold_path(torch, nms_kernel, normalize, model, images, anchors_np, cfg):
 
 
 def hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize, predict8, images,
-                   anchors_np, cfg, det8):
-    """Runs the int8 path on ``images`` with its QuantParams, capturing the
-    stem's and the L2Norm's inputs. Holds the detections equal to
-    ``det8`` (the served ones) and to those of the same QuantParams with the
-    plain versions of both kernels, and each kernel bit-equal to its plain
-    version on the captured inputs."""
+                   anchors_np, cfg):
+    """Runs the int8 path of ``predict8`` (a `make_int8_predict_fn` result)
+    on ``images`` (uint8, on the card) with its QuantParams, capturing the
+    stem's and the L2Norm's inputs. Holds the detections through the kernels
+    equal to those of the same QuantParams with the plain versions of both
+    kernels, and each kernel bit-equal to its plain version on the captured
+    inputs. Returns the captured inputs, the largest code differences and
+    the detections through the kernels."""
     captured = {}
 
     def capture(name, fn):
@@ -619,17 +651,17 @@ def hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize, predict8
         stem_k, stem_p = stem.stem_conv12_pool(*sa), stem.stem_conv12_pool_reference(*sa)
         l2_k, l2_p = l2norm.l2norm_requant(*la), l2norm.l2norm_requant_reference(*la)
     torch.cuda.synchronize()
-    check(tuple(sa[0].shape) == (images.shape[0], 300, 300, 64),
-          f"the stem's input is {tuple(sa[0].shape)}")
-    check(torch.equal(stem_k, stem_p), "int8 bs=64: the stem kernel differs from its plain "
+    b, s, f0 = images.shape[0], cfg.model.image_size, cfg.anchors.feature_sizes[0]
+    check(tuple(sa[0].shape) == (b, s, s, 64), f"bs={b}: the stem's input is {tuple(sa[0].shape)}")
+    check(tuple(la[0].shape) == (b, f0, f0, 512),
+          f"bs={b}: the L2Norm's input is {tuple(la[0].shape)}")
+    check(torch.equal(stem_k, stem_p), f"int8 bs={b}: the stem kernel differs from its plain "
           f"version on the path's codes: {int((stem_k != stem_p).sum())}")
-    check(torch.equal(l2_k, l2_p), "int8 bs=64: the L2Norm kernel differs from its plain "
+    check(torch.equal(l2_k, l2_p), f"int8 bs={b}: the L2Norm kernel differs from its plain "
           f"version on the path's tap: {int((l2_k != l2_p).sum())}")
-    check(_same_detections(torch, det_k, det8), "int8 bs=64: the served detections differ "
-                                                "from the same QuantParams' rerun")
-    check(_same_detections(torch, det_k, det_p), "int8 bs=64: detections through the kernels "
+    check(_same_detections(torch, det_k, det_p), f"int8 bs={b}: detections through the kernels "
                                                  "differ from the plain versions'")
-    return {"stem_args": sa, "l2norm_args": la,
+    return {"stem_args": sa, "l2norm_args": la, "detections": det_k,
             "stem_err": int((stem_k.int() - stem_p.int()).abs().max()),
             "l2norm_err": int((l2_k.int() - l2_p.int()).abs().max())}
 

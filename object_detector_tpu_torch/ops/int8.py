@@ -14,7 +14,7 @@ by its reciprocal, which flips codes at rounding boundaries.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -27,13 +27,12 @@ Padding = Union[str, int]
 # torch._int_mm on CUDA (cuBLASLt) takes more than 16 rows and inner and
 # outer widths that are multiples of 8. On an H100 (torch 2.11, CUDA 12.8)
 # it also refused every inner width of 32 with 64 or more columns unless the
-# rows were a multiple of 32 (1602 shapes, `tools/torch_chip_probes.py
-# gemm-shapes`); conv1_1's 27 taps are padded to 32. So rows are padded to a
-# multiple of 32 and widths to a multiple of 8, with zero codes, which is
-# exact, and the result is sliced. The right operand goes in column-major:
-# cuBLASLt then runs its int8 tensor-core GEMM ("tn") instead of a WMMA
-# fallback ("nn"), 2.4 to 7.7 times faster at the trunk's shapes on the same
-# card (`gemm-layout`).
+# rows were a multiple of 32 (63 of 1602 shapes tried); conv1_1's
+# 27 taps are padded to 32. So rows are padded to a multiple of 32 and
+# widths to a multiple of 8, with zero codes, which is exact, and the result
+# is sliced. The right operand goes in column-major: cuBLASLt then runs its
+# int8 tensor-core GEMM ("tn") instead of a WMMA fallback ("nn"), 2.4 to 7.7
+# times faster at the trunk's shapes on the same card.
 _MM_ROW_MULTIPLE = 32
 _MM_MULTIPLE = 8
 
@@ -47,19 +46,31 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def int_matmul(a: Tensor, b: Tensor) -> Tensor:
-    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact."""
+def gemm_operand(w: Tensor) -> Tensor:
+    """An HWIO int8 kernel as `int_matmul`'s right operand: (K, N), K =
+    kh * kw * cin in the kernel's row order. On the card both widths are
+    padded to a multiple of 8 with zero codes and the operand is
+    column-major. A caller that reuses a kernel lays it out once."""
+    kh, kw, cin, cout = w.shape
+    b = w.reshape(kh * kw * cin, cout)
+    if b.device.type != "cuda":
+        return b
+    k, n = b.shape
+    pad = (0, _round_up(k, _MM_MULTIPLE) - k, 0, _round_up(n, _MM_MULTIPLE) - n)
+    return F.pad(b.t(), pad).contiguous().t()
+
+
+def int_matmul(a: Tensor, b: Tensor, n: int) -> Tensor:
+    """(M, K) int8 @ `gemm_operand` ``b`` -> (M, n) int32, exact; ``n`` is
+    the kernel's output width (``b`` may be wider on the card)."""
     if a.device.type != "cuda":
         return torch._int_mm(a, b)
     m, k = a.shape
-    n = b.shape[1]
-    mp, kp, np_ = _round_up(m, _MM_ROW_MULTIPLE), _round_up(k, _MM_MULTIPLE), \
-        _round_up(n, _MM_MULTIPLE)
+    mp, kp = _round_up(m, _MM_ROW_MULTIPLE), b.shape[0]
     if (mp, kp) != (m, k):
         a = F.pad(a, (0, kp - k, 0, mp - m))
-    b_col_major = F.pad(b.t(), (0, kp - k, 0, np_ - n)).contiguous().t()
-    out = torch._int_mm(a, b_col_major)
-    return out[:m, :n] if (mp, np_) != (m, n) else out
+    out = torch._int_mm(a, b)
+    return out[:m, :n] if (mp, b.shape[1]) != (m, n) else out
 
 
 def conv_pads(size: int, kernel: int, stride: int, dilation: int,
@@ -80,6 +91,7 @@ def conv_int8(
     stride: int = 1,
     padding: Padding = "SAME",
     dilation: int = 1,
+    operand: Optional[Tensor] = None,  # gemm_operand(w), if laid out already
 ) -> Tensor:
     """Int8 conv with int32 accumulation, flax/XLA padding (zero codes):
     (B, Ho, Wo, Cout) int32, equal to ``lax.conv_general_dilated`` with
@@ -109,7 +121,7 @@ def conv_int8(
             (sb, sh * stride, sw * stride, sh * dilation, sw * dilation, sc),
         )
         patches = windows.reshape(b * ho * wo, -1).view(torch.int8)
-    acc = int_matmul(patches, w.reshape(kh * kw * cin, cout))
+    acc = int_matmul(patches, gemm_operand(w) if operand is None else operand, cout)
     return acc.reshape(b, ho, wo, cout)
 
 

@@ -245,6 +245,31 @@ class QuantParams:
     bias: Dict[str, Tensor]  # path -> (out_ch,) float32
     act_scale: Dict[str, float]  # stage path (or __input__, __l2norm__) -> scale
     float_params: Dict[str, Tensor]  # the model's state_dict
+    # Constants derived from the fields above on their device (GEMM operands,
+    # deq vectors, scale tensors), each made on first use and kept.
+    _derived: Dict[Any, Tensor] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+
+    def derived(self, key: Any, make: Callable[[], Tensor]) -> Tensor:
+        """``make()``, computed once per ``key``. The fields must not change
+        after the first call."""
+        value = self._derived.get(key)
+        if value is None:
+            value = self._derived[key] = make()
+        return value
+
+    def scale(self, s: float, device: torch.device) -> Tensor:
+        """The scale ``s`` as a 0-dim float32 tensor on ``device``."""
+        return self.derived(("scale", s, device), lambda: int8_ops.scale_tensor(s, device))
+
+    def deq(self, path: str, in_scale: float, device: torch.device) -> Tensor:
+        """float32(in_scale) * w_scale[path], the conv's dequant vector."""
+        return self.derived(("deq", path, in_scale, device),
+                            lambda: self.scale(in_scale, device) * self.w_scale[path])
+
+    def gemm_operand(self, path: str) -> Tensor:
+        """w_int8[path] laid out as `int8_ops.int_matmul`'s right operand."""
+        return self.derived(("gemm", path), lambda: int8_ops.gemm_operand(self.w_int8[path]))
 
     def to(self, device: str | torch.device) -> "QuantParams":
         def move(d: Mapping[str, Tensor]) -> Dict[str, Tensor]:
@@ -342,19 +367,15 @@ def run_int8(
     ``stem_fn`` is block 1's conv1_2 + pool (the kernel wrapper unless a
     caller swaps in `stem_conv12_pool_reference`)."""
     dev = images.device
-
-    def scale(s: float) -> Tensor:
-        return int8_ops.scale_tensor(s, dev)
-
     cur_scale = qp.act_scale["__input__"]
-    x = int8_ops.quantize(images.to(torch.float32, copy=True), scale(cur_scale))
+    x = int8_ops.quantize(images.to(torch.float32, copy=True), qp.scale(cur_scale, dev))
     taps: List[Any] = [None] * _num_taps(spec)
 
     def conv(x: Tensor, op: ConvOp, in_scale: float) -> Tensor:
-        acc = int8_ops.conv_int8(x, qp.w_int8[op.path], op.stride, op.padding, op.dilation)
-        deq = scale(in_scale) * qp.w_scale[op.path]  # float32(in_scale) * w_scale
-        return int8_ops.requant_epilogue(
-            acc, deq, qp.bias[op.path], scale(qp.act_scale[op.path]), op.relu)
+        acc = int8_ops.conv_int8(x, qp.w_int8[op.path], op.stride, op.padding, op.dilation,
+                                 operand=qp.gemm_operand(op.path))
+        return int8_ops.requant_epilogue(acc, qp.deq(op.path, in_scale, dev), qp.bias[op.path],
+                                         qp.scale(qp.act_scale[op.path], dev), op.relu)
 
     for op in spec:
         if isinstance(op, ConvOp):
@@ -363,8 +384,7 @@ def run_int8(
         elif isinstance(op, FusedStemOp):
             x = conv(x, ConvOp(op.path1), cur_scale)
             s1, s2 = qp.act_scale[op.path1], qp.act_scale[op.path2]
-            x = stem_fn(x, qp.w_int8[op.path2], scale(s1) * qp.w_scale[op.path2],
-                        qp.bias[op.path2], s2)
+            x = stem_fn(x, qp.w_int8[op.path2], qp.deq(op.path2, s1, dev), qp.bias[op.path2], s2)
             cur_scale = s2
         elif isinstance(op, PoolOp):
             x = int8_ops.max_pool(x, op.size, op.stride, op.pad_same)
@@ -411,11 +431,11 @@ def apply_heads_int8(
     cls_out, box_out = [], []
     for level, ((tap, s_tap), a) in enumerate(zip(taps, cfg.anchors.anchors_per_level)):
         b, h, w, _ = tap.shape
-        s_t = int8_ops.scale_tensor(s_tap, tap.device)
         for kind, out, width in (("cls", cls_out, cfg.model.num_classes), ("box", box_out, 4)):
             path = f"head{level}/{kind}"
-            acc = int8_ops.conv_int8(tap, qp.w_int8[path], 1, "SAME", 1)
-            y = acc.to(torch.float32).mul_(s_t * qp.w_scale[path]).add_(qp.bias[path])
+            acc = int8_ops.conv_int8(tap, qp.w_int8[path], 1, "SAME", 1,
+                                     operand=qp.gemm_operand(path))
+            y = acc.to(torch.float32).mul_(qp.deq(path, s_tap, tap.device)).add_(qp.bias[path])
             if kind == "cls":
                 y = y.to(logits_dtype)
             out.append(y.reshape(b, h * w * a, width))

@@ -13,6 +13,7 @@ import torch
 
 from object_detector_tpu_torch.kernels import l2norm, stem
 from object_detector_tpu_torch.kernels import nms as nms_kernel
+from object_detector_tpu_torch.ops import int8 as int8_ops
 
 # The SSD-300 bs=64 shape: 64 images x 20 classes, 512 candidates, 100 out.
 ROWS, K, MAX_OUT = 1280, 512, 100
@@ -90,9 +91,12 @@ def test_stem_kernel_bit_equal_to_plain_version(cuda_device, kind):
 
 
 @pytest.mark.cuda
-def test_l2norm_kernel_bit_equal_to_plain_version(cuda_device):
+@pytest.mark.parametrize("batch", [2, 1])
+def test_l2norm_kernel_bit_equal_to_plain_version(cuda_device, batch):
+    """batch 1: 1444 pixels, not a multiple of the kernel's 8 pixels a
+    block, so the last block is partial (the bs=1 serving path's tap)."""
     rng = np.random.default_rng(6)
-    q0 = rng.integers(-127, 128, (2, 38, 38, 512), dtype=np.int8)
+    q0 = rng.integers(-127, 128, (batch, 38, 38, 512), dtype=np.int8)
     q0[0, :3] = 0  # all-zero pixels
     gamma = (rng.random(512) * 20.0).astype(np.float32)
     q0_t, gamma_t = torch.from_numpy(q0).to(cuda_device), torch.from_numpy(gamma).to(cuda_device)
@@ -102,3 +106,22 @@ def test_l2norm_kernel_bit_equal_to_plain_version(cuda_device):
     assert l2norm.l2norm_requant.launches == before + 1
     assert torch.equal(got, l2norm.l2norm_requant_reference(q0_t, gamma_t, 0.137))
     assert not got[0, :3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (90000, 27, 64),  # conv1_1 at bs=1: cuBLASLt refused inner width 32 at these rows
+    (90001, 27, 64),
+    (40, 32, 64),
+    (1, 4608, 84),  # a head conv on the 1 x 1 level at bs=1: one row, 84 columns
+    (17, 4608, 126),
+    (361, 1024, 1024),
+])
+def test_int_matmul_takes_the_shapes_cublaslt_refuses(cuda_device, m, k, n):
+    """int_matmul pads around cuBLASLt's int8 GEMM limits (rows, widths,
+    inner width 32) and equals the CPU's exact product."""
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (1, 1, k, n), dtype=np.int8))
+    got = int8_ops.int_matmul(a.to(cuda_device), int8_ops.gemm_operand(w.to(cuda_device)), n)
+    assert got.shape == (m, n) and torch.equal(got.cpu(), torch._int_mm(a, w.reshape(k, n)))

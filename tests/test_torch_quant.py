@@ -132,6 +132,25 @@ def test_run_int8_tap_codes_bit_equal(tiny, fused_stem):
         np.testing.assert_array_equal(t.float().numpy(), np.asarray(t_ref, np.float32))
 
 
+def test_run_int8_lays_out_constants_once(tiny):
+    """The first call fills the QuantParams' cache of laid-out constants;
+    the fused and unfused specs share it and still give the reference's
+    codes, a repeated call adds nothing, and `to` starts a new cache."""
+    ref_cfg, cfg, params, state, x, ref_qp = tiny
+    want = ref_engine.run_int8(ref_qp, ref_engine.build_ssd_spec(ref_cfg), jnp.asarray(x),
+                               dequantize_taps=False)
+    qp = quant_params_from_jax(ref_qp)
+    sizes = []
+    for fused_stem in (True, False, True):
+        got = engine.run_int8(qp, engine.build_ssd_spec(cfg, fused_stem=fused_stem),
+                              torch.from_numpy(x), dequantize_taps=False)
+        for (q, _), (q_ref, _) in zip(got, want):
+            np.testing.assert_array_equal(q.numpy(), np.asarray(q_ref))
+        sizes.append(len(qp._derived))
+    assert 0 < sizes[0] < sizes[1] == sizes[2]
+    assert not qp.to("cpu")._derived
+
+
 @pytest.mark.parametrize("int8_heads,atol", [(True, 1e-5), (False, 1e-4)])
 def test_int8_forward_matches_reference(tiny, int8_heads, atol):
     """Int8 heads: the same codes and the same float32 epilogue. Float heads
