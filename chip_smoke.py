@@ -35,7 +35,27 @@ Phases, each fatal on failure:
  10. check the outputs against a reference on small inputs: the card against
      the CPU, float32 with TF32 off, for the tiny config's detections and the
      full-width model's logits; and on the same QuantParams, the int8 tap
-     codes (tiny and full width) and the tiny config's int8 detections.
+     codes (tiny and full width) and the tiny config's int8 detections;
+ 11. hold the pool-backward kernel bit-equal to its plain PyTorch version at
+     the four SSD-300 bs=32 pool shapes in bfloat16 and at one in float32, on
+     random, tie-heavy (post-ReLU), three-level (the maximum ties at any
+     positions), all-zero and negative-zero inputs, and on a small
+     (1, 6, 10, 3) case whose 3 channels take the one-channel route;
+     report whether ATen's max-pool backward is bit-equal on the same inputs;
+ 12. train full-width ssd300_vgg16_voc with model.pool_grad_kernel=True at
+     bs=32 in bfloat16 through train(): the synthetic dataset, augmentation
+     on, seeded random weights, DecodedCache, epoch_batches, the prefetcher,
+     a checkpoint; check every loss finite and 4 pool-kernel launches a step;
+ 13. hold the training path: the kernel equals its plain version bit for bit
+     on that path's own activations and cotangents at each of the four
+     pools, and one step's gradients through the kernel equal the same
+     step's through the plain version;
+ 14. overfit one batch (no augmentation, no warmup): the loss falls;
+ 15. one step's loss and gradients on the card against the CPU (tiny_test,
+     float32, TF32 off);
+ 16. time the training step at bs=32, profile it, and time the pool kernel
+     at the path's four shapes beside its bound, its plain version and
+     ATen's max-pool backward.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -72,6 +92,22 @@ NMS_OPS_PER_COLUMN_HOISTED = 6
 # float32 operations per element of the L2Norm: square and add into the
 # sum, the two products, the divide, the rounding and the two clamps.
 L2NORM_OPS_PER_ELEMENT = 2 + 2 + 1 + 1 + 2
+# Compares per channel of a window in the pool backward: 3 for the maximum
+# of four and 4 equalities. Counted against the float32 rate; the bytes win.
+POOL_BWD_OPS_PER_WINDOW = 3 + 4
+# The pools' inputs in an SSD-300 training step, (H, W, C) in the reference's
+# terms; pool3's 75 x 75 is padded to 76 x 76.
+TRAIN_BATCH = 32
+POOL_SHAPES = ((300, 300, 64), (150, 150, 128), (76, 76, 256), (38, 38, 512))
+# Overfitting one bs=32 batch of the synthetic dataset for OVERFIT_STEPS
+# steps of SGD at OVERFIT_LR must bring the loss below OVERFIT_FALL of its
+# first value. On an NVIDIA H100 80GB HBM3 (700 W) the loss went from 4.13 to
+# 2.50, 0.605 of its start, falling at every tenth step.
+OVERFIT_STEPS, OVERFIT_LR, OVERFIT_FALL = 60, 2e-3, 0.8
+
+
+# The kernels the two int8 serving paths must launch.
+INT8_PATH_KERNELS = ("nms_rows", "stem_conv12_pool", "l2norm_requant")
 
 
 def fail(msg: str) -> None:
@@ -143,6 +179,7 @@ PROFILE_GROUPS = (
     ("nms_kernel", ("nms_rows_kernel",)),
     ("stem_kernel", ("stem_conv12_pool_kernel",)),
     ("l2norm_kernel", ("l2norm_requant_kernel",)),
+    ("pool_bwd_kernel", ("pool_bwd_kernel",)),
     ("conv_or_gemm", ("conv", "cudnn", "gemm", "xmma", "implicit", "wgrad", "dgrad", "cutlass",
                       "imma", "sm90")),
 )
@@ -228,6 +265,14 @@ def l2norm_bound_ms(q0):
     return bound(2 * q0.numel() + 4 * c, L2NORM_OPS_PER_ELEMENT * q0.numel(), F32_OPS_PER_S)
 
 
+def pool_bwd_bound_ms(x, g):
+    """x and g read once, dx written once (the kernel recomputes the maximum
+    and does not read y), against the compares over the float32 rate."""
+    windows = g.numel()
+    bytes_moved = (2 * x.numel() + g.numel()) * x.element_size()
+    return bound(bytes_moved, POOL_BWD_OPS_PER_WINDOW * windows, F32_OPS_PER_S)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -241,12 +286,17 @@ def main() -> int:
         from object_detector_tpu_torch.core.config import get_config
         from object_detector_tpu_torch.data.voc import VOC_CLASSES
         from object_detector_tpu_torch.eval.evaluator import make_int8_predict_fn, make_predict_fn
-        from object_detector_tpu_torch.kernels import build, l2norm, stem
+        from object_detector_tpu_torch.data.pipeline import DecodedCache, make_place
+        from object_detector_tpu_torch.data.synthetic import make_synthetic_dataset
+        from object_detector_tpu_torch.kernels import build, l2norm, pool_bwd, stem
         from object_detector_tpu_torch.kernels import nms as nms_kernel
         from object_detector_tpu_torch.models.ssd import SSDModel
+        from object_detector_tpu_torch.ops import pooling
         from object_detector_tpu_torch.ops.augment import normalize
         from object_detector_tpu_torch.ops.postprocess import postprocess
         from object_detector_tpu_torch.quant import engine
+        from object_detector_tpu_torch.train.loop import init_model_state, train
+        from object_detector_tpu_torch.train.step import make_train_step
     except ImportError as e:
         fail(f"the object_detector_tpu_torch package is not importable here: {e}")
 
@@ -254,7 +304,8 @@ def main() -> int:
     count = torch.cuda.device_count()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     wrappers = {"nms_rows": nms_kernel.nms_rows, "stem_conv12_pool": stem.stem_conv12_pool,
-                "l2norm_requant": l2norm.l2norm_requant}
+                "l2norm_requant": l2norm.l2norm_requant,
+                "max_pool_bwd": pool_bwd.max_pool_bwd}
 
     def counted(fn):
         """Runs the main path fn() with every launch count set to 0 just
@@ -420,8 +471,9 @@ def main() -> int:
     quantize_s = time.perf_counter() - t0
     predict8(images)
     det8, launches["int8_bs64"] = counted(lambda: predict8(images))
-    for name, n in launches["int8_bs64"].items():
-        check(n >= 1, f"the int8 bs=64 path never launched the {name} kernel")
+    for name in INT8_PATH_KERNELS:
+        check(launches["int8_bs64"][name] >= 1,
+              f"the int8 bs=64 path never launched the {name} kernel")
     check(det8.boxes.shape == (64, cfg64.eval.max_detections, 4)
           and bool(torch.isfinite(det8.boxes).all()) and bool(torch.isfinite(det8.scores).all())
           and bool(det8.valid.any()), "int8 bs=64 detections are not finite or are empty")
@@ -445,8 +497,9 @@ def main() -> int:
     predictor8 = Predictor(cfg1, params, VOC_CLASSES, device="cuda", int8=True)
     dets8, launches["int8_bs1"] = counted(
         lambda: predictor8.predict_array(image, score_threshold=0.0))
-    for name, n in launches["int8_bs1"].items():
-        check(n >= 1, f"the int8 bs=1 Predictor path never launched the {name} kernel")
+    for name in INT8_PATH_KERNELS:
+        check(launches["int8_bs1"][name] >= 1,
+              f"the int8 bs=1 Predictor path never launched the {name} kernel")
     check(len(dets8) > 0 and all(np.all(np.isfinite(d.box)) and 0 < d.score <= 1 for d in dets8),
           "the int8 bs=1 Predictor returned no or bad detections")
     # The kernels against their plain versions on the inputs this path gave
@@ -530,6 +583,130 @@ def main() -> int:
     print(json.dumps({"phase": "reference_check", "tiny_valid": int(gv.sum()),
                       "full_width_f32_max_abs_err": err_full, **int8_check}))
 
+
+    torch.backends.cudnn.allow_tf32 = True  # phase 10 is over: cuDNN's default again
+
+    # 11. The pool-backward kernel against its plain version, bit-equal.
+    pool_err, aten_equal = pool_kernel_cases(torch, np, pool_bwd)
+
+    # 12. Train full-width SSD-300 at bs=32 through train().
+    import tempfile
+
+    train_cfg = get_config("ssd300_vgg16_voc").override({
+        "model.pool_grad_kernel": True, "data.dataset": "synthetic",
+        "train.batch_size": TRAIN_BATCH, "train.log_every": 1,
+    })
+    check(train_cfg.model.compute_dtype == "bfloat16", "the training preset is not bfloat16")
+    dataset = make_synthetic_dataset(num_images=64, image_size=train_cfg.model.image_size)
+    train_steps = 6
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        state, launches["train_bs32"] = counted(lambda: train(
+            train_cfg, dataset, num_steps=train_steps, metrics_path=f"{tmp}/train.jsonl",
+            checkpoint_dir=f"{tmp}/ckpt", device="cuda"))
+        train_s = time.perf_counter() - t0
+        with open(f"{tmp}/train.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+        import os
+
+        saved = sorted(os.listdir(f"{tmp}/ckpt"))
+    check(state.step == train_steps and [r["step"] for r in rows] == list(range(1, train_steps + 1)),
+          f"train() logged steps {[r['step'] for r in rows]}")
+    for r in rows:
+        check(all(np.isfinite(r[k]) for k in ("loss", "cls_loss", "box_loss", "grad_norm"))
+              and r["num_positives"] >= 1, f"bad training metrics {r}")
+    check(launches["train_bs32"]["max_pool_bwd"] == 4 * train_steps,
+          f"{launches['train_bs32']['max_pool_bwd']} pool-kernel launches in {train_steps} steps, "
+          f"expected 4 a step")
+    check(all(torch.isfinite(p).all() for p in state.params.values()),
+          "parameters are not finite after training")
+    check(saved == [f"step_{train_steps}.pt"], f"train() left checkpoints {saved}")
+    print(json.dumps({"phase": "train_bs32", "steps": train_steps, "seconds": train_s,
+                      "launches": launches["train_bs32"],
+                      "pool_launches_per_step": launches["train_bs32"]["max_pool_bwd"] / train_steps,
+                      "losses": [r["loss"] for r in rows],
+                      "grad_norms": [r["grad_norm"] for r in rows], **where}))
+    del state
+
+    # 13. Hold the training path: the kernel on the path's own activations and
+    # cotangents, and one step's gradients through the kernel and the plain one.
+    cache = DecodedCache(dataset, train_cfg.model.image_size, train_cfg.data.max_boxes, 4)
+    batch = make_place(torch.device("cuda"))(cache.gather(np.arange(TRAIN_BATCH)))
+    torch.cuda.current_stream().wait_event(batch.pop("_ready"))
+    anchors_train = ssd_anchors(train_cfg.anchors, train_cfg.model.image_size)
+    held_train = hold_train_path(torch, pool_bwd, pooling, init_model_state, make_train_step,
+                                 train_cfg, anchors_train, batch)
+    pool_err = max(pool_err, held_train["pool_err"])
+    print(json.dumps({"phase": "hold_train_path", "pool_inputs": held_train["shapes"],
+                      "kernel_vs_plain_bit_equal": True,
+                      "gradients": held_train["gradients"], **where}))
+
+    # 14. Overfit one batch: no augmentation, no warmup.
+    over_cfg = train_cfg.override({"train.warmup_steps": 0, "train.base_lr": OVERFIT_LR,
+                                   "train.num_steps": 10**6})
+    model_o, state_o = init_model_state(over_cfg, seed=0, device="cuda")
+    step_o = make_train_step(over_cfg, model_o, anchors_train, device="cuda", augment=False)
+    gen_o = torch.Generator().manual_seed(0)
+    over = []
+    for _ in range(OVERFIT_STEPS):
+        state_o, m = step_o(state_o, batch, gen_o)
+        over.append(m["loss"])
+    over = [float(v) for v in over]
+    check(all(np.isfinite(over)) and over[-1] < OVERFIT_FALL * over[0],
+          f"overfitting one batch did not bring the loss below {OVERFIT_FALL} of its start: {over}")
+    print(json.dumps({"phase": "overfit_one_batch", "steps": OVERFIT_STEPS, "lr": OVERFIT_LR,
+                      "first": over[0], "last": over[-1], "fall": over[-1] / over[0],
+                      "every_10th": over[::10], **where}))
+    del model_o, state_o, step_o
+
+    # 15. One step on the card against the CPU, float32 with TF32 off.
+    step_check = train_step_reference_check(torch, np, init_model_state, make_train_step,
+                                            DecodedCache, make_synthetic_dataset, tiny,
+                                            tiny_anchors)
+    print(json.dumps({"phase": "train_step_card_vs_cpu", **step_check}))
+
+    # 16. Step time and profile at bs=32 with augmentation; the pool kernel at
+    # the path's four shapes beside its bound, its plain version and ATen's.
+    model_t, state_t = init_model_state(train_cfg, seed=0, device="cuda")
+    step_t = make_train_step(train_cfg, model_t, anchors_train, device="cuda", augment=True)
+    gen_t = torch.Generator().manual_seed(0)
+
+    def one_step():
+        step_t(state_t, batch, gen_t)
+
+    step_ms = host_ms(torch, one_step, 20)
+    torch.cuda.reset_peak_memory_stats()
+    one_step()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    train_img_per_s = TRAIN_BATCH / (statistics.median(step_ms) / 1e3)
+    print(json.dumps({"phase": "train_step_timing", "batch": TRAIN_BATCH,
+                      "median_ms": statistics.median(step_ms), "min_ms": min(step_ms),
+                      "max_ms": max(step_ms), "img_per_s": train_img_per_s,
+                      "peak_memory_gib": peak_gb, **where}))
+    print(json.dumps({"phase": "profile_train_bs32", **profile_window(torch, one_step, 5), **where}))
+    del model_t, state_t, step_t
+    pool_rows = []
+    for x, y, g in held_train["inputs"]:
+        _, idx = torch.nn.functional.max_pool2d(x, 2, 2, return_indices=True)
+        aten = lambda: torch.ops.aten.max_pool2d_with_indices_backward(  # noqa: E731
+            g, x, [2, 2], [2, 2], [0, 0], [1, 1], False, idx)
+        check(torch.equal(aten(), pool_bwd.max_pool_bwd(x, y, g)),
+              f"ATen's backward differs from the kernel at {tuple(x.shape)}")
+        b_ms, b_by = pool_bwd_bound_ms(x, g)
+        pool_rows.append({
+            "x": list(x.shape), "dtype": str(x.dtype),
+            "ms": cuda_ms(torch, lambda: pool_bwd.max_pool_bwd(x, y, g), 50),
+            "plain_ms": cuda_ms(torch, lambda: pool_bwd.max_pool_bwd_reference(x, y, g), 5),
+            "aten_backward_ms": cuda_ms(torch, aten, 50),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    pool_sum = {k: sum(r[k] for r in pool_rows)
+                for k in ("ms", "plain_ms", "aten_backward_ms", "bound_ms")}
+    print(json.dumps({"phase": "pool_bwd_timing", "per_pool": pool_rows, "per_step": pool_sum,
+                      "aten_bit_equal_on_path": True, "aten_bit_equal_on_cases": aten_equal,
+                      **where}))
+
     def counts(name: str) -> dict:
         return {"launches": sum(c[name] for c in launches.values()),
                 "launches_by_path": {path: c[name] for path, c in launches.items()}}
@@ -578,6 +755,20 @@ def main() -> int:
             "library_ms": None,
             "library_none_because": "no single PyTorch call computes an L2 norm over int8 codes "
                                     "with a scale and a requant",
+        },
+        {
+            "name": "max_pool_bwd",
+            "route": "cuda",
+            "source": "object_detector_tpu_torch/csrc/pool_bwd.cu",
+            "replaces": "object_detector_tpu/ops/pooling.py:76",
+            **counts("max_pool_bwd"),
+            "max_abs_err": pool_err,
+            "ms": pool_sum["ms"],
+            "plain_ms": pool_sum["plain_ms"],
+            "bound_ms": pool_sum["bound_ms"],
+            "bound_by": pool_rows[0]["bound_by"],
+            "library_ms": pool_sum["aten_backward_ms"],
+            "times_are": "sums over the four pools of one bs=32 training step",
         },
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -708,6 +899,173 @@ def int8_reference_check(torch, np, engine, postprocess, normalize, make_int8_pr
               f"{int((g.cpu() != c).sum())} codes")
     return {"int8_tiny_taps_equal": True, "int8_tiny_logits_equal": True,
             "int8_tiny_valid": int(gv.sum()), "int8_full_width_taps_equal": len(full_cpu)}
+
+
+def pool_case(torch, kind: str, shape, dtype, seed: int):
+    """(x, y, g) on the card for one pool-backward case: (B, C, H, W) tensors,
+    channels-last in memory, from ``shape`` = (B, H, W, C)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, w, c = shape
+    x = torch.randn(shape, generator=gen, device="cuda")
+    coin = torch.rand(shape, generator=gen, device="cuda")
+    if kind == "ties":  # post-ReLU: most windows all zero, the rest often tied at 0
+        x = x.clamp_min(0.0) * (coin > 0.6)
+    elif kind == "zeros":
+        x = torch.zeros_like(x)
+    elif kind == "negative_zero":  # -0 equals +0: every window ties
+        x = torch.where(coin > 0.5, 0.0, -0.0)
+    elif kind == "levels":  # three values: the maximum ties at any pair of positions
+        x = torch.floor(coin * 3.0) - 1.0
+    x = x.to(dtype).permute(0, 3, 1, 2)
+    g = torch.randn((b, h // 2, w // 2, c), generator=gen, device="cuda").to(dtype)
+    g = g.permute(0, 3, 1, 2)
+    return x, torch.nn.functional.max_pool2d(x, 2, 2), g
+
+
+def pool_kernel_cases(torch, np, pool_bwd):
+    """Holds the pool-backward kernel bit-equal to max_pool_bwd_reference on
+    synthetic cases at the SSD-300 bs=32 shapes. Returns the largest absolute
+    difference (0.0) and whether ATen's max-pool backward was bit-equal too
+    on every case (a finding, not a condition)."""
+    cases = [(kind, (TRAIN_BATCH, *hwc), torch.bfloat16)
+             for hwc in POOL_SHAPES for kind in ("random", "ties", "levels", "zeros")]
+    cases += [(kind, (TRAIN_BATCH, *POOL_SHAPES[2]), torch.float32)
+              for kind in ("random", "ties", "levels", "zeros")]
+    cases += [("negative_zero", (TRAIN_BATCH, *POOL_SHAPES[3]), torch.bfloat16),
+              ("levels", (1, 6, 10, 3), torch.bfloat16), ("levels", (1, 6, 10, 3), torch.float32)]
+    worst, aten_equal = 0.0, True
+    for i, (kind, shape, dtype) in enumerate(cases):
+        x, y, g = pool_case(torch, kind, shape, dtype, seed=100 + i)
+        got = pool_bwd.max_pool_bwd(x, y, g)
+        torch.cuda.synchronize()
+        want = pool_bwd.max_pool_bwd_reference(x, y, g)
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        check(got.dtype == dtype and torch.equal(got.view(bits), want.view(bits)),
+              f"pool kernel differs from its plain version ({kind}, {shape}, {dtype}): "
+              f"max_abs_err {err}, {int((got != want).sum())} elements")
+        if kind in ("zeros", "negative_zero"):  # every window ties: all goes to (0, 0)
+            check(torch.equal(got[:, :, 0::2, 0::2], g) and not bool(got[:, :, 1::2].any())
+                  and not bool(got[:, :, :, 1::2].any()),
+                  f"pool kernel ({kind}): a tied window did not give all to (0, 0)")
+        leaf = x.detach().clone().requires_grad_(True)
+        aten, = torch.autograd.grad(torch.nn.functional.max_pool2d(leaf, 2, 2), leaf, g)
+        same = torch.equal(aten.view(bits), got.view(bits))
+        aten_equal = aten_equal and same
+        print(json.dumps({"phase": "pool_bwd_kernel_vs_plain", "case": kind, "shape": list(shape),
+                          "dtype": str(dtype), "bit_equal": True, "aten_bit_equal": same,
+                          "share_nonzero": float((got != 0).float().mean())}))
+        del x, y, g, got, want, leaf, aten
+    return worst, aten_equal
+
+
+def hold_train_path(torch, pool_bwd, pooling, init_model_state, make_train_step, cfg, anchors,
+                    batch):
+    """Runs one training step's forward and backward on ``batch`` (augmented,
+    seeded) three times: through the kernel while capturing what the four
+    pool backwards were given, through the kernel again, and through the
+    plain version. Holds the kernel bit-equal to the plain version on the
+    captured inputs, and the gradients through the kernel equal to those
+    through the plain version (bit for bit if the rerun is; cuDNN is asked
+    for deterministic algorithms meanwhile)."""
+    model, state = init_model_state(cfg, seed=0, device="cuda")
+    step_fn = make_train_step(cfg, model, anchors, device="cuda", augment=True)
+    captured = []
+
+    def capture(x, y, g):
+        captured.append((x, y, g))
+        return pool_bwd.max_pool_bwd(x, y, g)
+
+    def grads(backward):
+        pooling.max_pool_bwd = backward
+        try:
+            total, _ = step_fn.loss_fn(state.params, batch, 12345)
+            return torch.autograd.grad(total, list(state.params.values()))
+        finally:
+            pooling.max_pool_bwd = pool_bwd.max_pool_bwd
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        through_kernel = grads(capture)
+        rerun = grads(pool_bwd.max_pool_bwd)
+        through_plain = grads(pool_bwd.max_pool_bwd_reference)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    torch.cuda.synchronize()
+
+    b = batch["image"].shape[0]
+    want_shapes = [(b, c, h, w) for h, w, c in reversed(POOL_SHAPES)]  # backward order
+    check([tuple(x.shape) for x, _, _ in captured] == want_shapes,
+          f"the pool backwards saw {[tuple(x.shape) for x, _, _ in captured]}, "
+          f"expected {want_shapes}")
+    pool_err = 0.0
+    for x, y, g in captured:
+        check(x.dtype == torch.bfloat16 and x.is_contiguous(memory_format=torch.channels_last),
+              f"the path's pool input {tuple(x.shape)} is {x.dtype}, strides {x.stride()}")
+        got, want = pool_bwd.max_pool_bwd(x, y, g), pool_bwd.max_pool_bwd_reference(x, y, g)
+        pool_err = max(pool_err, (got.float() - want.float()).abs().max().item())
+        check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+              f"pool kernel differs from its plain version on the path's {tuple(x.shape)}: "
+              f"{int((got != want).sum())} elements")
+    diff = lambda a, b: max((p - q).abs().max().item() for p, q in zip(a, b))  # noqa: E731
+    rerun_diff, plain_diff = diff(through_kernel, rerun), diff(through_kernel, through_plain)
+    check(all(bool(torch.isfinite(t).all()) for t in through_kernel), "gradients are not finite")
+    check(plain_diff == 0.0 if rerun_diff == 0.0 else plain_diff <= 4.0 * rerun_diff,
+          f"one step's gradients through the kernel differ from the plain version's by "
+          f"{plain_diff}; a rerun of the kernel differs by {rerun_diff}")
+    return {
+        "inputs": captured[::-1], "pool_err": pool_err,
+        "shapes": [{"x": list(x.shape), "cotangent_channels_last":
+                    g.is_contiguous(memory_format=torch.channels_last)} for x, _, g in captured[::-1]],
+        "gradients": {"leaves": len(through_kernel), "kernel_vs_plain_max_abs_diff": plain_diff,
+                      "kernel_rerun_max_abs_diff": rerun_diff,
+                      "bit_equal": plain_diff == 0.0},
+    }
+
+
+def train_step_reference_check(torch, np, init_model_state, make_train_step, DecodedCache,
+                               make_synthetic_dataset, tiny, tiny_anchors):
+    """One training step's loss and gradients on the card against the CPU:
+    tiny_test with the pool kernel on, float32, TF32 off, the same seeded
+    weights and batch. The images are seeded noise under the dataset's boxes
+    (a flat region makes pool windows tie up to rounding, and which element
+    then takes the gradient differs between two devices' convolutions).
+    Tolerances: the loss within 1e-5 relative; each gradient within 1e-4
+    absolute plus 1e-3 relative (float32 sums in another order)."""
+    cfg = tiny.override({"model.pool_grad_kernel": True})
+    cache = DecodedCache(make_synthetic_dataset(num_images=8, image_size=cfg.model.image_size),
+                         cfg.model.image_size, cfg.data.max_boxes, 1)
+    batch = cache.gather(np.arange(8))
+    batch["image"] = np.random.default_rng(0).integers(0, 256, batch["image"].shape, dtype=np.uint8)
+    was = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for device in ("cuda", "cpu"):
+            model, state = init_model_state(cfg, seed=1, device=device)
+            fn = make_train_step(cfg, model, tiny_anchors, device=device, augment=False)
+            on_device = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            total, _ = fn.loss_fn(state.params, on_device, 0)
+            grads = torch.autograd.grad(total, list(state.params.values()))
+            out[device] = (float(total.detach()), dict(zip(state.params, (g.cpu() for g in grads))))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = was
+    (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = out["cuda"], out["cpu"]
+    check(abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu),
+          f"tiny_test training loss on the card {loss_gpu} differs from the CPU's {loss_cpu}")
+    worst = 0.0
+    for name, want in grads_cpu.items():
+        got = grads_gpu[name]
+        worst = max(worst, (got - want).abs().max().item())
+        check(torch.allclose(got, want, rtol=1e-3, atol=1e-4),
+              f"gradient of {name} on the card differs from the CPU's by "
+              f"{(got - want).abs().max().item()}")
+    return {"loss_card": loss_gpu, "loss_cpu": loss_cpu, "leaves": len(grads_cpu),
+            "grad_max_abs_err": worst,
+            "grad_max_abs": max(g.abs().max().item() for g in grads_cpu.values())}
+
 
 
 def _same_detections(torch, a, b) -> bool:

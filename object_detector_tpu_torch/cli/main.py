@@ -1,12 +1,15 @@
 """CLI entry points of the port.
 
-    python -m object_detector_tpu_torch predict --preset ssd300_vgg16_voc --image dog.jpg --output out.jpg
+    python -m object_detector_tpu_torch train   --preset ssd300_vgg16_voc --checkpoint ckpt/ --metrics train.jsonl
+    python -m object_detector_tpu_torch predict --preset ssd300_vgg16_voc --checkpoint ckpt/ --image dog.jpg --output out.jpg
 
-``predict`` serves the float model, or with ``--int8`` the int8 engine
-(calibrated on 8 random images from a seed), with random weights from a seed
-(smoke mode), on the card unless ``--device cpu`` is given. Checkpoint
-restore, ``train`` and ``evaluate`` are not ported yet: they say so and exit
-with code 2. Config fields are overridable with
+``train`` trains SSD/VGG16 on one device (the synthetic dataset; the VOC and
+COCO readers are not ported yet). ``predict`` serves the float model, or with
+``--int8`` the int8 engine (calibrated on 8 random images from a seed), with
+the weights of ``--checkpoint`` (a directory ``train`` wrote; the EMA weights
+if it holds them) or random weights from a seed (smoke mode). Both run on
+the card unless ``--device cpu`` is given. ``evaluate`` is not ported yet: it
+says so and exits with code 2. Config fields are overridable with
 ``--set eval.score_threshold=0.05`` (repeatable).
 """
 
@@ -17,6 +20,8 @@ import ast
 import json
 import sys
 from typing import Any, Dict, List
+
+import torch
 
 from object_detector_tpu_torch.core.config import DetectorConfig, get_config, list_presets
 
@@ -49,15 +54,60 @@ def _not_ported(what: str) -> int:
     return NOT_PORTED
 
 
+def _load_dataset(cfg: DetectorConfig, split: str):
+    if cfg.data.dataset != "synthetic":
+        raise NotImplementedError(
+            f"the {cfg.data.dataset!r} reader is not ported yet (split {split!r}); "
+            "use --set data.dataset=synthetic"
+        )
+    from object_detector_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    return make_synthetic_dataset(image_size=cfg.model.image_size)
+
+
+def _restore_variables(cfg: DetectorConfig, checkpoint_dir: str) -> Dict[str, torch.Tensor]:
+    """The weights to serve from a directory `train` wrote: the EMA weights
+    if the checkpoint holds them, else the parameters."""
+    from object_detector_tpu_torch.train.checkpoint import CheckpointManager
+    from object_detector_tpu_torch.train.loop import init_model_state
+
+    _, state = init_model_state(cfg, seed=0, device="cpu")
+    restored = CheckpointManager(checkpoint_dir).restore(state, torch.Generator())
+    if restored is None:
+        raise SystemExit(f"no checkpoint found in {checkpoint_dir}")
+    state = restored[0]
+    params = state.ema_params if state.ema_params is not None else state.params
+    return {k: v.detach() for k, v in params.items()}
+
+
+def cmd_train(args: argparse.Namespace) -> int:
+    from object_detector_tpu_torch.train.loop import train
+
+    cfg = _load_config(args)
+    dataset = _load_dataset(cfg, cfg.data.train_split)
+    train(
+        cfg,
+        dataset,
+        num_steps=args.steps,
+        metrics_path=args.metrics,
+        resume=args.resume,
+        checkpoint_dir=args.checkpoint,
+        profile_dir=args.profile,
+        device=args.device,
+    )
+    return 0
+
+
 def cmd_predict(args: argparse.Namespace) -> int:
-    if args.checkpoint:
-        return _not_ported("checkpoint restore (--checkpoint)")
     cfg = _load_config(args)
     from object_detector_tpu_torch.cli.predictor import Predictor
     from object_detector_tpu_torch.convert import init_params
     from object_detector_tpu_torch.models.ssd import SSDModel
 
-    params = init_params(SSDModel(cfg), seed=0).state_dict()  # smoke mode
+    if args.checkpoint:
+        params = _restore_variables(cfg, args.checkpoint)
+    else:  # random weights: smoke mode
+        params = init_params(SSDModel(cfg), seed=0).state_dict()
     class_names = None
     if cfg.data.dataset == "voc":
         from object_detector_tpu_torch.data.voc import VOC_CLASSES
@@ -82,29 +132,40 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="object_detector_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
 
+    def common(sp):
+        sp.add_argument("--preset", default="ssd300_vgg16_voc", choices=list_presets())
+        sp.add_argument("--set", action="append", metavar="KEY=VALUE")
+        sp.add_argument("--data-root", default=None)
+        sp.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+
+    sp = sub.add_parser("train", help="train a detector")
+    common(sp)
+    sp.add_argument("--steps", type=int, default=None)
+    sp.add_argument("--checkpoint", default=None)
+    sp.add_argument("--metrics", default=None, help="JSONL metrics path")
+    sp.add_argument("--resume", action="store_true")
+    sp.add_argument("--profile", default=None, help="torch.profiler trace dir")
+    sp.set_defaults(fn=cmd_train)
+
     sp = sub.add_parser("predict", help="detect objects in one image")
-    sp.add_argument("--preset", default="ssd300_vgg16_voc", choices=list_presets())
-    sp.add_argument("--set", action="append", metavar="KEY=VALUE")
-    sp.add_argument("--data-root", default=None)
+    common(sp)
     sp.add_argument("--image", required=True)
-    sp.add_argument("--checkpoint", default=None, help="not ported yet")
+    sp.add_argument("--checkpoint", default=None, help="a directory `train` wrote")
     sp.add_argument("--output", default=None, help="draw detections here")
     sp.add_argument("--score-threshold", type=float, default=0.3)
     sp.add_argument("--int8", action="store_true", help="serve the int8 PTQ engine")
-    sp.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     sp.set_defaults(fn=cmd_predict)
 
-    for name in ("train", "evaluate"):
-        sp = sub.add_parser(name, help="not ported yet")
-        sp.set_defaults(fn=lambda a, name=name: _not_ported(f"the {name} command"))
+    sp = sub.add_parser("evaluate", help="not ported yet")
+    sp.set_defaults(fn=lambda a: _not_ported("the evaluate command"))
     return p
 
 
 def main(argv=None) -> int:
     parser = build_parser()
-    # Unported commands take whatever flags the reference's do.
+    # The unported command takes whatever flags the reference's does.
     args, unknown = parser.parse_known_args(argv)
-    if unknown and args.command == "predict":
+    if unknown and args.command != "evaluate":
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
     return args.fn(args)
 

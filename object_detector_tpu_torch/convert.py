@@ -7,13 +7,16 @@ returns the port's ``state_dict``. ``init_params`` is the port's own seeded
 initialiser, with the reference's init scheme; the two give different
 numbers from the same seed. ``quant_params_from_jax`` carries the
 reference's int8 ``QuantParams`` across, so both engines can run on the
-same codes and scales.
+same codes and scales. For training, ``names_to_jax`` is the inverse name
+map (a port ``state_dict`` or gradient dict to the flax tree's flat names)
+and ``opt_state_from_optax`` carries optax's optimizer state across, so the
+tests can compare gradients and updated parameters leaf by leaf.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +58,50 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unexpected flax param {path!r}")
         out[".".join([*scope, leaf])] = torch.tensor(arr)
     return out
+
+
+def names_to_jax(tree: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of `params_from_jax` for any dict keyed like the port's
+    state_dict (parameters, gradients, optimizer moments):
+    ``backbone.conv1_1.weight`` (OIHW) -> ``backbone/conv1_1/kernel`` (HWIO)."""
+    out: Dict[str, np.ndarray] = {}
+    for name, value in tree.items():
+        *scope, leaf = name.split(".")
+        arr = value.detach().to(torch.float32).cpu().numpy()
+        if leaf == "weight":
+            if arr.ndim != 4:
+                raise ValueError(f"{name}: expected an OIHW conv weight, got shape {arr.shape}")
+            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+        elif leaf not in ("bias", "scale"):
+            raise KeyError(f"unexpected parameter {name!r}")
+        out["/".join([*scope, leaf])] = arr
+    return out
+
+
+def opt_state_from_optax(opt_state: Any) -> Tuple[Dict[str, Dict[str, torch.Tensor]], int]:
+    """An optax optimizer state of the reference's ``make_optimizer`` (nested
+    tuples of per-transformation states) -> the port's ``opt_state`` and the
+    update count. The momentum trace becomes ``{"trace": ...}``, Adam's
+    moments ``{"mu": ..., "nu": ...}``, each keyed like the state_dict."""
+    found: Dict[str, Dict[str, torch.Tensor]] = {}
+    count = 0
+
+    def walk(node: Any) -> None:
+        nonlocal count
+        fields = getattr(node, "_fields", ())  # optax states are named tuples
+        for field in ("trace", "mu", "nu"):
+            if field in fields:
+                found[field] = params_from_jax(flatten_tree(getattr(node, field)))
+        if "count" in fields:
+            count = int(node.count)
+        if isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+
+    walk(opt_state)
+    if not found:
+        raise ValueError("no momentum trace and no Adam moments in this optax state")
+    return found, count
 
 
 def quant_params_from_jax(qp: Any) -> QuantParams:

@@ -20,7 +20,9 @@ CSRC_DIR = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "build"
 
 # Kernel name -> source file under csrc/.
-SOURCES = {"nms": "nms.cu", "stem": "stem.cu", "l2norm": "l2norm.cu"}
+SOURCES = {
+    "nms": "nms.cu", "stem": "stem.cu", "l2norm": "l2norm.cu", "pool_bwd": "pool_bwd.cu",
+}
 
 # -fmad=false: no contraction of a * b + c into an FMA, so the kernels round
 # after every operation as their plain PyTorch versions do.

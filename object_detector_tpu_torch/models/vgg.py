@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from object_detector_tpu_torch.ops.pooling import max_pool_2x2_fastgrad
+
 Tensor = torch.Tensor
 
 
@@ -93,9 +95,12 @@ _VGG_LAYERS: Sequence = (
 class VGG16Backbone(nn.Module):
     """VGG16 (SSD-modified). Returns [conv4_3, fc7] feature maps, NCHW.
 
-    ``pack_block1``, ``pool_grad_kernel`` and ``remat_block1`` are the
-    reference's TPU layout and training-memory devices; the math is the same
-    without them, so they are accepted and ignored.
+    With ``pool_grad_kernel`` the four 2x2/s2 pools go through
+    `ops.pooling.max_pool_2x2_fastgrad`, whose backward is the port's
+    first-max pool kernel; the forward, and so serving, is the same either
+    way. ``pack_block1`` and ``remat_block1`` are the reference's TPU layout
+    and training-memory devices; the math is the same without them, so they
+    are accepted and ignored.
     """
 
     def __init__(
@@ -103,7 +108,8 @@ class VGG16Backbone(nn.Module):
         remat_block1: bool = False,
     ):
         super().__init__()
-        del pack_block1, pool_grad_kernel, remat_block1
+        del pack_block1, remat_block1
+        self.pool_grad_kernel = pool_grad_kernel
         for layer in _VGG_LAYERS:
             if layer != "pool":
                 name, cin, cout = layer
@@ -111,15 +117,25 @@ class VGG16Backbone(nn.Module):
         self.fc6 = Conv(512, 1024, 3, dilation=6)
         self.fc7 = Conv(1024, 1024, 1)
 
+    def _pool(self, x: Tensor, ceil_mode: bool) -> Tensor:
+        if not self.pool_grad_kernel:
+            return F.max_pool2d(x, 2, 2, ceil_mode=ceil_mode)
+        # The kernel takes even sizes: for ceil mode pad to even with the
+        # dtype's minimum, as the reference does. The pad never ties with a
+        # post-ReLU value and its gradient is sliced away.
+        ph, pw = x.shape[2] % 2, x.shape[3] % 2
+        if ceil_mode and (ph or pw):
+            x = F.pad(x, (0, pw, 0, ph), value=torch.finfo(x.dtype).min)
+        return max_pool_2x2_fastgrad(x)
+
     def forward(self, x: Tensor) -> List[Tensor]:
         pools = 0
         conv4_3 = x
         for layer in _VGG_LAYERS:
             if layer == "pool":
                 pools += 1
-                # pool3 is ceil-mode (75 -> 38 at input 300), like the
-                # reference's pad-to-even with the dtype's minimum.
-                x = F.max_pool2d(x, 2, 2, ceil_mode=pools == 3)
+                # pool3 is ceil-mode (75 -> 38 at input 300).
+                x = self._pool(x, ceil_mode=pools == 3)
                 continue
             x = F.relu(getattr(self, layer[0])(x))
             if layer[0] == "conv4_3":

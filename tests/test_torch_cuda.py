@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from object_detector_tpu_torch.kernels import l2norm, stem
+from object_detector_tpu_torch.kernels import l2norm, pool_bwd, stem
 from object_detector_tpu_torch.kernels import nms as nms_kernel
 from object_detector_tpu_torch.ops import int8 as int8_ops
+from object_detector_tpu_torch.ops.pooling import max_pool_2x2_fastgrad
 
 # The SSD-300 bs=64 shape: 64 images x 20 classes, 512 candidates, 100 out.
 ROWS, K, MAX_OUT = 1280, 512, 100
@@ -125,3 +126,78 @@ def test_int_matmul_takes_the_shapes_cublaslt_refuses(cuda_device, m, k, n):
     w = torch.from_numpy(rng.integers(-127, 128, (1, 1, k, n), dtype=np.int8))
     got = int8_ops.int_matmul(a.to(cuda_device), int8_ops.gemm_operand(w.to(cuda_device)), n)
     assert got.shape == (m, n) and torch.equal(got.cpu(), torch._int_mm(a, w.reshape(k, n)))
+
+
+def _pool_case(kind, shape, dtype, device, seed=0):
+    """(x, y, g) channels-last on the card; shape is the reference's
+    (B, H, W, C)."""
+    rng = np.random.default_rng(seed)
+    b, h, w, c = shape
+    x = rng.normal(size=shape).astype(np.float32)
+    if kind == "ties":  # post-ReLU, most windows all zero
+        x = np.maximum(x, 0.0) * (rng.random(shape) > 0.6)
+    elif kind == "zeros":
+        x = np.zeros(shape, np.float32)
+    elif kind == "negative_zero":
+        x = np.where(rng.random(shape) > 0.5, 0.0, -0.0).astype(np.float32)
+    elif kind == "levels":  # three values: the maximum ties at any pair of positions
+        x = rng.integers(-1, 2, shape).astype(np.float32)
+    x = torch.from_numpy(x).to(device=device, dtype=dtype).permute(0, 3, 1, 2)
+    g = torch.from_numpy(rng.normal(size=(b, h // 2, w // 2, c)).astype(np.float32))
+    g = g.to(device=device, dtype=dtype).permute(0, 3, 1, 2)
+    return x, torch.nn.functional.max_pool2d(x, 2, 2), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind,shape", [
+    ("random", (2, 38, 38, 512)),
+    ("ties", (2, 76, 76, 256)),
+    ("zeros", (1, 150, 150, 128)),
+    ("negative_zero", (1, 8, 8, 64)),
+    ("levels", (2, 38, 38, 512)),
+    ("levels", (1, 6, 10, 3)),
+    ("random", (1, 6, 10, 3)),  # channels not a multiple of the 16-byte group
+    ("ties", (3, 2, 2, 20)),
+])
+def test_pool_bwd_kernel_bit_equal_to_plain_version(cuda_device, kind, shape, dtype):
+    x, y, g = _pool_case(kind, shape, dtype, cuda_device)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    before = pool_bwd.max_pool_bwd.launches
+    got = pool_bwd.max_pool_bwd(x, y, g)
+    torch.cuda.synchronize()
+    assert pool_bwd.max_pool_bwd.launches == before + 1
+    want = pool_bwd.max_pool_bwd_reference(x, y, g)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    if kind == "zeros":  # every window ties: everything goes to (0, 0)
+        assert torch.equal(got[:, :, 0::2, 0::2], g) and not got[:, :, 1::2].any()
+
+
+@pytest.mark.cuda
+def test_pool_bwd_takes_a_cotangent_in_another_format_and_rejects_a_strided_x(cuda_device):
+    x, y, g = _pool_case("ties", (2, 8, 12, 16), torch.bfloat16, cuda_device)
+    want = pool_bwd.max_pool_bwd_reference(x, y, g)
+    assert torch.equal(pool_bwd.max_pool_bwd(x, y, g.contiguous()), want)  # g laid out NCHW
+    with pytest.raises(ValueError, match="channels-last"):
+        pool_bwd.max_pool_bwd(x.contiguous(), y, g)
+    with pytest.raises(ValueError, match="even"):
+        pool_bwd.max_pool_bwd(x[:, :, :7], y, g)
+    with pytest.raises(TypeError):
+        pool_bwd.max_pool_bwd(x.half(), y.half(), g.half())
+
+
+@pytest.mark.cuda
+def test_fastgrad_pool_gradient_through_the_kernel(cuda_device):
+    """autograd through max_pool_2x2_fastgrad launches the kernel once and
+    gives the plain version's gradient, for an NCHW-contiguous input too."""
+    x, _, g = _pool_case("ties", (2, 8, 12, 16), torch.float32, cuda_device)
+    for inp in (x, x.contiguous()):
+        leaf = inp.clone().requires_grad_(True)
+        before = pool_bwd.max_pool_bwd.launches
+        y = max_pool_2x2_fastgrad(leaf)
+        y.backward(g)
+        assert pool_bwd.max_pool_bwd.launches == before + 1
+        want = pool_bwd.max_pool_bwd_reference(x, y.detach(), g)
+        assert torch.equal(leaf.grad, want)

@@ -101,9 +101,9 @@ def test_cli_predict_runs_on_cpu(tmp_path):
     "argv",
     [
         ["evaluate", "--preset", "tiny_test", "--int8"],
-        ["predict", "--preset", "tiny_test", "--image", "x.png", "--checkpoint", "ck"],
+        ["evaluate", "--preset", "tiny_test", "--checkpoint", "ck", "--split", "val"],
         ["evaluate", "--preset", "tiny_test", "--checkpoint", "ck"],
-        ["train", "--preset", "tiny_test"],
+        ["evaluate"],
     ],
 )
 def test_cli_unported_paths_exit_nonzero(argv, capsys):
