@@ -66,9 +66,11 @@ package beside it.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 R, K, MAX_OUT = 1280, 512, 100
@@ -590,8 +592,6 @@ def main() -> int:
     pool_err, aten_equal = pool_kernel_cases(torch, np, pool_bwd)
 
     # 12. Train full-width SSD-300 at bs=32 through train().
-    import tempfile
-
     train_cfg = get_config("ssd300_vgg16_voc").override({
         "model.pool_grad_kernel": True, "data.dataset": "synthetic",
         "train.batch_size": TRAIN_BATCH, "train.log_every": 1,
@@ -607,8 +607,6 @@ def main() -> int:
         train_s = time.perf_counter() - t0
         with open(f"{tmp}/train.jsonl") as f:
             rows = [json.loads(line) for line in f]
-        import os
-
         saved = sorted(os.listdir(f"{tmp}/ckpt"))
     check(state.step == train_steps and [r["step"] for r in rows] == list(range(1, train_steps + 1)),
           f"train() logged steps {[r['step'] for r in rows]}")
