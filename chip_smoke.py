@@ -55,7 +55,40 @@ Phases, each fatal on failure:
      float32, TF32 off);
  16. time the training step at bs=32, profile it, and time the pool kernel
      at the path's four shapes beside its bound, its plain version and
-     ATen's max-pool backward.
+     ATen's max-pool backward;
+ 17. hold the fused ResNet stem and the fused bottleneck kernels bit-equal
+     to their plain PyTorch versions on synthetic cases: the stem on random
+     and saturated inputs with extreme biases and on a size whose tiles are
+     partial; the bottleneck at each of ResNet-50's four shapes, on H and W
+     that its tile does not divide, with a large conv1 bias (a halo pixel
+     outside the image that was not zeroed would show), on a zero input and
+     at its narrowest widths;
+ 18. serve full-width ssd512_resnet50_coco (seeded random weights, seeded
+     non-trivial BatchNorm statistics) in float at bs=64 through
+     make_predict_fn: check that the NMS kernel ran (5120 rows), hold it
+     against its plain version on that path's rows, time img/s;
+ 19. serve it in int8 at bs=64 through make_int8_predict_fn (calibrated on 8
+     seeded images): check that the stem kernel ran once, the bottleneck
+     kernel 12 times and the NMS kernel once a forward; hold the detections
+     bit-equal to the same QuantParams run with the plain versions, and each
+     kernel bit-equal to its plain version on the path's own inputs (the
+     normalized images; the input of each of the twelve blocks); hold the
+     bottleneck-only spec bit-equal to the unfused spec at every tap and the
+     stem within one code of the unfused chain; time img/s with the kernels
+     and with the unfused spec (ODT_STEM_KERNEL=0, ODT_FUSED_BOTTLENECK=0)
+     on the same QuantParams;
+ 20. time the stem kernel and each of the twelve bottleneck launches on the
+     bs=64 path's inputs beside their bounds, their plain versions and the
+     engine's unfused chain for the same work (which must give the kernel's
+     codes);
+ 21. serve one image through the Predictor in float and in int8 at bs=1: the
+     same launch counts, the kernels bit-equal to their plain versions on
+     that path's inputs, the served detections equal to the plain versions'
+     run, p50 and a profile of both;
+ 22. on a small ResNet-50 config (64 px): the float32 logits and the int8 tap
+     codes, logits and detections on the card against the CPU (the CPU runs
+     the kernels' plain versions), and what bfloat16 gives on the card
+     against the CPU's float32.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -108,8 +141,16 @@ POOL_SHAPES = ((300, 300, 64), (150, 150, 128), (76, 76, 256), (38, 38, 512))
 OVERFIT_STEPS, OVERFIT_LR, OVERFIT_FALL = 60, 2e-3, 0.8
 
 
-# The kernels the two int8 serving paths must launch.
+# The kernels the two int8 SSD-300 serving paths must launch.
 INT8_PATH_KERNELS = ("nms_rows", "stem_conv12_pool", "l2norm_requant")
+# Launches of one int8 SSD-512/ResNet-50 forward: the stem once, the
+# bottleneck kernel for blocks 2 and later of the four stages (2 + 3 + 5 + 2),
+# the NMS scan once; no kernel of the VGG path.
+RESNET_INT8_LAUNCHES = {"resnet_stem": 1, "fused_bottleneck": 12, "nms_rows": 1,
+                        "stem_conv12_pool": 0, "l2norm_requant": 0, "max_pool_bwd": 0}
+# (C, Cm, H = W) of the bottleneck kernel's inputs at 512 px, with the number
+# of blocks of each stage that run it.
+RESNET_BLOCKS = ((256, 64, 128, 2), (512, 128, 64, 3), (1024, 256, 32, 5), (2048, 512, 16, 2))
 
 
 def fail(msg: str) -> None:
@@ -182,6 +223,8 @@ PROFILE_GROUPS = (
     ("stem_kernel", ("stem_conv12_pool_kernel",)),
     ("l2norm_kernel", ("l2norm_requant_kernel",)),
     ("pool_bwd_kernel", ("pool_bwd_kernel",)),
+    ("resnet_stem_kernel", ("resnet_stem_kernel",)),
+    ("bottleneck_kernel", ("bottleneck_kernel",)),
     ("conv_or_gemm", ("conv", "cudnn", "gemm", "xmma", "implicit", "wgrad", "dgrad", "cutlass",
                       "imma", "sm90")),
 )
@@ -275,6 +318,27 @@ def pool_bwd_bound_ms(x, g):
     return bound(bytes_moved, POOL_BWD_OPS_PER_WINDOW * windows, F32_OPS_PER_S)
 
 
+def resnet_stem_bound_ms(images, out):
+    """The float image read once and the pooled codes written once (and the
+    weights, deq and bias), against the 7x7 conv's multiply-adds as 2 int8
+    operations each over the int8 tensor-core peak."""
+    b, h, w, _ = images.shape
+    ops = 2 * b * (h // 2) * (w // 2) * 64 * 147
+    bytes_moved = images.numel() * 4 + out.numel() + 147 * 64 + 2 * 4 * 64
+    return bound(bytes_moved, ops, INT8_OPS_PER_S)
+
+
+def bottleneck_bound_ms(x, cm):
+    """x read once and the output written once (and the three kernels and six
+    vectors), against the three convs' multiply-adds as 2 int8 operations
+    each over the int8 tensor-core peak."""
+    c = x.shape[-1]
+    pixels = x.numel() // c
+    ops = 2 * pixels * (2 * c * cm + 9 * cm * cm)
+    bytes_moved = 2 * x.numel() + 2 * c * cm + 9 * cm * cm + 4 * (4 * cm + 2 * c)
+    return bound(bytes_moved, ops, INT8_OPS_PER_S)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -290,9 +354,13 @@ def main() -> int:
         from object_detector_tpu_torch.eval.evaluator import make_int8_predict_fn, make_predict_fn
         from object_detector_tpu_torch.data.pipeline import DecodedCache, make_place
         from object_detector_tpu_torch.data.synthetic import make_synthetic_dataset
-        from object_detector_tpu_torch.kernels import build, l2norm, pool_bwd, stem
+        from object_detector_tpu_torch.core import config as port_config
+        from object_detector_tpu_torch.kernels import (
+            bottleneck, build, l2norm, pool_bwd, resnet_stem, stem,
+        )
         from object_detector_tpu_torch.kernels import nms as nms_kernel
         from object_detector_tpu_torch.models.ssd import SSDModel
+        from object_detector_tpu_torch.ops import int8 as int8_ops
         from object_detector_tpu_torch.ops import pooling
         from object_detector_tpu_torch.ops.augment import normalize
         from object_detector_tpu_torch.ops.postprocess import postprocess
@@ -307,7 +375,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     wrappers = {"nms_rows": nms_kernel.nms_rows, "stem_conv12_pool": stem.stem_conv12_pool,
                 "l2norm_requant": l2norm.l2norm_requant,
-                "max_pool_bwd": pool_bwd.max_pool_bwd}
+                "max_pool_bwd": pool_bwd.max_pool_bwd,
+                "resnet_stem": resnet_stem.resnet_stem,
+                "fused_bottleneck": bottleneck.fused_bottleneck}
 
     def counted(fn):
         """Runs the main path fn() with every launch count set to 0 just
@@ -705,6 +775,244 @@ def main() -> int:
                       "aten_bit_equal_on_path": True, "aten_bit_equal_on_cases": aten_equal,
                       **where}))
 
+    del held_train, batch, cache
+    torch.cuda.empty_cache()
+
+    # 17. The two ResNet kernels against their plain versions on synthetic cases.
+    rstem_err, bott_err = resnet_kernel_cases(torch, resnet_stem, bottleneck)
+
+    # 18. Full-width ssd512_resnet50_coco in float at bs=64 through make_predict_fn.
+    cfg512 = get_config("ssd512_resnet50_coco")
+    check(cfg512.eval.int8_logits_bf16 and cfg512.model.compute_dtype == "bfloat16",
+          "the SSD-512 preset no longer asks for bf16 logits and a bf16 float model")
+    params512 = init_params(SSDModel(cfg512), seed=0, random_batch_stats=True).state_dict()
+    anchors512 = ssd_anchors(cfg512.anchors, cfg512.model.image_size)
+    check(anchors512.shape == (24564, 4), f"SSD-512 anchors {anchors512.shape}")
+    model512 = SSDModel(cfg512)
+    model512.load_state_dict(params512)
+    predict512 = make_predict_fn(cfg512, model512, anchors512, device="cuda")
+    images512 = torch.randint(0, 256, (64, 512, 512, 3), generator=gen, device="cuda",
+                              dtype=torch.uint8)
+    predict512(images512)
+    det512, launches["ssd512_float_bs64"] = counted(lambda: predict512(images512))
+    check(launches["ssd512_float_bs64"] == {**{k: 0 for k in wrappers}, "nms_rows": 1},
+          f"SSD-512 float bs=64 launches {launches['ssd512_float_bs64']}")
+    check(det512.boxes.shape == (64, cfg512.eval.max_detections, 4)
+          and bool(torch.isfinite(det512.boxes).all()) and bool(torch.isfinite(det512.scores).all())
+          and bool(det512.valid.any()), "SSD-512 float bs=64 detections are not finite or empty")
+    rows512, _ = hold_path(torch, nms_kernel, normalize, model512, images512, anchors512, cfg512)
+    check(tuple(rows512["scores"].shape) == (64 * 80, 512),
+          f"SSD-512 NMS rows {tuple(rows512['scores'].shape)}")
+    max_abs_err = max(max_abs_err, rows512["max_abs_err"])
+    ms512 = host_ms(torch, lambda: predict512(images512), 10)
+    float512_img_per_s = 64 / (statistics.median(ms512) / 1e3)
+    print(json.dumps({"phase": "ssd512_predict_bs64", "valid_detections": int(det512.valid.sum()),
+                      "launches": launches["ssd512_float_bs64"],
+                      "nms_rows": list(rows512["scores"].shape),
+                      "median_ms": statistics.median(ms512), "img_per_s": float512_img_per_s,
+                      **where}))
+    print(json.dumps({"phase": "profile_ssd512_bs64",
+                      **profile_window(torch, lambda: predict512(images512), 3), **where}))
+    del rows512, det512
+
+    # 19. The int8 engine at bs=64 through make_int8_predict_fn.
+    calib512 = rng.integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    predict512_8 = make_int8_predict_fn(cfg512, params512, anchors512, calib512, device="cuda")
+    torch.cuda.synchronize()
+    quantize512_s = time.perf_counter() - t0
+    predict512_8(images512)
+    det512_8, launches["ssd512_int8_bs64"] = counted(lambda: predict512_8(images512))
+    check(launches["ssd512_int8_bs64"] == RESNET_INT8_LAUNCHES,
+          f"SSD-512 int8 bs=64 launches {launches['ssd512_int8_bs64']}, "
+          f"expected {RESNET_INT8_LAUNCHES}")
+    check(det512_8.boxes.shape == (64, cfg512.eval.max_detections, 4)
+          and bool(torch.isfinite(det512_8.boxes).all())
+          and bool(torch.isfinite(det512_8.scores).all()) and bool(det512_8.valid.any()),
+          "SSD-512 int8 bs=64 detections are not finite or are empty")
+    held512 = hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess,
+                                    normalize, predict512_8, images512, anchors512, cfg512)
+    check(_same_detections(torch, held512["detections"], det512_8),
+          "SSD-512 int8 bs=64: the served detections differ from the same QuantParams' rerun")
+    rstem_err = max(rstem_err, held512["stem_err"])
+    bott_err = max(bott_err, held512["bottleneck_err"])
+    int8_512_ms = host_ms(torch, lambda: predict512_8(images512), 10)
+    int8_512_img_per_s = 64 / (statistics.median(int8_512_ms) / 1e3)
+    # The same QuantParams on the unfused spec, and on the bottleneck-only spec.
+    qp512 = predict512_8.qp
+    os.environ["ODT_STEM_KERNEL"] = "0"  # unset before: the path above launched the stem kernel
+    try:
+        spec_bottleneck_only = engine.build_resnet_ssd_spec(cfg512, fused_bottleneck=True)
+        spec_unfused = engine.build_resnet_ssd_spec(cfg512, fused_bottleneck=False)
+    finally:
+        del os.environ["ODT_STEM_KERNEL"]
+    check(not any(isinstance(op, (engine.BottleneckOp, engine.StemPoolPallasOp))
+                  for op in spec_unfused), "the unfused spec still holds a kernel op")
+    anchors512_t = torch.from_numpy(anchors512).cuda()
+
+    @torch.inference_mode()
+    def predict_unfused(images_u8):
+        x = normalize(images_u8.float() / 255.0)
+        return postprocess(*engine.int8_forward(qp512, spec_unfused, cfg512, x), anchors512_t,
+                           cfg512)
+
+    with torch.inference_mode():
+        x512 = normalize(images512[:8].float() / 255.0)
+        taps_unfused = engine.run_int8(qp512, spec_unfused, x512, dequantize_taps=False)
+        taps_bottleneck = engine.run_int8(qp512, spec_bottleneck_only, x512, dequantize_taps=False)
+        taps_both = engine.run_int8(qp512, predict512_8.spec, x512, dequantize_taps=False)
+    # With the stem kernel on too, the few stem codes that its reciprocal
+    # requant moves by one spread through every later conv: the taps then
+    # differ in many codes, by little. Reported, and held to a mean of half
+    # a code.
+    agree, mean_diff, max_diff = [], [], []
+    for (u, _), (k, _), (both, _) in zip(taps_unfused, taps_bottleneck, taps_both):
+        check(torch.equal(u, k), f"SSD-512: the bottleneck kernel's spec differs from the unfused "
+                                 f"spec at tap {tuple(u.shape)}: {int((u != k).sum())} codes")
+        diff = (both.int() - u.int()).abs()
+        agree.append(float((diff == 0).float().mean()))
+        mean_diff.append(float(diff.float().mean()))
+        max_diff.append(int(diff.max()))
+    check(max(mean_diff) <= 0.5, f"SSD-512: the kernel spec's taps are {mean_diff} codes from the "
+                                 f"unfused spec's on average")
+    det_unfused, launches_unfused = counted(lambda: predict_unfused(images512))
+    check(launches_unfused == {**{k: 0 for k in wrappers}, "nms_rows": 1},
+          f"the unfused spec launched {launches_unfused}")
+    unfused_ms = host_ms(torch, lambda: predict_unfused(images512), 10)
+    unfused_img_per_s = 64 / (statistics.median(unfused_ms) / 1e3)
+    print(json.dumps({"phase": "ssd512_int8_predict_bs64", "quantize_s": quantize512_s,
+                      "valid_detections": int(det512_8.valid.sum()),
+                      "launches": launches["ssd512_int8_bs64"],
+                      "kernels_vs_plain_bit_equal": True,
+                      "stem_input": list(held512["stem_args"][0].shape),
+                      "bottleneck_inputs": [list(a[0].shape) for a, _ in held512["block_args"]],
+                      "bottleneck_spec_vs_unfused_spec_taps_bit_equal": len(taps_unfused),
+                      "kernel_spec_vs_unfused_spec_taps": {
+                          "share_equal": agree, "mean_abs_code_diff": mean_diff,
+                          "max_abs_code_diff": max_diff},
+                      "stem_vs_unfused_chain": held512["stem_vs_chain"],
+                      "median_ms": statistics.median(int8_512_ms),
+                      "img_per_s": int8_512_img_per_s,
+                      "unfused_spec_median_ms": statistics.median(unfused_ms),
+                      "unfused_spec_img_per_s": unfused_img_per_s,
+                      "unfused_spec_valid_detections": int(det_unfused.valid.sum()),
+                      "float_img_per_s": float512_img_per_s, **where}))
+    print(json.dumps({"phase": "profile_ssd512_int8_bs64",
+                      **profile_window(torch, lambda: predict512_8(images512), 3), **where}))
+    print(json.dumps({"phase": "profile_ssd512_int8_bs64_unfused_spec",
+                      **profile_window(torch, lambda: predict_unfused(images512), 3), **where}))
+    del taps_unfused, taps_bottleneck, taps_both, det_unfused, det512_8, x512
+
+    # 20. The stem kernel and each of the twelve bottleneck launches on the
+    # bs=64 path's own inputs (held bit-equal in 19).
+    stem_args, stem_kw = held512["stem_args"], held512["stem_kw"]
+    rstem_out = resnet_stem.resnet_stem(*stem_args, **stem_kw)
+    rstem_ms = cuda_ms(torch, lambda: resnet_stem.resnet_stem(*stem_args, **stem_kw), 10)
+    rstem_plain_ms = cuda_ms(torch, lambda: resnet_stem.resnet_stem_reference(*stem_args), 2)
+    rstem_unfused_ms = cuda_ms(
+        torch, lambda: unfused_stem(int8_ops, qp512, predict512_8.spec[0], stem_args[0]), 3)
+    rstem_bound, rstem_bound_by = resnet_stem_bound_ms(stem_args[0], rstem_out)
+    block_ops = [op for op in predict512_8.spec if isinstance(op, engine.BottleneckOp)]
+    block_rows = []
+    for op, (args, kw) in zip(block_ops, held512["block_args"]):
+        x_in, cm = args[0], args[1].shape[1]
+        chain = unfused_block(int8_ops, qp512, op, x_in, kw["resid_scale"])
+        check(torch.equal(chain, bottleneck.fused_bottleneck(*args, **kw)),
+              f"{op.base}: the kernel differs from the engine's unfused chain")
+        b_ms, b_by = bottleneck_bound_ms(x_in, cm)
+        block_rows.append({
+            "block": op.base, "x": list(x_in.shape), "cm": cm,
+            "ms": cuda_ms(torch, lambda: bottleneck.fused_bottleneck(*args, **kw), 5),
+            "plain_ms": cuda_ms(
+                torch, lambda: bottleneck.fused_bottleneck_reference(*args, **kw), 2),
+            "unfused_chain_ms": cuda_ms(
+                torch, lambda: unfused_block(int8_ops, qp512, op, x_in, kw["resid_scale"]), 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+        del chain
+    block_sum = {k: sum(r[k] for r in block_rows)
+                 for k in ("ms", "plain_ms", "unfused_chain_ms", "bound_ms")}
+    # What bounds the twelve launches together: the kind that holds the larger
+    # part of the summed bounds.
+    bound_parts = {kind: sum(r["bound_ms"] for r in block_rows if r["bound_by"] == kind)
+                   for kind in ("bytes", "operations")}
+    block_bound_by = max(bound_parts, key=bound_parts.get)
+    by_shape = {}
+    for r in block_rows:
+        key = "x".join(str(v) for v in r["x"][1:])
+        by_shape.setdefault(key, {"launches": 0, "ms": 0.0, "plain_ms": 0.0,
+                                  "unfused_chain_ms": 0.0, "bound_ms": 0.0,
+                                  "bound_by": r["bound_by"]})
+        by_shape[key]["launches"] += 1
+        for k in ("ms", "plain_ms", "unfused_chain_ms", "bound_ms"):
+            by_shape[key][k] += r[k]
+    for v in by_shape.values():  # means per launch of each shape
+        for k in ("ms", "plain_ms", "unfused_chain_ms", "bound_ms"):
+            v[k] /= v["launches"]
+    print(json.dumps({"phase": "resnet_kernel_timing", "batch": 64,
+                      "stem": {"input": list(stem_args[0].shape), "ms": rstem_ms,
+                               "plain_ms": rstem_plain_ms, "unfused_chain_ms": rstem_unfused_ms,
+                               "bound_ms": rstem_bound, "bound_by": rstem_bound_by},
+                      "bottleneck_per_launch_by_shape": by_shape,
+                      "bottleneck_per_forward": block_sum,
+                      "bottleneck_per_block": block_rows, **where}))
+    del held512, stem_args, rstem_out, predict512_8, predict_unfused, qp512, images512
+    torch.cuda.empty_cache()
+
+    # 21. One image through the Predictor at bs=1, float and int8.
+    class_names = [f"class_{i}" for i in range(cfg512.model.num_classes)]
+    predictor512 = Predictor(cfg512, params512, class_names, device="cuda")
+    dets_f, launches["ssd512_float_bs1"] = counted(
+        lambda: predictor512.predict_array(image, score_threshold=0.0))
+    check(launches["ssd512_float_bs1"] == {**{k: 0 for k in wrappers}, "nms_rows": 1},
+          f"SSD-512 float bs=1 launches {launches['ssd512_float_bs1']}")
+    check(len(dets_f) > 0 and all(np.all(np.isfinite(d.box)) and 0 < d.score <= 1 for d in dets_f),
+          "the SSD-512 float bs=1 Predictor returned no or bad detections")
+    predictor512_8 = Predictor(cfg512, params512, class_names, device="cuda", int8=True)
+    dets512_8, launches["ssd512_int8_bs1"] = counted(
+        lambda: predictor512_8.predict_array(image, score_threshold=0.0))
+    check(launches["ssd512_int8_bs1"] == RESNET_INT8_LAUNCHES,
+          f"SSD-512 int8 bs=1 launches {launches['ssd512_int8_bs1']}, "
+          f"expected {RESNET_INT8_LAUNCHES}")
+    check(len(dets512_8) > 0
+          and all(np.all(np.isfinite(d.box)) and 0 < d.score <= 1 for d in dets512_8),
+          "the SSD-512 int8 bs=1 Predictor returned no or bad detections")
+    canvas512 = np.array(Image.fromarray(image).resize((512, 512), Image.BILINEAR), np.uint8)
+    held512_1 = hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess,
+                                      normalize, predictor512_8._predict,
+                                      torch.from_numpy(canvas512[None]).cuda(), anchors512, cfg512)
+    rstem_err = max(rstem_err, held512_1["stem_err"])
+    bott_err = max(bott_err, held512_1["bottleneck_err"])
+    det1 = held512_1["detections"]
+    v1 = det1.valid[0]
+    served = torch.tensor([[d.score, d.class_id, *d.box] for d in dets512_8], dtype=torch.float32)
+    want = torch.cat([det1.scores[0][v1, None], det1.classes[0][v1, None].float(),
+                      det1.boxes[0][v1] * torch.tensor([iw, ih, iw, ih], dtype=torch.float32,
+                                                       device="cuda")], dim=1).cpu()
+    check(torch.equal(served, want), "SSD-512 int8 bs=1: the served detections differ from the "
+                                     "plain versions' run on the same canvas")
+    canvas_512 = rng.integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)
+    p50_512 = statistics.median(host_ms(torch, lambda: predictor512._predict(canvas_512), 50))
+    p50_512_8 = statistics.median(host_ms(torch, lambda: predictor512_8._predict(canvas_512), 50))
+    print(json.dumps({"phase": "ssd512_predictor_bs1", "float_detections": len(dets_f),
+                      "int8_detections": len(dets512_8),
+                      "launches": {"float": launches["ssd512_float_bs1"],
+                                   "int8": launches["ssd512_int8_bs1"]},
+                      "kernels_vs_plain_bit_equal": True,
+                      "bottleneck_inputs": [list(a[0].shape) for a, _ in held512_1["block_args"]],
+                      "float_p50_ms": p50_512, "int8_p50_ms": p50_512_8, **where}))
+    print(json.dumps({"phase": "profile_ssd512_bs1", **profile_window(
+        torch, lambda: predictor512._predict(canvas_512), 10), **where}))
+    print(json.dumps({"phase": "profile_ssd512_int8_bs1", **profile_window(
+        torch, lambda: predictor512_8._predict(canvas_512), 10), **where}))
+    del held512_1, det1, predictor512, predictor512_8, model512, predict512
+    torch.cuda.empty_cache()
+
+    # 22. A small ResNet-50 config on the card against the CPU.
+    print(json.dumps({"phase": "resnet_reference_check", **resnet_reference_check(
+        torch, np, port_config, engine, postprocess, normalize, make_int8_predict_fn, SSDModel,
+        init_params, ssd_anchors)}))
+
     def counts(name: str) -> dict:
         return {"launches": sum(c[name] for c in launches.values()),
                 "launches_by_path": {path: c[name] for path, c in launches.items()}}
@@ -767,6 +1075,40 @@ def main() -> int:
             "bound_by": pool_rows[0]["bound_by"],
             "library_ms": pool_sum["aten_backward_ms"],
             "times_are": "sums over the four pools of one bs=32 training step",
+        },
+        {
+            "name": "resnet_stem",
+            "route": "cuda",
+            "source": "object_detector_tpu_torch/csrc/resnet_stem.cu",
+            "replaces": "object_detector_tpu/kernels/resnet_stem_pallas.py:160",
+            **counts("resnet_stem"),
+            "max_abs_err": rstem_err,
+            "ms": rstem_ms,
+            "plain_ms": rstem_plain_ms,
+            "bound_ms": rstem_bound,
+            "bound_by": rstem_bound_by,
+            "library_ms": None,
+            "library_none_because": "no single PyTorch call computes an input quantize, an int8 "
+                                    "conv with a requant epilogue and a max pool",
+            "unfused_chain_ms": rstem_unfused_ms,
+        },
+        {
+            "name": "fused_bottleneck",
+            "route": "cuda",
+            "source": "object_detector_tpu_torch/csrc/bottleneck.cu",
+            "replaces": "object_detector_tpu/kernels/bottleneck_pallas.py:75",
+            **counts("fused_bottleneck"),
+            "max_abs_err": bott_err,
+            "ms": block_sum["ms"],
+            "plain_ms": block_sum["plain_ms"],
+            "bound_ms": block_sum["bound_ms"],
+            "bound_by": block_bound_by,
+            "bound_by_shape": {k: v["bound_by"] for k, v in by_shape.items()},
+            "library_ms": None,
+            "library_none_because": "no single PyTorch call computes three int8 convs with "
+                                    "requant epilogues and a residual",
+            "unfused_chain_ms": block_sum["unfused_chain_ms"],
+            "times_are": "sums over the twelve launches of one bs=64 int8 SSD-512 forward",
         },
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -1064,6 +1406,245 @@ def train_step_reference_check(torch, np, init_model_state, make_train_step, Dec
             "grad_max_abs_err": worst,
             "grad_max_abs": max(g.abs().max().item() for g in grads_cpu.values())}
 
+
+
+def resnet_kernel_cases(torch, resnet_stem, bottleneck):
+    """Holds the fused ResNet stem and the fused bottleneck kernels bit-equal
+    to their plain versions on synthetic cases. Returns the largest code
+    differences (0, 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def randint(low, high, shape):
+        return torch.randint(low, high, shape, generator=gen, device="cuda").to(torch.int8)
+
+    stem_err = 0
+    for kind, (b, h, w) in (("random", (2, 128, 128)), ("edge", (2, 64, 64)),
+                            ("ragged_tile", (3, 40, 52))):
+        if kind == "edge":  # saturated inputs, extreme weights and biases
+            levels = torch.tensor([-2.6, -0.02, 0.0, 0.02, 2.6], device="cuda")
+            images = levels[torch.randint(0, 5, (b, h, w, 3), generator=gen, device="cuda")]
+            w_levels = torch.tensor([-127, -1, 0, 1, 127], device="cuda", dtype=torch.int8)
+            w_q = w_levels[torch.randint(0, 5, (7, 7, 3, 64), generator=gen, device="cuda")]
+            deq = torch.full((64,), 0.02 * 0.01, device="cuda")
+            bias = torch.randn(64, generator=gen, device="cuda") * 3.0
+            scales = (0.02, 0.05)
+        else:
+            images = torch.randn((b, h, w, 3), generator=gen, device="cuda") * 1.2
+            w_q = randint(-127, 128, (7, 7, 3, 64))
+            deq = 0.02 * (torch.rand(64, generator=gen, device="cuda") * 0.015 + 0.005)
+            bias = torch.randn(64, generator=gen, device="cuda") * 0.5
+            scales = (0.02, 0.07)
+        got = resnet_stem.resnet_stem(images, w_q, deq, bias, *scales)
+        torch.cuda.synchronize()
+        want = resnet_stem.resnet_stem_reference(images, w_q, deq, bias, *scales)
+        stem_err = max(stem_err, int((got.int() - want.int()).abs().max()))
+        check(got.shape == (b, h // 4, w // 4, 64) and torch.equal(got, want),
+              f"resnet stem kernel differs from its plain version ({kind}): "
+              f"{int((got != want).sum())} codes")
+        print(json.dumps({"phase": "resnet_stem_kernel_vs_plain", "case": kind, "bit_equal": True,
+                          "shape": list(images.shape),
+                          "share_positive": float((want > 0).float().mean()),
+                          "share_at_127": float((want == 127).float().mean())}))
+
+    bott_err = 0
+    cases = [(f"{h}x{h}x{c}", (2, h, h, c, cm)) for c, cm, h, _ in RESNET_BLOCKS]
+    cases += [("ragged", (2, 13, 19, 256, 64)), ("large_b1", (2, 12, 20, 128, 32)),
+              ("zero_input", (1, 16, 16, 256, 64)), ("narrow", (2, 12, 16, 32, 16))]
+    for kind, (b, h, w, c, cm) in cases:
+        lim = 40
+        x = randint(-127, 128, (b, h, w, c))
+        if kind == "zero_input":
+            x.zero_()
+
+        def deq(k, n):  # keeps each conv's output spread over the codes
+            return (torch.rand(n, generator=gen, device="cuda") + 0.5) * 40.0 / (lim * 127 * k ** 0.5)
+
+        def bias(n, shift=0.0):
+            return torch.randn(n, generator=gen, device="cuda") * 5.0 + shift
+
+        ops = (x, randint(-lim, lim + 1, (c, cm)), deq(c, cm),
+               bias(cm, 60.0 if kind == "large_b1" else 0.0),
+               randint(-lim, lim + 1, (3, 3, cm, cm)), deq(9 * cm, cm), bias(cm),
+               randint(-lim, lim + 1, (cm, c)), deq(cm, c), bias(c))
+        scales = dict(s1=0.43, s2=0.51, s3=0.37, resid_scale=0.29)
+        got = bottleneck.fused_bottleneck(*ops, **scales)
+        torch.cuda.synchronize()
+        want = bottleneck.fused_bottleneck_reference(*ops, **scales)
+        bott_err = max(bott_err, int((got.int() - want.int()).abs().max()))
+        check(torch.equal(got, want), f"bottleneck kernel differs from its plain version ({kind}): "
+                                      f"{int((got != want).sum())} codes")
+        print(json.dumps({"phase": "bottleneck_kernel_vs_plain", "case": kind, "bit_equal": True,
+                          "shape": list(x.shape), "cm": cm,
+                          "share_positive": float((want > 0).float().mean())}))
+    return stem_err, bott_err
+
+
+def unfused_stem(int8_ops, qp, op, images):
+    """The engine's unfused chain for the ResNet stem on the QuantParams'
+    laid-out constants: input quantize, int8 conv, requant epilogue, pool."""
+    dev = images.device
+    s_in = qp.act_scale["__input__"]
+    x = int8_ops.quantize(images.clone(), qp.scale(s_in, dev))
+    acc = int8_ops.conv_int8(x, qp.w_int8[op.path], 2, 3, 1, operand=qp.gemm_operand(op.path))
+    q = int8_ops.requant_epilogue(acc, qp.deq(op.path, s_in, dev), qp.bias[op.path],
+                                  qp.scale(qp.act_scale[op.path], dev))
+    return int8_ops.max_pool(q, 3, 2, explicit_pad=1)
+
+
+def unfused_block(int8_ops, qp, op, x, in_scale):
+    """The engine's unfused chain for one bottleneck block on the
+    QuantParams' laid-out constants, as `run_int8` runs the expanded op."""
+    dev = x.device
+    resid, cur = x, in_scale
+    for i, path in enumerate(op.conv_paths):
+        acc = int8_ops.conv_int8(x, qp.w_int8[path], 1, "SAME", 1, operand=qp.gemm_operand(path))
+        last = i == 2
+        x = int8_ops.requant_epilogue(
+            acc, qp.deq(path, cur, dev), qp.bias[path], qp.scale(qp.act_scale[path], dev), True,
+            resid if last else None, qp.scale(in_scale, dev) if last else None)
+        cur = qp.act_scale[path]
+    return x
+
+
+def hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess, normalize,
+                          predict8, images, anchors_np, cfg):
+    """Runs the int8 SSD-512 path of ``predict8`` (a `make_int8_predict_fn`
+    result) on ``images`` (uint8, on the card) with its QuantParams,
+    capturing what the stem and the twelve bottleneck launches were given.
+    Holds the detections through the kernels equal to those of the same
+    QuantParams with the plain versions of both kernels, and each kernel
+    bit-equal to its plain version on the captured inputs. Returns the
+    captured inputs, the largest code differences, the detections through
+    the kernels and how far the stem is from the engine's unfused chain."""
+    from object_detector_tpu_torch.ops import int8 as int8_ops
+
+    captured = {"blocks": []}
+
+    def stem_capture(*args, **kw):
+        captured["stem"] = (args, kw)
+        return resnet_stem.resnet_stem(*args, **kw)
+
+    def block_capture(*args, **kw):
+        captured["blocks"].append((args, kw))
+        return bottleneck.fused_bottleneck(*args, **kw)
+
+    qp, spec = predict8.qp, predict8.spec
+    anchors = torch.from_numpy(anchors_np).cuda()
+    with torch.inference_mode():
+        x = normalize(images.float() / 255.0)
+        det_k = postprocess(*engine.int8_forward(
+            qp, spec, cfg, x, resnet_stem_fn=stem_capture, bottleneck_fn=block_capture),
+            anchors, cfg)
+        det_p = postprocess(*engine.int8_forward(
+            qp, spec, cfg, x, resnet_stem_fn=resnet_stem.resnet_stem_reference,
+            bottleneck_fn=bottleneck.fused_bottleneck_reference), anchors, cfg)
+        b, s = images.shape[0], cfg.model.image_size
+        stem_args, stem_kw = captured["stem"]
+        check(tuple(stem_args[0].shape) == (b, s, s, 3) and stem_args[0].dtype == torch.float32,
+              f"bs={b}: the resnet stem's input is {tuple(stem_args[0].shape)}")
+        want_shapes = [(b, h, h, c) for c, _, h, n in RESNET_BLOCKS for _ in range(n)]
+        got_shapes = [tuple(args[0].shape) for args, _ in captured["blocks"]]
+        check(got_shapes == want_shapes, f"bs={b}: the bottleneck launches saw {got_shapes}")
+        stem_k = resnet_stem.resnet_stem(*stem_args, **stem_kw)
+        stem_p = resnet_stem.resnet_stem_reference(*stem_args)
+        check(torch.equal(stem_k, stem_p), f"int8 bs={b}: the resnet stem kernel differs from its "
+              f"plain version on the path's images: {int((stem_k != stem_p).sum())} codes")
+        chain = unfused_stem(int8_ops, qp, spec[0], stem_args[0])
+        diff = (stem_k.int() - chain.int()).abs()
+        stem_vs_chain = {"max_code_diff": int(diff.max()),
+                         "share_differing": float((diff > 0).float().mean())}
+        check(stem_vs_chain["max_code_diff"] <= 1 and stem_vs_chain["share_differing"] <= 1e-4,
+              f"int8 bs={b}: the resnet stem is further from the unfused chain than one code on "
+              f"1e-4 of the elements: {stem_vs_chain}")
+        bott_err = 0
+        for i, (args, kw) in enumerate(captured["blocks"]):
+            k_out = bottleneck.fused_bottleneck(*args, **kw)
+            p_out = bottleneck.fused_bottleneck_reference(*args, **kw)
+            bott_err = max(bott_err, int((k_out.int() - p_out.int()).abs().max()))
+            check(torch.equal(k_out, p_out), f"int8 bs={b}: the bottleneck kernel differs from its "
+                  f"plain version on the input of block {i} {got_shapes[i]}: "
+                  f"{int((k_out != p_out).sum())} codes")
+            del k_out, p_out
+    torch.cuda.synchronize()
+    check(_same_detections(torch, det_k, det_p), f"int8 bs={b}: SSD-512 detections through the "
+                                                 "kernels differ from the plain versions'")
+    return {"stem_args": stem_args, "stem_kw": stem_kw, "block_args": captured["blocks"],
+            "detections": det_k, "stem_err": int((stem_k.int() - stem_p.int()).abs().max()),
+            "bottleneck_err": bott_err, "stem_vs_chain": stem_vs_chain}
+
+
+def resnet_reference_check(torch, np, port_config, engine, postprocess, normalize,
+                           make_int8_predict_fn, SSDModel, init_params, ssd_anchors):
+    """A small SSD/ResNet-50 (ResNet-50's depth and widths at 64 px, seeded
+    weights and BatchNorm statistics) on the card against the CPU: float32
+    logits with TF32 off within 1e-3; on the CPU's QuantParams the int8 tap
+    codes and logits equal (the card runs the two kernels, the CPU their
+    plain versions) and the detections equal in valid and classes, scores
+    and boxes within 1e-5. Reports how far bfloat16 on the card is from the
+    CPU's float32."""
+    size = 64
+    cfg = port_config.DetectorConfig(
+        name="ssd64_resnet_smoke",
+        model=port_config.ModelConfig(family="ssd", backbone="resnet50", image_size=size,
+                                      num_classes=4, compute_dtype="float32"),
+        anchors=port_config.AnchorConfig(
+            feature_sizes=(8, 4, 2, 1, 1),
+            sizes=((8., 16.), (16., 28.), (28., 40.), (40., 52.), (52., 62.)),
+            aspect_ratios=((2.0,),) * 5),
+        eval=port_config.EvalConfig(pre_nms_top_k=64, max_detections=16),
+    )
+    params = init_params(SSDModel(cfg), seed=3, random_batch_stats=True).state_dict()
+    anchors = ssd_anchors(cfg.anchors, size)
+    rng = np.random.default_rng(22)
+    images = rng.integers(0, 256, (4, size, size, 3), dtype=np.uint8)
+    x = normalize(torch.from_numpy(images).float() / 255.0)
+    logits = {}
+    was = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, c, device in (("cuda", cfg, "cuda"), ("cpu", cfg, "cpu"),
+                                ("cuda_bf16", cfg.override({"model.compute_dtype": "bfloat16"}),
+                                 "cuda")):
+            m = SSDModel(c)
+            m.load_state_dict(params)
+            with torch.inference_mode():
+                logits[name] = [t.float().cpu() for t in m.to(device).eval()(x.to(device))]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = was
+    err_f32 = max((a - b).abs().max().item() for a, b in zip(logits["cuda"], logits["cpu"]))
+    err_bf16 = max((a - b).abs().max().item() for a, b in zip(logits["cuda_bf16"], logits["cpu"]))
+    mean_bf16 = max((a - b).abs().mean().item() for a, b in zip(logits["cuda_bf16"], logits["cpu"]))
+    check(err_f32 <= 1e-3, f"small ResNet float32 logits on the card differ from the CPU by "
+                           f"{err_f32}")
+    predict_cpu = make_int8_predict_fn(cfg, params, anchors, images, use_pallas=True, device="cpu")
+    qp_cpu, spec = predict_cpu.qp, predict_cpu.spec
+    check(isinstance(spec[0], engine.StemPoolPallasOp)
+          and sum(isinstance(op, engine.BottleneckOp) for op in spec) == 12,
+          "the small ResNet spec does not select both kernels")
+    qp_gpu = qp_cpu.to("cuda")
+    with torch.inference_mode():
+        taps = {dev: engine.run_int8(qp, spec, x.to(dev), dequantize_taps=False)
+                for dev, qp in (("cuda", qp_gpu), ("cpu", qp_cpu))}
+        heads = {dev: engine.int8_forward(qp, spec, cfg, x.to(dev))
+                 for dev, qp in (("cuda", qp_gpu), ("cpu", qp_cpu))}
+        dets = {dev: postprocess(*heads[dev], torch.from_numpy(anchors).to(dev), cfg,
+                                 use_pallas=True) for dev in ("cuda", "cpu")}
+    for (g, _), (c, _) in zip(taps["cuda"], taps["cpu"]):
+        check(torch.equal(g.cpu(), c), f"small ResNet int8 tap {tuple(c.shape)} on the card "
+                                       f"differs from the CPU: {int((g.cpu() != c).sum())} codes")
+    for g, c in zip(heads["cuda"], heads["cpu"]):
+        check(torch.equal(g.cpu(), c), "small ResNet int8 logits on the card differ from the CPU")
+    g, c = dets["cuda"], dets["cpu"]
+    gv, cv = g.valid.cpu(), c.valid
+    check(bool(gv.any()) and torch.equal(gv, cv) and torch.equal(g.classes.cpu()[gv], c.classes[cv])
+          and torch.allclose(g.scores.cpu()[gv], c.scores[cv], rtol=0, atol=1e-5)
+          and torch.allclose(g.boxes.cpu()[gv], c.boxes[cv], rtol=0, atol=1e-5),
+          "small ResNet int8 detections on the card differ from the CPU")
+    return {"f32_logits_max_abs_err": err_f32, "bf16_card_vs_f32_cpu_max_abs_err": err_bf16,
+            "bf16_card_vs_f32_cpu_mean_abs_err": mean_bf16,
+            "logits_max_abs": max(t.abs().max().item() for t in logits["cpu"]),
+            "int8_taps_equal": len(taps["cpu"]), "int8_logits_equal": True,
+            "int8_valid": int(gv.sum())}
 
 
 def _same_detections(torch, a, b) -> bool:

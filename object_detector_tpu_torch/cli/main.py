@@ -4,7 +4,8 @@
     python -m object_detector_tpu_torch predict --preset ssd300_vgg16_voc --checkpoint ckpt/ --image dog.jpg --output out.jpg
 
 ``train`` trains SSD/VGG16 on one device (the synthetic dataset; the VOC and
-COCO readers are not ported yet). ``predict`` serves the float model, or with
+COCO readers and ResNet-50 training are not ported yet). ``predict`` serves
+the float model of any SSD preset (``ssd512_resnet50_coco`` too), or with
 ``--int8`` the int8 engine (calibrated on 8 random images from a seed), with
 the weights of ``--checkpoint`` (a directory ``train`` wrote; the EMA weights
 if it holds them) or random weights from a seed (smoke mode). Both run on

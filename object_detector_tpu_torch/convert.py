@@ -3,7 +3,9 @@
 ``params_from_jax`` takes the reference's flax params flattened to
 ``/``-joined paths (the format of ``object_detector_tpu/cli/convert_weights.py``
 ``flatten_tree``, of which `flatten_tree` here is the port's copy) and
-returns the port's ``state_dict``. ``init_params`` is the port's own seeded
+returns the port's ``state_dict``; ``variables_from_jax`` takes a whole flax
+``variables`` dict, with the ``batch_stats`` collection of a BatchNorm
+backbone. ``init_params`` is the port's own seeded
 initialiser, with the reference's init scheme; the two give different
 numbers from the same seed. ``quant_params_from_jax`` carries the
 reference's int8 ``QuantParams`` across, so both engines can run on the
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from object_detector_tpu_torch.models.resnet import BatchNorm
 from object_detector_tpu_torch.models.ssd import CLASS_BIAS_INIT, PredictionHead
 from object_detector_tpu_torch.models.vgg import Conv, L2Norm
 from object_detector_tpu_torch.quant.engine import QuantParams
@@ -42,10 +45,22 @@ def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndar
     return out
 
 
+# A BatchNorm's leaves in flax's two collections and in the port's module.
+_STATS_FROM_JAX = {"mean": "running_mean", "var": "running_var"}
+_STATS_TO_JAX = {v: k for k, v in _STATS_FROM_JAX.items()}
+
+
 def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flattened flax params (``backbone/conv1_1/kernel``, ...) -> the port's
     state_dict (``backbone.conv1_1.weight``, ...). Conv kernels go from HWIO
-    to OIHW; biases and ``l2norm/scale`` carry over as they are."""
+    to OIHW; biases and ``l2norm/scale`` carry over as they are. A
+    BatchNorm's ``scale`` (the scope holds ``scale`` and ``bias`` and no
+    ``kernel``) becomes ``weight``; the leaves of its ``batch_stats``,
+    ``mean`` and ``var``, become ``running_mean`` and ``running_var``."""
+    scopes: Dict[str, set] = {}
+    for path in flat:
+        scope, _, leaf = path.rpartition("/")
+        scopes.setdefault(scope, set()).add(leaf)
     out: Dict[str, torch.Tensor] = {}
     for path, value in flat.items():
         *scope, leaf = path.split("/")
@@ -54,24 +69,43 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             if arr.ndim != 4:
                 raise ValueError(f"{path}: expected an HWIO conv kernel, got shape {arr.shape}")
             leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
+        elif leaf == "scale" and scopes["/".join(scope)] == {"scale", "bias"}:
+            leaf = "weight"
+        elif leaf in _STATS_FROM_JAX:
+            leaf = _STATS_FROM_JAX[leaf]
         elif leaf not in ("bias", "scale"):
             raise KeyError(f"unexpected flax param {path!r}")
         out[".".join([*scope, leaf])] = torch.tensor(arr)
     return out
 
 
+def variables_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``variables`` dict (``params`` and, for a BatchNorm backbone,
+    ``batch_stats``) -> the port's state_dict."""
+    out = params_from_jax(flatten_tree(variables["params"]))
+    out.update(params_from_jax(flatten_tree(variables.get("batch_stats", {}))))
+    return out
+
+
 def names_to_jax(tree: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of `params_from_jax` for any dict keyed like the port's
     state_dict (parameters, gradients, optimizer moments):
-    ``backbone.conv1_1.weight`` (OIHW) -> ``backbone/conv1_1/kernel`` (HWIO)."""
+    ``backbone.conv1_1.weight`` (OIHW) -> ``backbone/conv1_1/kernel`` (HWIO).
+    A BatchNorm's 1-D ``weight`` goes back to ``scale`` and its running
+    statistics to ``mean`` and ``var`` (flax keeps those two in the
+    ``batch_stats`` collection)."""
     out: Dict[str, np.ndarray] = {}
     for name, value in tree.items():
         *scope, leaf = name.split(".")
         arr = value.detach().to(torch.float32).cpu().numpy()
-        if leaf == "weight":
+        if leaf == "weight" and arr.ndim == 1:
+            leaf = "scale"
+        elif leaf == "weight":
             if arr.ndim != 4:
                 raise ValueError(f"{name}: expected an OIHW conv weight, got shape {arr.shape}")
             leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+        elif leaf in _STATS_TO_JAX:
+            leaf = _STATS_TO_JAX[leaf]
         elif leaf not in ("bias", "scale"):
             raise KeyError(f"unexpected parameter {name!r}")
         out["/".join([*scope, leaf])] = arr
@@ -124,9 +158,15 @@ def quant_params_from_jax(qp: Any) -> QuantParams:
 
 
 @torch.no_grad()
-def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
+def init_params(model: nn.Module, seed: int = 0, random_batch_stats: bool = False) -> nn.Module:
     """Seeded init in place: lecun-normal conv kernels, zero biases, the class
-    bias -log(99) on every head, L2Norm scale at its init value."""
+    bias -log(99) on every head, L2Norm scale at its init value, BatchNorm at
+    the identity (weight 1, bias 0, mean 0, var 1).
+
+    ``random_batch_stats`` draws every BatchNorm from the seed instead:
+    weight in [0.5, 1.5), bias and mean normal with stddev 0.1, var in
+    [0.5, 2). With identity BatchNorm a wrong fold into the conv is
+    invisible; smoke runs and tests ask for these."""
     gen = torch.Generator().manual_seed(seed)
     for module in model.modules():
         if isinstance(module, Conv):
@@ -134,7 +174,20 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
             w = torch.empty(module.weight.shape)
             nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
             module.weight.copy_(w)
-            module.bias.zero_()
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, BatchNorm):
+            n = module.weight.shape[0]
+            if random_batch_stats:
+                module.weight.copy_(torch.rand(n, generator=gen) + 0.5)
+                module.bias.copy_(torch.randn(n, generator=gen) * 0.1)
+                module.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+                module.running_var.copy_(torch.rand(n, generator=gen) * 1.5 + 0.5)
+            else:
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+                module.running_mean.zero_()
+                module.running_var.fill_(1.0)
         elif isinstance(module, L2Norm):
             module.scale.fill_(module.init_scale)
     for module in model.modules():

@@ -2,7 +2,8 @@
 
 The port of ``object_detector_tpu/eval/evaluator.py``: ``make_predict_fn``
 (:19, the float serving path) and ``make_int8_predict_fn`` (:33, the int8
-PTQ serving path, SSD family). The mAP sweep is not ported yet.
+PTQ serving path, SSD family: VGG16 and ResNet-50). The mAP sweep is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -67,7 +68,9 @@ def make_int8_predict_fn(
     Detections on ``device``: int8 trunk, int8 heads, then the same
     postprocess as the float path.
 
-    ``params`` is the model's state_dict; ``calibration_images_u8`` is a
+    ``params`` is the model's state_dict (for a ResNet-50 backbone with its
+    BatchNorm running statistics, which are folded into the convs);
+    ``calibration_images_u8`` is a
     small representative (B, H, W, 3) uint8 batch. The returned function
     carries the quantized weights and the op list as ``predict.qp`` and
     ``predict.spec``."""

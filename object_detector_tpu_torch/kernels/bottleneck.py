@@ -1,0 +1,158 @@
+"""A stride-1 ResNet bottleneck in int8, fused: 1x1 -> 3x3 SAME -> 1x1 plus
+the residual, each conv with its dequant, bias, ReLU and requant, as one
+hand-written CUDA kernel (``csrc/bottleneck.cu``) that keeps both
+intermediates out of device memory.
+
+The port of ``object_detector_tpu/kernels/bottleneck_pallas.py``'s
+``_bottleneck_kernel`` (entry ``fused_bottleneck``). The TPU kernel walks row
+bands with one-row halos and holds all three kernels in its fast memory; the
+port's kernel walks 8 x 8 spatial tiles and streams the weights. The contract
+is the function, on NHWC codes:
+
+    fused_bottleneck(x, w1, deq1, bias1, w2, deq2, bias2, w3, deq3, bias3,
+                     s1=, s2=, s3=, resid_scale=)
+      x      (B, H, W, C) int8 codes at scale ``resid_scale``
+      w1     (C, Cm) int8; w2 (3, 3, Cm, Cm) int8 HWIO; w3 (Cm, C) int8
+      deq*, bias*  float32 per output channel of each conv
+      s1, s2, s3   float32 scalars, the three activation scales
+    -> (B, H, W, C) int8 codes at scale s3:
+      mid1 = rq(relu(x . w1 * deq1 + bias1), s1)
+      mid2 = rq(relu(conv3x3_same(mid1, w2) * deq2 + bias2), s2)
+      out  = rq(relu(mid2 . w3 * deq3 + bias3 + x.f32 * resid_scale), s3)
+      rq(y, s) = clip(round(y / s), -127, 127)               (a true divide)
+
+The 3x3's SAME padding is zero codes of mid1 (not ``rq(relu(bias1))``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from object_detector_tpu_torch.kernels import build
+from object_detector_tpu_torch.ops import int8 as int8_ops
+
+Tensor = torch.Tensor
+
+# The kernel reads 16 input channels at a time and writes 8 output channels
+# a thread, so both widths are multiples of 16; its shared memory holds both
+# intermediates of a tile, which bounds Cm.
+CHANNEL_MULTIPLE = 16
+MAX_MID_CHANNELS = 1024
+
+
+def fused_bottleneck_reference(
+    x: Tensor, w1: Tensor, deq1: Tensor, bias1: Tensor, w2: Tensor, deq2: Tensor, bias2: Tensor,
+    w3: Tensor, deq3: Tensor, bias3: Tensor, *, s1: float, s2: float, s3: float,
+    resid_scale: float, packed: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
+) -> Tensor:
+    """Plain PyTorch version: the engine's unfused chain (three int8 convs,
+    each with the requant epilogue; the residual joins the third), on either
+    device. ``packed`` is the wrapper's argument, unused here."""
+    del packed
+    c, cm = w1.shape
+    scale = lambda s: int8_ops.scale_tensor(float(s), x.device)  # noqa: E731
+    mid1 = int8_ops.requant_epilogue(
+        int8_ops.conv_int8(x, w1.reshape(1, 1, c, cm)), deq1, bias1, scale(s1))
+    mid2 = int8_ops.requant_epilogue(int8_ops.conv_int8(mid1, w2), deq2, bias2, scale(s2))
+    return int8_ops.requant_epilogue(
+        int8_ops.conv_int8(mid2, w3.reshape(1, 1, cm, c)), deq3, bias3, scale(s3),
+        resid=x, resid_scale=scale(resid_scale))
+
+
+def _words(w: Tensor) -> Tensor:
+    """(..., K, N) int8 -> (..., K/4, N) int32: each word holds 4 consecutive
+    input channels of one output channel, the operand of the kernel's
+    __dp4a."""
+    *lead, k, n = w.shape
+    return (w.reshape(*lead, k // 4, 4, n).transpose(-1, -2).contiguous()
+            .view(torch.int32).reshape(*lead, k // 4, n))
+
+
+def pack_weights(w1: Tensor, w2: Tensor, w3: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The three kernels as the CUDA kernel reads them: (C/4, Cm),
+    (9, Cm/4, Cm) and (Cm/4, C) int32 words (see `_words`)."""
+    cm = w2.shape[-1]
+    return _words(w1), _words(w2.reshape(9, cm, cm)), _words(w3)
+
+
+def _check(x, w1, deq1, bias1, w2, deq2, bias2, w3, deq3, bias3) -> None:
+    if x.dim() != 4 or w1.dim() != 2:
+        raise ValueError(f"x must be (B, H, W, C) and w1 (C, Cm), got {tuple(x.shape)} and "
+                         f"{tuple(w1.shape)}")
+    c, cm = w1.shape
+    if x.shape[-1] != c or tuple(w2.shape) != (3, 3, cm, cm) or tuple(w3.shape) != (cm, c):
+        raise ValueError(f"x {tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}, "
+                         f"w3 {tuple(w3.shape)} are not a bottleneck's (B, H, W, C), (C, Cm), "
+                         f"(3, 3, Cm, Cm), (Cm, C)")
+    for name, t, n in (("deq1", deq1, cm), ("bias1", bias1, cm), ("deq2", deq2, cm),
+                       ("bias2", bias2, cm), ("deq3", deq3, c), ("bias3", bias3, c)):
+        if tuple(t.shape) != (n,):
+            raise ValueError(f"{name} must be ({n},), got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (("x", x), ("w1", w1), ("w2", w2), ("w3", w3)):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name} must be int8, got {t.dtype}")
+    for t in (w1, deq1, bias1, w2, deq2, bias2, w3, deq3, bias3):
+        if t.device != x.device:
+            raise ValueError(f"all operands must be on {x.device}, got one on {t.device}")
+
+
+def fused_bottleneck(
+    x: Tensor, w1: Tensor, deq1: Tensor, bias1: Tensor, w2: Tensor, deq2: Tensor, bias2: Tensor,
+    w3: Tensor, deq3: Tensor, bias3: Tensor, *, s1: float, s2: float, s3: float,
+    resid_scale: float, packed: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
+) -> Tensor:
+    """Launches the CUDA kernel for CUDA tensors and runs
+    `fused_bottleneck_reference` for CPU tensors. ``packed`` is
+    ``pack_weights(w1, w2, w3)`` where the caller keeps it (it is made here
+    otherwise). ``fused_bottleneck.launches`` counts kernel launches."""
+    _check(x, w1, deq1, bias1, w2, deq2, bias2, w3, deq3, bias3)
+    if x.device.type == "cpu":
+        return fused_bottleneck_reference(x, w1, deq1, bias1, w2, deq2, bias2, w3, deq3, bias3,
+                                          s1=s1, s2=s2, s3=s3, resid_scale=resid_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_bottleneck runs on cuda or cpu tensors, got {x.device}")
+    c, cm = w1.shape
+    if c % CHANNEL_MULTIPLE or cm % CHANNEL_MULTIPLE or cm > MAX_MID_CHANNELS:
+        raise ValueError(f"the kernel takes C and Cm multiples of {CHANNEL_MULTIPLE} and Cm up to "
+                         f"{MAX_MID_CHANNELS}, got C={c}, Cm={cm}")
+    vectors = (deq1, bias1, deq2, bias2, deq3, bias3)
+    if not x.is_contiguous() or not all(t.is_contiguous() for t in vectors) or x.data_ptr() % 16:
+        raise ValueError("fused_bottleneck takes contiguous, 16-byte aligned x and contiguous "
+                         "deq and bias vectors")
+    if packed is None:
+        packed = pack_weights(w1, w2, w3)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    b, h, w, _ = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().fused_bottleneck(
+            x.data_ptr(), *(p.data_ptr() for p in packed), *(t.data_ptr() for t in vectors),
+            float(s1), float(s2), float(s3), float(resid_scale), b, h, w, c, cm,
+            out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_bottleneck kernel launch failed with CUDA error {err}")
+    fused_bottleneck.launches += 1
+    return out
+
+
+fused_bottleneck.launches = 0
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("bottleneck")
+    fn = lib.fused_bottleneck
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_float] * 4 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,6 +1,8 @@
 """SSD detector assembly: backbone + extra layers + multi-scale heads.
 
-The port of ``object_detector_tpu/models/ssd.py`` (VGG16 only). The public
+The port of ``object_detector_tpu/models/ssd.py``: SSD-300/VGG16 (taps
+conv4_3, L2Norm'd, and fc7, plus 4 extra blocks: 6 levels) and
+SSD-512/ResNet-50 (taps C3, C4, C5 plus 4 extra blocks: 7 levels). The public
 layout is the reference's: images (B, H, W, 3) in, and concatenated over
 levels, in the anchor order of ``anchors/priors.py``,
 
@@ -20,6 +22,7 @@ import torch
 from torch import nn
 
 from object_detector_tpu_torch.core.config import DetectorConfig
+from object_detector_tpu_torch.models.resnet import ResNet50Backbone
 from object_detector_tpu_torch.models.vgg import Conv, L2Norm, SSDExtraLayers, VGG16Backbone
 
 Tensor = torch.Tensor
@@ -69,17 +72,22 @@ class SSDModel(nn.Module):
         cfg = config
         if cfg.model.family != "ssd":
             raise NotImplementedError(f"model family {cfg.model.family!r} is not ported yet")
-        if cfg.model.backbone != "vgg16":
-            raise NotImplementedError(f"backbone {cfg.model.backbone!r} is not ported yet")
         self.config = cfg
         self.compute_dtype = _dtype(cfg.model.compute_dtype)
-        self.backbone = VGG16Backbone(
-            pack_block1=cfg.model.pack_block1,
-            pool_grad_kernel=cfg.model.pool_grad_kernel,
-            remat_block1=cfg.model.remat_block1,
-        )
-        self.l2norm = L2Norm(512, init_scale=cfg.model.l2norm_scale)
-        channels = [512, 1024]
+        self.l2norm = None
+        if cfg.model.backbone == "vgg16":
+            self.backbone = VGG16Backbone(
+                pack_block1=cfg.model.pack_block1,
+                pool_grad_kernel=cfg.model.pool_grad_kernel,
+                remat_block1=cfg.model.remat_block1,
+            )
+            self.l2norm = L2Norm(512, init_scale=cfg.model.l2norm_scale)
+            channels = [512, 1024]
+        elif cfg.model.backbone == "resnet50":
+            self.backbone = ResNet50Backbone()
+            channels = [512, 1024, 2048]
+        else:
+            raise ValueError(f"unknown backbone {cfg.model.backbone!r}")
         n_extra = len(cfg.anchors.feature_sizes) - len(channels)
         self.extras = None
         if n_extra > 0:
@@ -87,7 +95,7 @@ class SSDModel(nn.Module):
                 blocks = ((256, 512, 2, "SAME"),) + ((128, 256, 2, "SAME"),) * (n_extra - 1)
             else:
                 blocks = _SSD300_EXTRA_BLOCKS[:n_extra]
-            self.extras = SSDExtraLayers(1024, blocks)
+            self.extras = SSDExtraLayers(channels[-1], blocks)
             channels += [out for _, out, _, _ in blocks]
         self.num_levels = len(channels)
         for level, (cin, a) in enumerate(zip(channels, cfg.anchors.anchors_per_level)):
@@ -97,7 +105,8 @@ class SSDModel(nn.Module):
         cfg = self.config
         x = images.permute(0, 3, 1, 2).to(self.compute_dtype)
         taps = self.backbone(x)
-        taps[0] = self.l2norm(taps[0])
+        if self.l2norm is not None:
+            taps[0] = self.l2norm(taps[0])
         if self.extras is not None:
             taps = taps + self.extras(taps[-1])
 

@@ -32,20 +32,22 @@ def same_pads(size: int, kernel: int, stride: int, dilation: int) -> Tuple[int, 
 
 
 class Conv(nn.Module):
-    """2-D convolution with flax-style "SAME" / "VALID" padding."""
+    """2-D convolution with flax-style "SAME" / "VALID" padding, or an int
+    for explicit symmetric padding."""
 
     def __init__(
         self, in_channels: int, out_channels: int, kernel_size: int,
-        stride: int = 1, padding: str = "SAME", dilation: int = 1,
+        stride: int = 1, padding: str | int = "SAME", dilation: int = 1, bias: bool = True,
     ):
         super().__init__()
-        if padding not in ("SAME", "VALID"):
-            raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+        if padding not in ("SAME", "VALID") and not isinstance(padding, int):
+            raise ValueError(f"padding must be SAME, VALID or an int, got {padding!r}")
         # Weights are set by convert.init_params or load_state_dict.
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, kernel_size, kernel_size)
         )
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        # ``bias=False``: a conv that feeds a BatchNorm (flax's use_bias=False).
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
         self.stride = stride
         self.padding = padding
         self.dilation = dilation
@@ -60,8 +62,11 @@ class Conv(nn.Module):
                 pad = (ph[0], pw[0])
             else:
                 x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        elif isinstance(self.padding, int):  # explicit, symmetric
+            pad = (self.padding, self.padding)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(
-            x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+            x, self.weight.to(x.dtype), bias,
             stride=self.stride, padding=pad, dilation=self.dilation,
         )
 

@@ -137,12 +137,17 @@ def requant_epilogue(
     bias: Tensor,  # (Cout,) float32
     out_scale: Tensor,  # 0-dim float32
     relu: bool = True,
+    resid: Optional[Tensor] = None,  # int8 residual codes, acc's shape
+    resid_scale: Optional[Tensor] = None,  # 0-dim float32, their scale
 ) -> Tensor:
-    """``acc.f32 * deq + bias`` -> ReLU -> requant, rounding after every
-    operation as the reference's op-by-op form does. The ReLU is the clip's
-    lower bound 0: dividing by a positive scale and rounding keep the sign,
-    so clipping the code at 0 equals clipping y at 0 first."""
+    """``acc.f32 * deq + bias`` [``+ resid.f32 * resid_scale``] -> ReLU ->
+    requant, rounding after every operation as the reference's op-by-op form
+    does (the residual product is rounded before it is added). The ReLU is
+    the clip's lower bound 0: dividing by a positive scale and rounding keep
+    the sign, so clipping the code at 0 equals clipping y at 0 first."""
     y = torch.mul(acc, deq).add_(bias)  # acc -> float32 rounds to nearest, as astype does
+    if resid is not None:
+        y.add_(resid.to(torch.float32).mul_(resid_scale))
     return quantize(y, out_scale, 0.0 if relu else -127.0)
 
 
@@ -151,12 +156,15 @@ def max_pool(
     size: int,
     stride: int,
     pad_same: bool = False,
+    explicit_pad: Optional[int] = None,
 ) -> Tensor:
-    """``lax.reduce_window(max)`` over H and W with VALID or SAME padding.
-    Pads with the dtype's minimum (-inf for floats), the reference's init
-    value."""
+    """``lax.reduce_window(max)`` over H and W with VALID or SAME padding, or
+    ``explicit_pad`` on every side (the ResNet stem's pool). Pads with the
+    dtype's minimum (-inf for floats), the reference's init value."""
     _, h, w, _ = x.shape
-    if pad_same:
+    if explicit_pad is not None:
+        ph = pw = (explicit_pad, explicit_pad)
+    elif pad_same:
         ph, pw = same_pads(h, size, stride, 1), same_pads(w, size, stride, 1)
     else:
         ph = pw = (0, 0)

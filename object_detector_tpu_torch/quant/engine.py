@@ -1,15 +1,21 @@
-"""Int8 post-training-quantization inference engine, SSD-300/VGG16.
+"""Int8 post-training-quantization inference engine, SSD-300/VGG16 and
+SSD-512/ResNet-50.
 
-The port of ``object_detector_tpu/quant/engine.py`` for the VGG16 SSD
-family. The conv trunk is an op list built from the config (`build_spec`)
-and run by two interpreters that share it:
+The port of ``object_detector_tpu/quant/engine.py`` for the SSD family.
+The conv trunk is an op list built from the config (`build_spec`) and run
+by two interpreters that share it:
 
   - `run_float`: the float32 trunk; records each stage's activation absmax
     for calibration;
   - `run_int8`: int8 convs with int32 accumulation, then
     ``acc * deq + bias -> ReLU -> requant`` per conv; max pools on the
     codes. Block 1 (`FusedStemOp`) is conv1_1 through the generic int8 conv,
-    then the fused conv1_2 + pool of `kernels.stem`.
+    then the fused conv1_2 + pool of `kernels.stem`. The ResNet trunk
+    (BatchNorm folded into the convs by `fold_resnet50`) starts with
+    `StemPoolPallasOp`, the fused stem of `kernels.resnet_stem`, and runs
+    every stride-1 block without a projection as `BottleneckOp`, the fused
+    bottleneck of `kernels.bottleneck`; both expand to plain op chains
+    (`_expand_spec`) for calibration, quantization and as the cross-check.
 
 The heads run int8 over int8 taps (`apply_heads_int8`), with the int8
 L2Norm of `kernels.l2norm` on tap 0. Weights quantize per output channel,
@@ -19,14 +25,16 @@ Parameters are the port's state_dict (``backbone.conv1_1.weight``, OIHW);
 op paths keep the reference's ``/``-joined names. Tensors are NHWC at every
 public function, as in the reference. The requant follows the reference's
 op-by-op form: multiply, add, divide by the scale, round half to even.
-ResNet-50 backbones and the TPU layout ops (packed conv+pool, fused
-bottleneck, the ResNet Pallas stem, image-pair packing) are not ported yet.
+The reference's TPU layout devices (packed conv+pool, image-pair packing,
+the space-to-depth stem) are accepted where they are options and computed
+in the direct form; RetinaNet's int8 path is not ported yet.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,7 +42,11 @@ import torch
 import torch.nn.functional as F
 
 from object_detector_tpu_torch.core.config import DetectorConfig
+from object_detector_tpu_torch.kernels import bottleneck as bottleneck_kernel
+from object_detector_tpu_torch.kernels import resnet_stem as resnet_stem_kernel
+from object_detector_tpu_torch.kernels.bottleneck import fused_bottleneck
 from object_detector_tpu_torch.kernels.l2norm import l2norm_requant
+from object_detector_tpu_torch.kernels.resnet_stem import resnet_stem
 from object_detector_tpu_torch.kernels.stem import stem_conv12_pool
 from object_detector_tpu_torch.ops import int8 as int8_ops
 
@@ -50,6 +62,9 @@ class ConvOp:
     padding: Any = "SAME"  # "SAME" | "VALID" | int (explicit symmetric)
     dilation: int = 1
     relu: bool = True
+    # Residual (ResNet): add the named register, saved by a SaveOp, into the
+    # conv's epilogue before the ReLU.
+    add_register: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,10 +79,53 @@ class FusedStemOp:
 
 
 @dataclasses.dataclass(frozen=True)
+class BottleneckOp:
+    """A stride-1 ResNet bottleneck without a projection (conv1 1x1 -> conv2
+    3x3 -> conv3 1x1 + residual) as one kernel
+    (`kernels.bottleneck.fused_bottleneck`): both intermediates stay on
+    chip. Bit-equal to the unfused chain it expands to (`_expand_spec`), so
+    one QuantParams serves both specs."""
+
+    base: str  # e.g. "backbone/stage1_block2"
+
+    @property
+    def conv_paths(self) -> Tuple[str, str, str]:
+        return (f"{self.base}/conv1", f"{self.base}/conv2", f"{self.base}/conv3")
+
+
+@dataclasses.dataclass(frozen=True)
+class SaveOp:
+    """Save the current activation into a named register (residual input)."""
+
+    name: str
+
+
+@dataclasses.dataclass(frozen=True)
+class LoadOp:
+    """Restore a register as the current activation (a branch)."""
+
+    name: str
+
+
+@dataclasses.dataclass(frozen=True)
 class PoolOp:
     size: int = 2
     stride: int = 2
     pad_same: bool = False  # True -> SAME padding (pool5 3x3/1)
+    explicit_pad: Optional[int] = None  # symmetric spatial pad (the ResNet stem's pool)
+
+
+@dataclasses.dataclass(frozen=True)
+class StemPoolPallasOp:
+    """The ResNet stem as one kernel (`kernels.resnet_stem.resnet_stem`):
+    input quantize + 7x7/s2 conv + folded-BN bias + ReLU + requant + 3x3/s2
+    pad-1 max pool. Replaces the [input quantize, ConvOp(stem), PoolOp]
+    prefix it expands to (`_expand_spec`). The kernel requants by the
+    float32 reciprocal of the scale where the chain divides, so the two may
+    differ by one code on about one element in a million. The name is the
+    reference's."""
+
+    path: str = "backbone/stem_conv"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +139,19 @@ class TapOp:
 
 
 Spec = List[Any]
+
+
+def _env_tristate(name: str, auto: bool) -> bool:
+    """An on/off/auto environment knob: unset or "auto" -> ``auto``; "1" ->
+    on; "0" -> off; anything else is an error, never a silent off."""
+    val = os.environ.get(name)
+    if val is None or val == "auto":
+        return auto
+    if val == "1":
+        return True
+    if val == "0":
+        return False
+    raise ValueError(f"{name}={val!r}: expected unset, 'auto', '0', or '1'")
 
 
 def _extras_spec(cfg: DetectorConfig, n_taps_so_far: int) -> Spec:
@@ -99,16 +170,149 @@ def _extras_spec(cfg: DetectorConfig, n_taps_so_far: int) -> Spec:
 
 
 def build_spec(cfg: DetectorConfig, fused_stem: Optional[bool] = None) -> Spec:
-    """Op list for the configured SSD trunk (VGG16 only so far).
+    """Op list for the configured SSD trunk (VGG16 or ResNet-50).
 
     ``fused_stem=None`` resolves to ``image_size % 2 == 0`` on every device
     (the reference picks the fused stem only on a TPU; the two specs give
-    bit-equal codes)."""
+    bit-equal codes). ResNet-50 reads its knobs from the environment (see
+    `build_resnet_trunk_spec`)."""
     if cfg.model.backbone == "vgg16":
         if fused_stem is None:
             fused_stem = cfg.model.image_size % 2 == 0
         return build_ssd_spec(cfg, fused_stem=fused_stem)
-    raise NotImplementedError(f"int8 engine: backbone {cfg.model.backbone!r} is not ported yet")
+    if cfg.model.backbone == "resnet50":
+        img_pack = _env_tristate("ODT_IMG_PACK", auto=False)
+        return build_resnet_ssd_spec(cfg, img_pack=img_pack)
+    raise NotImplementedError(f"int8 engine: unknown backbone {cfg.model.backbone}")
+
+
+def _expand_spec(spec: Spec) -> Spec:
+    """The spec with every fused op replaced by the unfused chain it equals:
+    what the float interpreter, calibration and weight quantization walk,
+    so fused and plain specs share one QuantParams."""
+    out: Spec = []
+    for op in spec:
+        if isinstance(op, BottleneckOp):
+            c1, c2, c3 = op.conv_paths
+            out += [
+                SaveOp("sc"),
+                ConvOp(c1, kernel=1),
+                ConvOp(c2, kernel=3),
+                ConvOp(c3, kernel=1, relu=True, add_register="sc"),
+            ]
+        elif isinstance(op, StemPoolPallasOp):
+            out += [ConvOp(op.path, kernel=7, stride=2, padding=3), PoolOp(3, 2, explicit_pad=1)]
+        elif isinstance(op, FusedStemOp):
+            out += [ConvOp(op.path1), ConvOp(op.path2), PoolOp()]
+        else:
+            out.append(op)
+    return out
+
+
+def build_resnet_ssd_spec(
+    cfg: DetectorConfig, fused_bottleneck: Optional[bool] = None,
+    img_pack: Optional[bool] = None,
+) -> Spec:
+    """Op list mirroring models/ssd.py + models/resnet.py (BatchNorm folded
+    into conv kernels and biases by `fold_resnet50`)."""
+    return build_resnet_trunk_spec(
+        fused_bottleneck=fused_bottleneck, img_pack=img_pack
+    ) + _extras_spec(cfg, 3)
+
+
+def build_resnet_trunk_spec(
+    stem_algo: str = "direct", fused_bottleneck: Optional[bool] = None,
+    img_pack: Optional[bool] = None,
+) -> Spec:
+    """ResNet-50 C3/C4/C5 trunk.
+
+    ``fused_bottleneck``: the stride-1 blocks without a projection (blocks 2
+    and later of every stage) run as single kernels (`BottleneckOp`).
+    ``None`` reads ``ODT_FUSED_BOTTLENECK``; unset or "auto" is on. The stem
+    runs as one kernel (`StemPoolPallasOp`) unless ``ODT_STEM_KERNEL=0``
+    (unset or "auto" is on) or ``stem_algo`` is not "direct". With both off
+    the spec is the unfused chain, the cross-check of the two kernels.
+
+    ``stem_algo="s2d"`` (the space-to-depth stem) and ``img_pack`` (image
+    pairs packed into channels; ``None`` reads ``ODT_IMG_PACK``) are layout
+    devices of the reference's TPU path that give the same codes. They are
+    accepted and computed in the direct, unpacked form; with no packed
+    stage, stage 1's later blocks run the bottleneck kernel too."""
+    if stem_algo not in ("direct", "s2d"):
+        raise ValueError(f"stem_algo must be 'direct' or 's2d', got {stem_algo!r}")
+    if fused_bottleneck is None:
+        fused_bottleneck = _env_tristate("ODT_FUSED_BOTTLENECK", auto=True)
+    if img_pack is None:
+        _env_tristate("ODT_IMG_PACK", auto=False)  # its grammar is checked; its value changes nothing
+    stem_kernel = _env_tristate("ODT_STEM_KERNEL", auto=True) and stem_algo == "direct"
+    if stem_kernel:
+        spec: Spec = [StemPoolPallasOp()]
+    else:
+        spec = [
+            ConvOp("backbone/stem_conv", kernel=7, stride=2, padding=3),
+            PoolOp(3, 2, explicit_pad=1),
+        ]
+    for stage, n_blocks in enumerate((3, 4, 6, 3), start=1):
+        for block in range(1, n_blocks + 1):
+            base = f"backbone/stage{stage}_block{block}"
+            stride = 2 if (block == 1 and stage > 1) else 1
+            if block == 1:
+                spec += [
+                    SaveOp("in"),
+                    ConvOp(f"{base}/proj", kernel=1, stride=stride, relu=False),
+                    SaveOp("sc"),
+                    LoadOp("in"),
+                    ConvOp(f"{base}/conv1", kernel=1),
+                    ConvOp(f"{base}/conv2", kernel=3, stride=stride),
+                    ConvOp(f"{base}/conv3", kernel=1, relu=True, add_register="sc"),
+                ]
+            elif fused_bottleneck:
+                spec.append(BottleneckOp(base))
+            else:
+                spec += [
+                    SaveOp("sc"),
+                    ConvOp(f"{base}/conv1", kernel=1),
+                    ConvOp(f"{base}/conv2", kernel=3, stride=stride),
+                    ConvOp(f"{base}/conv3", kernel=1, relu=True, add_register="sc"),
+                ]
+        if stage >= 2:
+            spec.append(TapOp(stage - 2))
+    return spec
+
+
+_BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
+
+
+def fold_resnet50(params: Mapping[str, Tensor], eps: float = 1e-5) -> Dict[str, Tensor]:
+    """Fold every backbone BatchNorm (running statistics) into the conv
+    before it: the state_dict of plain convs with biases that
+    `build_resnet_ssd_spec` addresses. ``backbone.stem_bn`` folds into
+    ``backbone.stem_conv``, a block's ``bn1..3`` into ``conv1..3`` and
+    ``bn_proj`` into ``proj``. Extras and heads pass through. Computed in
+    numpy float32, operation for operation the reference's."""
+    out: Dict[str, Tensor] = {}
+    for name, value in params.items():
+        scope, _, leaf = name.rpartition(".")
+        module = scope.rpartition(".")[2]
+        if not name.startswith("backbone."):
+            out[name] = value
+        elif module in ("stem_bn", "bn1", "bn2", "bn3", "bn_proj"):
+            continue  # folded below, with its conv
+        elif leaf == "weight":
+            # stem_conv -> stem_bn, proj -> bn_proj, conv<i> -> bn<i>
+            bn_module = {"stem_conv": "stem_bn", "proj": "bn_proj"}.get(
+                module, "bn" + module[len("conv"):])
+            bn = f"{scope.rpartition('.')[0]}.{bn_module}"
+            scale, bias, mean, var = (
+                params[f"{bn}.{bn_leaf}"].detach().to("cpu", torch.float32).numpy()
+                for bn_leaf in _BN_LEAVES)
+            f = scale / np.sqrt(var + np.float32(eps))
+            kernel = value.detach().to("cpu", torch.float32).numpy()  # OIHW
+            out[name] = torch.from_numpy(kernel * f[:, None, None, None]).to(value.device)
+            out[f"{scope}.bias"] = torch.from_numpy(bias - mean * f).to(value.device)
+        else:
+            raise KeyError(f"unexpected backbone entry {name!r}")
+    return out
 
 
 def build_ssd_spec(cfg: DetectorConfig, fused_stem: bool = False) -> Spec:
@@ -144,22 +348,10 @@ def required_scale_keys(spec: Spec, use_l2norm: bool = False) -> set:
     stem records its scales under the original conv paths, so fused and
     unfused specs share a key set."""
     keys = {"__input__"}
-    for op in spec:
-        if isinstance(op, ConvOp):
-            keys.add(op.path)
-        elif isinstance(op, FusedStemOp):
-            keys.update((op.path1, op.path2))
+    keys.update(op.path for op in _expand_spec(spec) if isinstance(op, ConvOp))
     if use_l2norm:
         keys.add("__l2norm__")
     return keys
-
-
-def _conv_paths(op: Any) -> Tuple[str, ...]:
-    if isinstance(op, ConvOp):
-        return (op.path,)
-    if isinstance(op, FusedStemOp):
-        return (op.path1, op.path2)
-    return ()
 
 
 def _key(path: str) -> str:
@@ -209,19 +401,22 @@ def run_float(
     (0-dim tensors) and the trunk input's under ``"__input__"``."""
     absmax: Dict[str, Tensor] = {"__input__": images.abs().max()}
     x = images.to(torch.float32)
+    regs: Dict[str, Tensor] = {}
     taps: List[Tensor] = [None] * _num_taps(spec)  # type: ignore[list-item]
-    for op in spec:
-        if isinstance(op, (ConvOp, FusedStemOp)):
-            for path in _conv_paths(op):
-                cop = op if isinstance(op, ConvOp) else ConvOp(path)
-                y = _conv_float(x, params[_key(path) + ".weight"], cop)
-                y = y + params[_key(path) + ".bias"].to(torch.float32)
-                x = torch.clamp_min(y, 0.0) if cop.relu else y
-                absmax[path] = x.abs().max()
-            if isinstance(op, FusedStemOp):
-                x = int8_ops.max_pool(x, 2, 2)
+    for op in _expand_spec(spec):  # the float path always runs unfused chains
+        if isinstance(op, ConvOp):
+            y = _conv_float(x, params[_key(op.path) + ".weight"], op)
+            y = y + params[_key(op.path) + ".bias"].to(torch.float32)
+            if op.add_register is not None:
+                y = y + regs[op.add_register]
+            x = torch.clamp_min(y, 0.0) if op.relu else y
+            absmax[op.path] = x.abs().max()
+        elif isinstance(op, SaveOp):
+            regs[op.name] = x
+        elif isinstance(op, LoadOp):
+            x = regs[op.name]
         elif isinstance(op, PoolOp):
-            x = int8_ops.max_pool(x, op.size, op.stride, op.pad_same)
+            x = int8_ops.max_pool(x, op.size, op.stride, op.pad_same, op.explicit_pad)
         elif isinstance(op, PadToEvenOp):
             x = int8_ops.pad_to_even(x)
         elif isinstance(op, TapOp):
@@ -246,11 +441,12 @@ class QuantParams:
     act_scale: Dict[str, float]  # stage path (or __input__, __l2norm__) -> scale
     float_params: Dict[str, Tensor]  # the model's state_dict
     # Constants derived from the fields above on their device (GEMM operands,
-    # deq vectors, scale tensors), each made on first use and kept.
-    _derived: Dict[Any, Tensor] = dataclasses.field(
+    # deq vectors, scale tensors, the kernels' packed weights), each made on
+    # first use and kept.
+    _derived: Dict[Any, Any] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
 
-    def derived(self, key: Any, make: Callable[[], Tensor]) -> Tensor:
+    def derived(self, key: Any, make: Callable[[], Any]) -> Any:
         """``make()``, computed once per ``key``. The fields must not change
         after the first call."""
         value = self._derived.get(key)
@@ -283,18 +479,21 @@ class QuantParams:
 
 def calibrate_scales(
     params: Mapping[str, Tensor], spec: Spec, batches: Sequence[Tensor],
+    use_l2norm: bool = True,
 ) -> Dict[str, float]:
     """Per-tensor activation scales (absmax / 127) over calibration batches,
-    computed in float32 (TF32 off on the card). Also records
-    ``"__l2norm__"``, the absmax of the L2Norm'd tap 0 that feeds head 0."""
+    computed in float32 (TF32 off on the card). With ``use_l2norm`` (VGG)
+    also records ``"__l2norm__"``, the absmax of the L2Norm'd tap 0 that
+    feeds head 0."""
     agg: Dict[str, float] = {}
     with _full_float32(), torch.inference_mode():
         for images in batches:
             taps, absmax = run_float(params, spec, images)
-            t0 = taps[0]
-            sq = (t0 * t0).sum(dim=-1, keepdim=True)
-            ln = t0 * torch.rsqrt(sq + 1e-12) * params["l2norm.scale"].to(torch.float32)
-            absmax["__l2norm__"] = ln.abs().max()
+            if use_l2norm:
+                t0 = taps[0]
+                sq = (t0 * t0).sum(dim=-1, keepdim=True)
+                ln = t0 * torch.rsqrt(sq + 1e-12) * params["l2norm.scale"].to(torch.float32)
+                absmax["__l2norm__"] = ln.abs().max()
             values = torch.stack(list(absmax.values())).tolist()
             for key, val in zip(absmax, values):
                 agg[key] = max(agg.get(key, 0.0), float(val))
@@ -319,9 +518,9 @@ def _flax_conv(params: Mapping[str, Tensor], path: str) -> Dict[str, np.ndarray]
 def quantize_params(
     params: Mapping[str, Tensor], spec: Spec, act_scale: Dict[str, float],
 ) -> QuantParams:
-    """Per-output-channel int8 weights of every trunk conv (the fused stem's
-    two convs unpacked) and of the SSD heads."""
-    paths = [path for op in spec for path in _conv_paths(op)]
+    """Per-output-channel int8 weights of every trunk conv (fused ops
+    expanded to their convs) and of the SSD heads."""
+    paths = [op.path for op in _expand_spec(spec) if isinstance(op, ConvOp)]
     paths += [f"head{level}/{kind}" for level in range(_num_taps(spec)) for kind in ("cls", "box")]
     w_int8: Dict[str, Tensor] = {}
     w_scale: Dict[str, Tensor] = {}
@@ -339,12 +538,19 @@ def quantize_ssd(
     cfg: DetectorConfig,
     params: Mapping[str, Tensor],
     calibration_batches: Sequence[Tensor],
+    spec: Optional[Spec] = None,
 ) -> Tuple[QuantParams, Spec]:
-    """One-call PTQ over `build_spec`'s op list: calibrate + quantize.
-    ``calibration_batches`` are normalized float image batches (B, S, S, 3).
-    VGG16 only so far."""
-    spec = build_spec(cfg)
-    scales = calibrate_scales(params, spec, calibration_batches)
+    """One-call PTQ: [fold BatchNorm] + calibrate + quantize.
+    ``calibration_batches`` are normalized float image batches (B, S, S, 3);
+    ``params`` is the model's state_dict, with the running statistics of a
+    BatchNorm backbone (ResNet-50); ``spec`` overrides `build_spec`'s op
+    list."""
+    if spec is None:
+        spec = build_spec(cfg)
+    if cfg.model.backbone == "resnet50":
+        params = fold_resnet50(params)
+    scales = calibrate_scales(params, spec, calibration_batches,
+                              use_l2norm=cfg.model.backbone == "vgg16")
     return quantize_params(params, spec, scales), spec
 
 
@@ -358,36 +564,75 @@ def run_int8(
     images: Tensor,  # normalized float input (B, S, S, 3)
     dequantize_taps: bool = True,
     stem_fn: KernelFn = stem_conv12_pool,
+    resnet_stem_fn: KernelFn = resnet_stem,
+    bottleneck_fn: KernelFn = fused_bottleneck,
 ) -> List[Any]:
     """Int8 trunk forward.
 
     dequantize_taps=True  -> list of bf16 float taps (for float heads)
     dequantize_taps=False -> list of (int8 tap, scale) (for int8 heads)
 
-    ``stem_fn`` is block 1's conv1_2 + pool (the kernel wrapper unless a
-    caller swaps in `stem_conv12_pool_reference`)."""
+    ``stem_fn`` is VGG block 1's conv1_2 + pool, ``resnet_stem_fn`` the fused
+    ResNet stem and ``bottleneck_fn`` the fused bottleneck: each the kernel
+    wrapper unless a caller swaps in its plain version
+    (`stem_conv12_pool_reference`, `resnet_stem_reference`,
+    `fused_bottleneck_reference`)."""
     dev = images.device
     cur_scale = qp.act_scale["__input__"]
-    x = int8_ops.quantize(images.to(torch.float32, copy=True), qp.scale(cur_scale, dev))
+    if spec and isinstance(spec[0], StemPoolPallasOp):
+        x = images.to(torch.float32)  # the stem kernel quantizes its input itself
+    else:
+        x = int8_ops.quantize(images.to(torch.float32, copy=True), qp.scale(cur_scale, dev))
+    regs: Dict[str, Tuple[Tensor, float]] = {}
     taps: List[Any] = [None] * _num_taps(spec)
 
     def conv(x: Tensor, op: ConvOp, in_scale: float) -> Tensor:
         acc = int8_ops.conv_int8(x, qp.w_int8[op.path], op.stride, op.padding, op.dilation,
                                  operand=qp.gemm_operand(op.path))
+        resid = resid_scale = None
+        if op.add_register is not None:
+            resid, rs = regs[op.add_register]
+            resid_scale = qp.scale(rs, dev)
         return int8_ops.requant_epilogue(acc, qp.deq(op.path, in_scale, dev), qp.bias[op.path],
-                                         qp.scale(qp.act_scale[op.path], dev), op.relu)
+                                         qp.scale(qp.act_scale[op.path], dev), op.relu,
+                                         resid, resid_scale)
 
     for op in spec:
         if isinstance(op, ConvOp):
             x = conv(x, op, cur_scale)
             cur_scale = qp.act_scale[op.path]
+        elif isinstance(op, StemPoolPallasOp):
+            out_scale = qp.act_scale[op.path]
+            packed = qp.derived(("resnet_stem", op.path), lambda: resnet_stem_kernel.pack_weights(
+                qp.w_int8[op.path]))
+            x = resnet_stem_fn(x, qp.w_int8[op.path], qp.deq(op.path, cur_scale, dev),
+                               qp.bias[op.path], cur_scale, out_scale, packed=packed)
+            cur_scale = out_scale
+        elif isinstance(op, BottleneckOp):
+            c1, c2, c3 = op.conv_paths
+            s1, s2, s3 = (qp.act_scale[c] for c in op.conv_paths)
+            cin, cm = qp.w_int8[c1].shape[-2:]
+            packed = qp.derived(("bottleneck", op.base), lambda: bottleneck_kernel.pack_weights(
+                qp.w_int8[c1].reshape(cin, cm), qp.w_int8[c2], qp.w_int8[c3].reshape(cm, cin)))
+            x = bottleneck_fn(
+                x,
+                qp.w_int8[c1].reshape(cin, cm), qp.deq(c1, cur_scale, dev), qp.bias[c1],
+                qp.w_int8[c2], qp.deq(c2, s1, dev), qp.bias[c2],
+                qp.w_int8[c3].reshape(cm, cin), qp.deq(c3, s2, dev), qp.bias[c3],
+                s1=s1, s2=s2, s3=s3, resid_scale=cur_scale, packed=packed,
+            )
+            cur_scale = s3
         elif isinstance(op, FusedStemOp):
             x = conv(x, ConvOp(op.path1), cur_scale)
             s1, s2 = qp.act_scale[op.path1], qp.act_scale[op.path2]
             x = stem_fn(x, qp.w_int8[op.path2], qp.deq(op.path2, s1, dev), qp.bias[op.path2], s2)
             cur_scale = s2
+        elif isinstance(op, SaveOp):
+            regs[op.name] = (x, cur_scale)
+        elif isinstance(op, LoadOp):
+            x, cur_scale = regs[op.name]
         elif isinstance(op, PoolOp):
-            x = int8_ops.max_pool(x, op.size, op.stride, op.pad_same)
+            x = int8_ops.max_pool(x, op.size, op.stride, op.pad_same, op.explicit_pad)
         elif isinstance(op, PadToEvenOp):
             x = int8_ops.pad_to_even(x)
         elif isinstance(op, TapOp):
@@ -484,15 +729,18 @@ def int8_forward(
     concat_heads: bool = True,
     stem_fn: KernelFn = stem_conv12_pool,
     l2norm_fn: KernelFn = l2norm_requant,
+    resnet_stem_fn: KernelFn = resnet_stem,
+    bottleneck_fn: KernelFn = fused_bottleneck,
 ) -> Tuple[Tensor, Tensor]:
     """Normalized float images (B, S, S, 3) -> (cls_logits, box_offsets),
-    int8 trunk. ``stem_fn`` and ``l2norm_fn`` as in `run_int8` and
+    int8 trunk. The four kernel functions as in `run_int8` and
     `apply_heads_int8`."""
     if not concat_heads:
         raise NotImplementedError("per-level head outputs (concat_heads=False) are not ported yet")
+    fns = dict(stem_fn=stem_fn, resnet_stem_fn=resnet_stem_fn, bottleneck_fn=bottleneck_fn)
     if int8_heads:
-        taps_q = run_int8(qp, spec, images, dequantize_taps=False, stem_fn=stem_fn)
+        taps_q = run_int8(qp, spec, images, dequantize_taps=False, **fns)
         logits_dtype = torch.bfloat16 if cfg.eval.int8_logits_bf16 else torch.float32
         return apply_heads_int8(qp, taps_q, cfg, logits_dtype=logits_dtype, l2norm_fn=l2norm_fn)
-    taps = run_int8(qp, spec, images, stem_fn=stem_fn)
+    taps = run_int8(qp, spec, images, **fns)
     return apply_heads(qp.float_params, taps, cfg)

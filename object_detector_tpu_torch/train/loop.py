@@ -27,7 +27,7 @@ from object_detector_tpu_torch.data.types import Dataset
 from object_detector_tpu_torch.models.ssd import SSDModel
 from object_detector_tpu_torch.train.checkpoint import CheckpointManager
 from object_detector_tpu_torch.train.state import TrainState, create_train_state
-from object_detector_tpu_torch.train.step import make_train_step
+from object_detector_tpu_torch.train.step import check_trainable, make_train_step
 from object_detector_tpu_torch.utils.logging import MetricsLogger, setup_logging
 
 
@@ -52,6 +52,7 @@ def train(
     device: str | torch.device = "cuda",
 ) -> TrainState:
     log = setup_logging()
+    check_trainable(cfg)
     dev = resolve_device(device)
     num_steps = num_steps or cfg.train.num_steps
     if cfg.mesh.data_parallel not in (-1, 0, 1):

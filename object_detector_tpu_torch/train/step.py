@@ -44,6 +44,17 @@ def encode_batch_targets(
     )
 
 
+def check_trainable(cfg: DetectorConfig) -> None:
+    """Raises for the models the port serves but does not train yet: a
+    BatchNorm backbone needs batch statistics in the forward and running
+    ones kept as flax keeps them (the biased batch variance; torch keeps
+    the unbiased one)."""
+    if cfg.model.backbone == "resnet50" or cfg.model.family == "retinanet":
+        raise NotImplementedError(
+            f"training {cfg.model.family}/{cfg.model.backbone} (batch statistics) is not ported yet"
+        )
+
+
 def make_train_step(
     cfg: DetectorConfig,
     model: torch.nn.Module,
@@ -65,10 +76,7 @@ def make_train_step(
     ``loss_fn(params, batch, seed) -> (loss, metrics)`` is its differentiable
     half, for callers that want the gradients themselves.
     """
-    if cfg.model.backbone == "resnet50" or cfg.model.family == "retinanet":
-        raise NotImplementedError(
-            f"training {cfg.model.family}/{cfg.model.backbone} (batch statistics) is not ported yet"
-        )
+    check_trainable(cfg)
     dev = resolve_device(device)
     model.to(dev).train()
     update = make_optimizer(cfg.train)

@@ -229,7 +229,7 @@ def test_port_imports_no_jax_and_no_reference():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 40  # the training modules are among them
+    assert int(out.stdout.strip()) >= 43  # the training and the ResNet modules are among them
 
 
 def test_entry_points_default_to_cuda():

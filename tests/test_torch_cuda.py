@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from object_detector_tpu_torch.kernels import l2norm, pool_bwd, stem
+from object_detector_tpu_torch.kernels import bottleneck, l2norm, pool_bwd, resnet_stem, stem
 from object_detector_tpu_torch.kernels import nms as nms_kernel
 from object_detector_tpu_torch.ops import int8 as int8_ops
 from object_detector_tpu_torch.ops.pooling import max_pool_2x2_fastgrad
@@ -201,3 +201,106 @@ def test_fastgrad_pool_gradient_through_the_kernel(cuda_device):
         assert pool_bwd.max_pool_bwd.launches == before + 1
         want = pool_bwd.max_pool_bwd_reference(x, y.detach(), g)
         assert torch.equal(leaf.grad, want)
+
+
+def _resnet_stem_case(kind, device, seed=8):
+    """images, w_q, deq, bias, in_scale, out_scale on ``device``. "edge":
+    saturated inputs and extreme biases, which drive the clip and round
+    boundaries and the padding rows into play; "ragged_tile": a pooled size
+    (10 x 13) that is not a multiple of the kernel's 8 x 8 tile."""
+    rng = np.random.default_rng(seed)
+    b, h, w = {"random": (2, 64, 64), "edge": (1, 32, 32), "ragged_tile": (3, 40, 52),
+               "full_width": (2, 512, 512)}[kind]
+    if kind == "edge":
+        images = rng.choice([-2.6, -0.02, 0.0, 0.02, 2.6], (b, h, w, 3))
+        w_q = rng.choice([-127, -1, 0, 1, 127], (7, 7, 3, 64))
+        w_scale, bias, scales = np.full(64, 0.01), rng.normal(0, 3.0, 64), (0.02, 0.05)
+    else:
+        images = rng.normal(0, 1.2, (b, h, w, 3))
+        w_q = rng.integers(-127, 128, (7, 7, 3, 64))
+        w_scale, bias, scales = rng.uniform(0.005, 0.02, 64), rng.normal(0, 0.5, 64), (0.02, 0.07)
+    deq = np.float32(scales[0]) * w_scale.astype(np.float32)
+    tensors = [torch.from_numpy(a).to(device) for a in (
+        images.astype(np.float32), w_q.astype(np.int8), deq, bias.astype(np.float32))]
+    return (*tensors, *scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "edge", "ragged_tile", "full_width"])
+def test_resnet_stem_kernel_bit_equal_to_plain_version(cuda_device, kind):
+    args = _resnet_stem_case(kind, cuda_device)
+    before = resnet_stem.resnet_stem.launches
+    got = resnet_stem.resnet_stem(*args)
+    torch.cuda.synchronize()
+    assert resnet_stem.resnet_stem.launches == before + 1
+    want = resnet_stem.resnet_stem_reference(*args)
+    b, h, w, _ = args[0].shape
+    assert got.shape == (b, h // 4, w // 4, 64) and got.dtype == torch.int8
+    assert torch.equal(got, want), int((got != want).sum())
+    assert torch.equal(resnet_stem.resnet_stem(
+        *args, packed=resnet_stem.pack_weights(args[1])), want)
+    assert 0.05 < float((want > 0).float().mean()) and int(want.max()) == 127
+
+
+def _bottleneck_case(kind, device, seed=9):
+    """The fused bottleneck's operands on ``device``. The four shapes of
+    ResNet-50 at 512 px; "ragged": H and W that the kernel's 8 x 8 tile does
+    not divide; "large_b1": a bias that makes rq(relu(b1)) well above zero,
+    so a halo pixel outside the image that was not zeroed would show;
+    "narrow": the narrowest widths the kernel takes, where a pass is
+    partial."""
+    b, h, w, c, cm = {
+        "stage1": (2, 128, 128, 256, 64), "stage2": (2, 64, 64, 512, 128),
+        "stage3": (2, 32, 32, 1024, 256), "stage4": (2, 16, 16, 2048, 512),
+        "ragged": (2, 13, 19, 256, 64), "large_b1": (2, 12, 20, 128, 32),
+        "zero_input": (1, 16, 16, 256, 64), "narrow": (2, 12, 16, 32, 16),
+        "wide_odd": (1, 9, 10, 400, 144),
+    }[kind]
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-127, 128, (b, h, w, c), dtype=np.int8)
+    if kind == "zero_input":
+        x[:] = 0
+    lim = 40
+    w1 = rng.integers(-lim, lim + 1, (c, cm)).astype(np.int8)
+    w2 = rng.integers(-lim, lim + 1, (3, 3, cm, cm)).astype(np.int8)
+    w3 = rng.integers(-lim, lim + 1, (cm, c)).astype(np.int8)
+    # Scales that keep the three outputs spread over the codes.
+    deq = lambda k, n: ((rng.random(n) + 0.5) * 40.0 / (lim * 127 * np.sqrt(k))).astype(np.float32)  # noqa: E731
+    bias = lambda n, shift=0.0: (rng.normal(size=n) * 5.0 + shift).astype(np.float32)  # noqa: E731
+    ops = (x, w1, deq(c, cm), bias(cm, 60.0 if kind == "large_b1" else 0.0),
+           w2, deq(9 * cm, cm), bias(cm), w3, deq(cm, c), bias(c))
+    scales = dict(s1=0.43, s2=0.51, s3=0.37, resid_scale=0.29)
+    return [torch.from_numpy(a).to(device) for a in ops], scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["stage1", "stage2", "stage3", "stage4", "ragged", "large_b1",
+                                  "zero_input", "narrow", "wide_odd"])
+def test_bottleneck_kernel_bit_equal_to_plain_version(cuda_device, kind):
+    ops, scales = _bottleneck_case(kind, cuda_device)
+    before = bottleneck.fused_bottleneck.launches
+    got = bottleneck.fused_bottleneck(*ops, **scales)
+    torch.cuda.synchronize()
+    assert bottleneck.fused_bottleneck.launches == before + 1
+    want = bottleneck.fused_bottleneck_reference(*ops, **scales)
+    assert got.shape == ops[0].shape and got.dtype == torch.int8
+    assert torch.equal(got, want), int((got != want).sum())
+    packed = bottleneck.pack_weights(ops[1], ops[4], ops[7])
+    assert torch.equal(bottleneck.fused_bottleneck(*ops, **scales, packed=packed), want)
+    share = float((want > 0).float().mean())
+    assert 0.05 < share < 0.95 or kind == "large_b1", share
+
+
+@pytest.mark.cuda
+def test_bottleneck_and_resnet_stem_reject_what_the_kernels_do_not_take(cuda_device):
+    ops, scales = _bottleneck_case("narrow", cuda_device)
+    narrow = [ops[0][..., :24].contiguous(), ops[1][:24, :8].contiguous(), ops[2][:8], ops[3][:8],
+              ops[4][:, :, :8, :8].contiguous(), ops[5][:8], ops[6][:8],
+              ops[7][:8, :24].contiguous(), ops[8][:24], ops[9][:24]]
+    with pytest.raises(ValueError, match="multiples of 16"):
+        bottleneck.fused_bottleneck(*narrow, **scales)  # C=24, Cm=8
+    with pytest.raises(ValueError, match="contiguous"):
+        bottleneck.fused_bottleneck(ops[0].transpose(1, 2), *ops[1:], **scales)
+    args = _resnet_stem_case("random", cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        resnet_stem.resnet_stem(args[0].transpose(1, 2), *args[1:])

@@ -119,6 +119,37 @@ def test_decode_nms_matches_pallas_decode_nms(pre_nms_top_k):
     np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("pre_nms_top_k", [32, 256])
+def test_decode_nms_takes_bf16_logits_as_the_reference_does(pre_nms_top_k):
+    """The int8 heads of ssd512_resnet50_coco emit bf16 class logits: the
+    prefilter selects on them at that type (ties between equal bf16 maxima
+    go to the lower anchor in both) and the sigmoid runs in float32 on the
+    gathered candidates. 32: the prefilter cuts 320 anchors to 64."""
+    cfg = tiny_test_config()
+    anchors = ssd_anchors(cfg.anchors, cfg.model.image_size)
+    cls, box = _logits_offsets(np.random.default_rng(3), 3, anchors.shape[0], 3)
+    cls16 = torch.from_numpy(cls).to(torch.bfloat16)
+    kw = dict(
+        score_threshold=0.01, iou_threshold=0.45, pre_nms_top_k=pre_nms_top_k,
+        max_detections=40, max_per_class=20, center_variance=0.1, size_variance=0.2,
+        exact_prefilter=True,
+    )
+    want = nms_pallas.pallas_decode_nms(
+        jnp.asarray(cls16.float().numpy()).astype(jnp.bfloat16), jnp.asarray(box),
+        jnp.asarray(anchors), interpret=True, **kw
+    )
+    got = nms_kernel.decode_nms(cls16, torch.from_numpy(box), torch.from_numpy(anchors), **kw)
+    assert got.valid.any() and got.scores.dtype == torch.float32
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(got.classes.numpy(), np.asarray(want.classes))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes), rtol=0, atol=1e-6)
+    # The same logits in float32 give the same detections: bf16 values are float32 values.
+    same = nms_kernel.decode_nms(cls16.float(), torch.from_numpy(box), torch.from_numpy(anchors),
+                                 **kw)
+    assert torch.equal(same.scores, got.scores) and torch.equal(same.boxes, got.boxes)
+
+
 def test_per_class_nms_matches_reference():
     rng = np.random.default_rng(5)
     batch, num_anchors, num_classes = 2, 300, 4

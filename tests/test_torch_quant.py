@@ -71,8 +71,11 @@ def test_build_spec_resolves_the_fused_stem_on_every_device():
     assert isinstance(engine.build_spec(cfg)[0], engine.FusedStemOp)
     odd = cfg.override({"model.image_size": 63})
     assert isinstance(engine.build_spec(odd)[0], engine.ConvOp)
+    # The ResNet-50 preset has a trunk of its own (test_torch_resnet_quant.py).
+    assert not any(isinstance(op, engine.FusedStemOp)
+                   for op in engine.build_spec(config.get_config("ssd512_resnet50_coco")))
     with pytest.raises(NotImplementedError):
-        engine.build_spec(config.get_config("ssd512_resnet50_coco"))
+        engine.build_spec(cfg.override({"model.backbone": "mobilenet"}))
 
 
 def test_quantize_params_bit_equal(tiny):
@@ -182,4 +185,4 @@ def test_unported_options_raise(tiny):
     with pytest.raises(NotImplementedError):
         engine.int8_forward(qp, spec, cfg, torch.from_numpy(x), concat_heads=False)
     with pytest.raises(NotImplementedError):
-        engine.quantize_ssd(config.get_config("ssd512_resnet50_coco"), state, [])
+        engine.quantize_ssd(cfg.override({"model.backbone": "mobilenet"}), state, [])
