@@ -26,7 +26,7 @@ from object_detector_tpu_torch.eval.evaluator import make_int8_predict_fn, make_
 from object_detector_tpu_torch.kernels import bottleneck, resnet_stem
 from object_detector_tpu_torch.models.ssd import SSDModel
 from object_detector_tpu_torch.quant import engine
-from tests.test_torch_resnet import SIZE, small_configs, small_variables
+from test_torch_resnet import SIZE, small_configs, small_variables
 
 torch.set_num_threads(2)
 
