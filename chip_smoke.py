@@ -863,8 +863,9 @@ def main() -> int:
         taps_both = engine.run_int8(qp512, predict512_8.spec, x512, dequantize_taps=False)
     # With the stem kernel on too, the few stem codes that its reciprocal
     # requant moves by one spread through every later conv: the taps then
-    # differ in many codes, by little. Reported, and held to a mean of half
-    # a code.
+    # differ in many codes, by little (on an NVIDIA H100 80GB HBM3: 0.004 of
+    # a code on average at C3, 0.28 at the last level, at most 9). Reported,
+    # and held to a mean of one code.
     agree, mean_diff, max_diff = [], [], []
     for (u, _), (k, _), (both, _) in zip(taps_unfused, taps_bottleneck, taps_both):
         check(torch.equal(u, k), f"SSD-512: the bottleneck kernel's spec differs from the unfused "
@@ -873,7 +874,7 @@ def main() -> int:
         agree.append(float((diff == 0).float().mean()))
         mean_diff.append(float(diff.float().mean()))
         max_diff.append(int(diff.max()))
-    check(max(mean_diff) <= 0.5, f"SSD-512: the kernel spec's taps are {mean_diff} codes from the "
+    check(max(mean_diff) <= 1.0, f"SSD-512: the kernel spec's taps are {mean_diff} codes from the "
                                  f"unfused spec's on average")
     det_unfused, launches_unfused = counted(lambda: predict_unfused(images512))
     check(launches_unfused == {**{k: 0 for k in wrappers}, "nms_rows": 1},
