@@ -22,12 +22,13 @@ Phases, each fatal on failure:
      (calibrated on 8 synthesized images): check that the stem, L2Norm and
      NMS kernels all ran, hold the detections bit-equal to the same
      QuantParams run with the plain versions of the stem and L2Norm, hold
-     each kernel bit-equal to its plain version on the path's own inputs,
-     time img/s;
+     each kernel (the NMS kernel too, on the rows the int8 logits give it)
+     bit-equal to its plain version on the path's own inputs, time img/s;
   8. serve one image through Predictor(int8=True) at full width, bs=1: check
      that all three kernels ran, hold the stem and L2Norm kernels bit-equal
      to their plain versions on that path's own inputs (its conv1_1 codes
-     (1, 300, 300, 64) and its tap (1, 38, 38, 512)), hold the served
+     (1, 300, 300, 64) and its tap (1, 38, 38, 512)) and the NMS kernel on
+     that path's rows, hold the served
      detections bit-equal to the same QuantParams run with the plain
      versions, and time its p50 beside the float path's;
   9. profile both int8 paths and time the stem and L2Norm kernels
@@ -72,9 +73,11 @@ Phases, each fatal on failure:
      kernel 12 times and the NMS kernel once a forward; hold the detections
      bit-equal to the same QuantParams run with the plain versions, and each
      kernel bit-equal to its plain version on the path's own inputs (the
-     normalized images; the input of each of the twelve blocks); hold the
-     bottleneck-only spec bit-equal to the unfused spec at every tap and the
-     stem within one code of the unfused chain; time img/s with the kernels
+     normalized images; the input of each of the twelve blocks; the 5120
+     rows the int8 logits give the NMS kernel); hold the bottleneck-only spec
+     bit-equal to the unfused spec at every tap, the stem within one code of
+     the unfused chain, and the spec with both kernels within a stated mean
+     code difference of the unfused spec at each tap; time img/s with the kernels
      and with the unfused spec (ODT_STEM_KERNEL=0, ODT_FUSED_BOTTLENECK=0)
      on the same QuantParams;
  20. time the stem kernel and each of the twelve bottleneck launches on the
@@ -83,8 +86,9 @@ Phases, each fatal on failure:
      codes);
  21. serve one image through the Predictor in float and in int8 at bs=1: the
      same launch counts, the kernels bit-equal to their plain versions on
-     that path's inputs, the served detections equal to the plain versions'
-     run, p50 and a profile of both;
+     that path's inputs (the NMS kernel on the (80, 512) rows of the float
+     and of the int8 path), the served detections equal to the plain
+     versions' run, p50 and a profile of both;
  22. on a small ResNet-50 config (64 px): the float32 logits and the int8 tap
      codes, logits and detections on the card against the CPU (the CPU runs
      the kernels' plain versions), and what bfloat16 gives on the card
@@ -151,6 +155,9 @@ RESNET_INT8_LAUNCHES = {"resnet_stem": 1, "fused_bottleneck": 12, "nms_rows": 1,
 # (C, Cm, H = W) of the bottleneck kernel's inputs at 512 px, with the number
 # of blocks of each stage that run it.
 RESNET_BLOCKS = ((256, 64, 128, 2), (512, 128, 64, 3), (1024, 256, 32, 5), (2048, 512, 16, 2))
+# Limits on the mean code difference at each of SSD-512's seven taps between
+# the spec with both kernels and the unfused spec on the same QuantParams.
+TAP_MEAN_CODE_DIFF_LIMITS = (0.01, 0.1, 0.2, 0.3, 0.3, 0.5, 0.5)
 
 
 def fail(msg: str) -> None:
@@ -555,11 +562,13 @@ def main() -> int:
           "int8 bs=64: the served detections differ from the same QuantParams' rerun")
     stem_err = max(stem_err, held["stem_err"])
     l2norm_err = max(l2norm_err, held["l2norm_err"])
+    max_abs_err = max(max_abs_err, held["nms_err"])
     int8_ms = host_ms(torch, lambda: predict8(images), 10)
     int8_img_per_s = 64 / (statistics.median(int8_ms) / 1e3)
     print(json.dumps({"phase": "int8_predict_bs64", "quantize_s": quantize_s,
                       "valid_detections": int(det8.valid.sum()),
                       "launches": launches["int8_bs64"], "kernels_vs_plain_bit_equal": True,
+                      "nms_rows": held["nms_rows"],
                       "stem_input": list(held["stem_args"][0].shape),
                       "l2norm_input": list(held["l2norm_args"][0].shape),
                       "median_ms": statistics.median(int8_ms), "img_per_s": int8_img_per_s,
@@ -581,6 +590,7 @@ def main() -> int:
                            anchors_np, cfg1)
     stem_err = max(stem_err, held1["stem_err"])
     l2norm_err = max(l2norm_err, held1["l2norm_err"])
+    max_abs_err = max(max_abs_err, held1["nms_err"])
     det1 = held1["detections"]
     v1 = det1.valid[0]
     ih, iw = image.shape[:2]
@@ -593,6 +603,7 @@ def main() -> int:
     p50_int8_bs1 = statistics.median(host_ms(torch, lambda: predictor8._predict(canvas), 50))
     print(json.dumps({"phase": "int8_predictor_bs1", "detections": len(dets8),
                       "launches": launches["int8_bs1"], "kernels_vs_plain_bit_equal": True,
+                      "nms_rows": held1["nms_rows"],
                       "stem_input": list(held1["stem_args"][0].shape),
                       "l2norm_input": list(held1["l2norm_args"][0].shape),
                       "p50_ms": p50_int8_bs1, "float_p50_ms": p50_bs1, **where}))
@@ -836,6 +847,7 @@ def main() -> int:
           "SSD-512 int8 bs=64: the served detections differ from the same QuantParams' rerun")
     rstem_err = max(rstem_err, held512["stem_err"])
     bott_err = max(bott_err, held512["bottleneck_err"])
+    max_abs_err = max(max_abs_err, held512["nms_err"])
     int8_512_ms = host_ms(torch, lambda: predict512_8(images512), 10)
     int8_512_img_per_s = 64 / (statistics.median(int8_512_ms) / 1e3)
     # The same QuantParams on the unfused spec, and on the bottleneck-only spec.
@@ -863,9 +875,10 @@ def main() -> int:
         taps_both = engine.run_int8(qp512, predict512_8.spec, x512, dequantize_taps=False)
     # With the stem kernel on too, the few stem codes that its reciprocal
     # requant moves by one spread through every later conv: the taps then
-    # differ in many codes, by little (on an NVIDIA H100 80GB HBM3: 0.004 of
-    # a code on average at C3, 0.28 at the last level, at most 9). Reported,
-    # and held to a mean of one code.
+    # differ in many codes, by little. Each tap's mean difference is held to
+    # about twice what an NVIDIA H100 80GB HBM3 gave on these seeded inputs
+    # (0.0036, 0.041, 0.082, 0.127, 0.135, 0.242, 0.277 of a code from C3 to
+    # the last level; at most 9 codes).
     agree, mean_diff, max_diff = [], [], []
     for (u, _), (k, _), (both, _) in zip(taps_unfused, taps_bottleneck, taps_both):
         check(torch.equal(u, k), f"SSD-512: the bottleneck kernel's spec differs from the unfused "
@@ -874,8 +887,10 @@ def main() -> int:
         agree.append(float((diff == 0).float().mean()))
         mean_diff.append(float(diff.float().mean()))
         max_diff.append(int(diff.max()))
-    check(max(mean_diff) <= 1.0, f"SSD-512: the kernel spec's taps are {mean_diff} codes from the "
-                                 f"unfused spec's on average")
+    check(len(mean_diff) == len(TAP_MEAN_CODE_DIFF_LIMITS)
+          and all(m <= lim for m, lim in zip(mean_diff, TAP_MEAN_CODE_DIFF_LIMITS)),
+          f"SSD-512: the kernel spec's taps are {mean_diff} codes from the unfused spec's on "
+          f"average, over the limits {TAP_MEAN_CODE_DIFF_LIMITS}")
     det_unfused, launches_unfused = counted(lambda: predict_unfused(images512))
     check(launches_unfused == {**{k: 0 for k in wrappers}, "nms_rows": 1},
           f"the unfused spec launched {launches_unfused}")
@@ -885,6 +900,7 @@ def main() -> int:
                       "valid_detections": int(det512_8.valid.sum()),
                       "launches": launches["ssd512_int8_bs64"],
                       "kernels_vs_plain_bit_equal": True,
+                      "nms_rows": held512["nms_rows"],
                       "stem_input": list(held512["stem_args"][0].shape),
                       "bottleneck_inputs": [list(a[0].shape) for a, _ in held512["block_args"]],
                       "bottleneck_spec_vs_unfused_spec_taps_bit_equal": len(taps_unfused),
@@ -969,6 +985,13 @@ def main() -> int:
           f"SSD-512 float bs=1 launches {launches['ssd512_float_bs1']}")
     check(len(dets_f) > 0 and all(np.all(np.isfinite(d.box)) and 0 < d.score <= 1 for d in dets_f),
           "the SSD-512 float bs=1 Predictor returned no or bad detections")
+    # The NMS kernel against its plain version on the rows the float bs=1 path gave it.
+    canvas512 = np.array(Image.fromarray(image).resize((512, 512), Image.BILINEAR), np.uint8)
+    rows512_1, _ = hold_path(torch, nms_kernel, normalize, predictor512.model,
+                             torch.from_numpy(canvas512[None]).cuda(), anchors512, cfg512)
+    check(tuple(rows512_1["scores"].shape) == (cfg512.model.num_classes, 512),
+          f"SSD-512 float bs=1 NMS rows {tuple(rows512_1['scores'].shape)}")
+    max_abs_err = max(max_abs_err, rows512_1["max_abs_err"])
     predictor512_8 = Predictor(cfg512, params512, class_names, device="cuda", int8=True)
     dets512_8, launches["ssd512_int8_bs1"] = counted(
         lambda: predictor512_8.predict_array(image, score_threshold=0.0))
@@ -978,12 +1001,12 @@ def main() -> int:
     check(len(dets512_8) > 0
           and all(np.all(np.isfinite(d.box)) and 0 < d.score <= 1 for d in dets512_8),
           "the SSD-512 int8 bs=1 Predictor returned no or bad detections")
-    canvas512 = np.array(Image.fromarray(image).resize((512, 512), Image.BILINEAR), np.uint8)
     held512_1 = hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess,
                                       normalize, predictor512_8._predict,
                                       torch.from_numpy(canvas512[None]).cuda(), anchors512, cfg512)
     rstem_err = max(rstem_err, held512_1["stem_err"])
     bott_err = max(bott_err, held512_1["bottleneck_err"])
+    max_abs_err = max(max_abs_err, held512_1["nms_err"])
     det1 = held512_1["detections"]
     v1 = det1.valid[0]
     served = torch.tensor([[d.score, d.class_id, *d.box] for d in dets512_8], dtype=torch.float32)
@@ -1000,13 +1023,15 @@ def main() -> int:
                       "launches": {"float": launches["ssd512_float_bs1"],
                                    "int8": launches["ssd512_int8_bs1"]},
                       "kernels_vs_plain_bit_equal": True,
+                      "nms_rows": {"float": list(rows512_1["scores"].shape),
+                                   "int8": held512_1["nms_rows"]},
                       "bottleneck_inputs": [list(a[0].shape) for a, _ in held512_1["block_args"]],
                       "float_p50_ms": p50_512, "int8_p50_ms": p50_512_8, **where}))
     print(json.dumps({"phase": "profile_ssd512_bs1", **profile_window(
         torch, lambda: predictor512._predict(canvas_512), 10), **where}))
     print(json.dumps({"phase": "profile_ssd512_int8_bs1", **profile_window(
         torch, lambda: predictor512_8._predict(canvas_512), 10), **where}))
-    del held512_1, det1, predictor512, predictor512_8, model512, predict512
+    del held512_1, rows512_1, det1, predictor512, predictor512_8, model512, predict512
     torch.cuda.empty_cache()
 
     # 22. A small ResNet-50 config on the card against the CPU.
@@ -1123,6 +1148,19 @@ def hold_path(torch, nms_kernel, normalize, model, images, anchors_np, cfg):
     through the kernel equal to those through the plain version. Returns
     the captured rows (with the kernel's scores, the largest score
     difference and the head's outputs) and the detections."""
+    with torch.inference_mode():
+        cls_logits, box_offsets = model(normalize(images.float() / 255.0))
+    return hold_nms(torch, nms_kernel, cls_logits, box_offsets, anchors_np, cfg,
+                    f"bs={images.shape[0]}")
+
+
+def hold_nms(torch, nms_kernel, cls_logits, box_offsets, anchors_np, cfg, label):
+    """Runs decode + NMS on a head's outputs (on the card), capturing the
+    rows that reach the NMS kernel. Holds the kernel bit-equal to
+    nms_rows_reference on those rows, and the detections through the kernel
+    equal to those through the plain version. Returns the captured rows
+    (with the kernel's scores, the largest score difference and the head's
+    outputs) and the detections."""
     captured = {}
 
     def capture(coords, scores, **kwargs):
@@ -1130,7 +1168,6 @@ def hold_path(torch, nms_kernel, normalize, model, images, anchors_np, cfg):
         return nms_kernel.nms_rows(coords, scores, **kwargs)
 
     with torch.inference_mode():
-        cls_logits, box_offsets = model(normalize(images.float() / 255.0))
         anchors = torch.from_numpy(anchors_np).cuda()
         det_k = nms_kernel.decode_nms(cls_logits, box_offsets, anchors, rows_fn=capture,
                                       **_decode_kwargs(cfg))
@@ -1140,14 +1177,13 @@ def hold_path(torch, nms_kernel, normalize, model, images, anchors_np, cfg):
         coords, scores, kwargs = captured["coords"], captured["scores"], captured["kwargs"]
         got_s, got_c = nms_kernel.nms_rows(coords, scores, **kwargs)
         want_s, want_c = nms_kernel.nms_rows_reference(coords, scores, **kwargs)
-    b = images.shape[0]
     err = (got_s - want_s).abs().max().item()
     check(torch.equal(got_s, want_s) and torch.equal(got_c, want_c),
-          f"bs={b}: nms kernel differs from nms_rows_reference on the path's rows "
+          f"{label}: nms kernel differs from nms_rows_reference on the path's rows "
           f"{tuple(scores.shape)}: max_abs_err {err}, "
           f"{int((got_c != want_c).sum())} columns differ")
     check(_same_detections(torch, det_k, det_p),
-          f"bs={b}: detections through the kernel differ from the plain path")
+          f"{label}: detections through the kernel differ from the plain path")
     captured.update(kernel_scores=got_s, max_abs_err=err, head=(cls_logits, box_offsets))
     return captured, det_k
 
@@ -1158,9 +1194,12 @@ def hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize, predict8
     on ``images`` (uint8, on the card) with its QuantParams, capturing the
     stem's and the L2Norm's inputs. Holds the detections through the kernels
     equal to those of the same QuantParams with the plain versions of both
-    kernels, and each kernel bit-equal to its plain version on the captured
-    inputs. Returns the captured inputs, the largest code differences and
-    the detections through the kernels."""
+    kernels, each kernel bit-equal to its plain version on the captured
+    inputs, and the NMS kernel bit-equal to its plain version on the rows
+    the int8 logits give it. Returns the captured inputs, the largest code
+    differences, the NMS rows' shape and the detections through the kernels."""
+    from object_detector_tpu_torch.kernels import nms as nms_kernel
+
     captured = {}
 
     def capture(name, fn):
@@ -1173,9 +1212,10 @@ def hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize, predict8
     anchors = torch.from_numpy(anchors_np).cuda()
     with torch.inference_mode():
         x = normalize(images.float() / 255.0)
-        det_k = postprocess(*engine.int8_forward(
+        head_k = engine.int8_forward(
             qp, spec, cfg, x, stem_fn=capture("stem", stem.stem_conv12_pool),
-            l2norm_fn=capture("l2norm", l2norm.l2norm_requant)), anchors, cfg)
+            l2norm_fn=capture("l2norm", l2norm.l2norm_requant))
+        det_k = postprocess(*head_k, anchors, cfg)
         det_p = postprocess(*engine.int8_forward(
             qp, spec, cfg, x, stem_fn=stem.stem_conv12_pool_reference,
             l2norm_fn=l2norm.l2norm_requant_reference), anchors, cfg)
@@ -1193,9 +1233,17 @@ def hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize, predict8
           f"version on the path's tap: {int((l2_k != l2_p).sum())}")
     check(_same_detections(torch, det_k, det_p), f"int8 bs={b}: detections through the kernels "
                                                  "differ from the plain versions'")
+    # The NMS kernel against its plain version on the rows this path's logits gave it.
+    nms_rows, det_n = hold_nms(torch, nms_kernel, head_k[0], head_k[1].float(), anchors_np, cfg,
+                               f"int8 bs={b}")
+    check(nms_rows["scores"].shape[0] == b * cfg.model.num_classes,
+          f"int8 bs={b}: NMS rows {tuple(nms_rows['scores'].shape)}")
+    check(_same_detections(torch, det_n, det_k),
+          f"int8 bs={b}: postprocess() and decode_nms() disagree on the int8 logits")
     return {"stem_args": sa, "l2norm_args": la, "detections": det_k,
             "stem_err": int((stem_k.int() - stem_p.int()).abs().max()),
-            "l2norm_err": int((l2_k.int() - l2_p.int()).abs().max())}
+            "l2norm_err": int((l2_k.int() - l2_p.int()).abs().max()),
+            "nms_rows": list(nms_rows["scores"].shape), "nms_err": nms_rows["max_abs_err"]}
 
 
 def int8_reference_check(torch, np, engine, postprocess, normalize, make_int8_predict_fn,
@@ -1513,10 +1561,13 @@ def hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess, n
     result) on ``images`` (uint8, on the card) with its QuantParams,
     capturing what the stem and the twelve bottleneck launches were given.
     Holds the detections through the kernels equal to those of the same
-    QuantParams with the plain versions of both kernels, and each kernel
-    bit-equal to its plain version on the captured inputs. Returns the
-    captured inputs, the largest code differences, the detections through
-    the kernels and how far the stem is from the engine's unfused chain."""
+    QuantParams with the plain versions of both kernels, each kernel
+    bit-equal to its plain version on the captured inputs, and the NMS
+    kernel bit-equal to its plain version on the rows the int8 logits give
+    it. Returns the captured inputs, the largest code differences, the
+    detections through the kernels, the NMS rows' shape and how far the stem
+    is from the engine's unfused chain."""
+    from object_detector_tpu_torch.kernels import nms as nms_kernel
     from object_detector_tpu_torch.ops import int8 as int8_ops
 
     captured = {"blocks": []}
@@ -1533,9 +1584,9 @@ def hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess, n
     anchors = torch.from_numpy(anchors_np).cuda()
     with torch.inference_mode():
         x = normalize(images.float() / 255.0)
-        det_k = postprocess(*engine.int8_forward(
-            qp, spec, cfg, x, resnet_stem_fn=stem_capture, bottleneck_fn=block_capture),
-            anchors, cfg)
+        head_k = engine.int8_forward(qp, spec, cfg, x, resnet_stem_fn=stem_capture,
+                                     bottleneck_fn=block_capture)
+        det_k = postprocess(*head_k, anchors, cfg)
         det_p = postprocess(*engine.int8_forward(
             qp, spec, cfg, x, resnet_stem_fn=resnet_stem.resnet_stem_reference,
             bottleneck_fn=bottleneck.fused_bottleneck_reference), anchors, cfg)
@@ -1569,9 +1620,17 @@ def hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess, n
     torch.cuda.synchronize()
     check(_same_detections(torch, det_k, det_p), f"int8 bs={b}: SSD-512 detections through the "
                                                  "kernels differ from the plain versions'")
+    # The NMS kernel against its plain version on the rows this path's logits gave it.
+    nms_rows, det_n = hold_nms(torch, nms_kernel, head_k[0], head_k[1].float(), anchors_np, cfg,
+                               f"int8 bs={b}")
+    check(tuple(nms_rows["scores"].shape) == (b * cfg.model.num_classes, 512),
+          f"int8 bs={b}: SSD-512 NMS rows {tuple(nms_rows['scores'].shape)}")
+    check(_same_detections(torch, det_n, det_k),
+          f"int8 bs={b}: postprocess() and decode_nms() disagree on the int8 logits")
     return {"stem_args": stem_args, "stem_kw": stem_kw, "block_args": captured["blocks"],
             "detections": det_k, "stem_err": int((stem_k.int() - stem_p.int()).abs().max()),
-            "bottleneck_err": bott_err, "stem_vs_chain": stem_vs_chain}
+            "bottleneck_err": bott_err, "stem_vs_chain": stem_vs_chain,
+            "nms_rows": list(nms_rows["scores"].shape), "nms_err": nms_rows["max_abs_err"]}
 
 
 def resnet_reference_check(torch, np, port_config, engine, postprocess, normalize,

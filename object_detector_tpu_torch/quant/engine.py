@@ -181,8 +181,7 @@ def build_spec(cfg: DetectorConfig, fused_stem: Optional[bool] = None) -> Spec:
             fused_stem = cfg.model.image_size % 2 == 0
         return build_ssd_spec(cfg, fused_stem=fused_stem)
     if cfg.model.backbone == "resnet50":
-        img_pack = _env_tristate("ODT_IMG_PACK", auto=False)
-        return build_resnet_ssd_spec(cfg, img_pack=img_pack)
+        return build_resnet_ssd_spec(cfg)
     raise NotImplementedError(f"int8 engine: unknown backbone {cfg.model.backbone}")
 
 
