@@ -19,7 +19,9 @@ Phases, each fatal on failure:
   6. profile both float paths and time the NMS kernel against its plain
      version on the bs=64 path's inputs;
   7. serve ssd300_infer_bs64 at bs=64 through make_int8_predict_fn
-     (calibrated on 8 synthesized images): check that the stem, L2Norm and
+     (calibrated on 8 synthesized images), on the B2 route (ODT_STEM_FP=0:
+     conv1_1 through the engine's int8 conv, then B2, up to phase 23): check
+     that the stem, L2Norm and
      NMS kernels all ran, hold the detections bit-equal to the same
      QuantParams run with the plain versions of the stem and L2Norm, hold
      each kernel (the NMS kernel too, on the rows the int8 logits give it)
@@ -67,7 +69,8 @@ Phases, each fatal on failure:
  18. serve full-width ssd512_resnet50_coco (seeded random weights, seeded
      non-trivial BatchNorm statistics) in float at bs=64 through
      make_predict_fn: check that the NMS kernel ran (5120 rows), hold it
-     against its plain version on that path's rows, time img/s;
+     against its plain version on that path's rows, time it there beside its
+     plain version and its bound from those rows, time img/s;
  19. serve it in int8 at bs=64 through make_int8_predict_fn (calibrated on 8
      seeded images): check that the stem kernel ran once, the bottleneck
      kernel 12 times and the NMS kernel once a forward; hold the detections
@@ -92,7 +95,28 @@ Phases, each fatal on failure:
  22. on a small ResNet-50 config (64 px): the float32 logits and the int8 tap
      codes, logits and detections on the card against the CPU (the CPU runs
      the kernels' plain versions), and what bfloat16 gives on the card
-     against the CPU's float32.
+     against the CPU's float32;
+ 23. hold B4 (all of VGG block 1 in one kernel) bit-equal to its plain
+     version on synthetic cases: saturating codes, all-negative biases, a
+     zero input, a large positive conv1_1 bias, a size whose pooled tiles
+     are partial, bs=1;
+ 24. serve ssd300_infer_bs64 at bs=64 in int8 with B4 selected
+     (ODT_STEM_FP=1): one B4 launch and no B2 launch a forward, the
+     detections bit-equal to the plain versions' run and to the B2 route's on
+     the same QuantParams, B4, B3 and B1 bit-equal to their plain versions on
+     the path's own inputs; img/s of both routes in turns and a profile; B4
+     timed on the path's input codes beside its bound, its plain version and
+     the chain it replaces (which must give its codes);
+ 25. serve one image through Predictor(int8=True) with B4 selected: the same
+     launch counts and holds, the served detections equal to the B2 route's,
+     the p50 of both routes in turns and a profile;
+ 26. resume phase 12's training for 100 steps without warmup, then run
+     `evaluate` through the CLI's main, in-process, on that checkpoint, over
+     the 64-image synthetic set it learned at eval.batch_size=48 (two
+     batches, the second overlapping the first): int8 with B4 (two B4
+     launches, mAP above 0), int8 on the B2 route (the same mAP dict) and
+     float (the same keys), each a voc07 dict of finite values; time each in
+     img/s, and the sweep alone on a built cache.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -102,6 +126,8 @@ package beside it.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -145,13 +171,24 @@ POOL_SHAPES = ((300, 300, 64), (150, 150, 128), (76, 76, 256), (38, 38, 512))
 OVERFIT_STEPS, OVERFIT_LR, OVERFIT_FALL = 60, 2e-3, 0.8
 
 
-# The kernels the two int8 SSD-300 serving paths must launch.
+# The kernels the two int8 SSD-300 serving paths must launch on the B2 route
+# (ODT_STEM_FP=0): conv1_1 through the engine's int8 conv, then B2.
 INT8_PATH_KERNELS = ("nms_rows", "stem_conv12_pool", "l2norm_requant")
+# Launches of one int8 SSD-300 forward with B4 selected (ODT_STEM_FP=1).
+STEM_FP_LAUNCHES = {"nms_rows": 1, "stem_conv12_pool": 0, "l2norm_requant": 1,
+                    "max_pool_bwd": 0, "resnet_stem": 0, "fused_bottleneck": 0,
+                    "stem_fused_producer": 1}
+# The evaluate phase: the synthetic set's 64 images at eval.batch_size=48 are
+# two batches, the second overlapping the first by 32 rows.
+EVAL_BATCH, EVAL_IMAGES = 48, 64
+# Steps the evaluate phase trains phase 12's checkpoint on before it sweeps.
+EVAL_TRAIN_STEPS = 100
 # Launches of one int8 SSD-512/ResNet-50 forward: the stem once, the
 # bottleneck kernel for blocks 2 and later of the four stages (2 + 3 + 5 + 2),
 # the NMS scan once; no kernel of the VGG path.
 RESNET_INT8_LAUNCHES = {"resnet_stem": 1, "fused_bottleneck": 12, "nms_rows": 1,
-                        "stem_conv12_pool": 0, "l2norm_requant": 0, "max_pool_bwd": 0}
+                        "stem_conv12_pool": 0, "l2norm_requant": 0, "max_pool_bwd": 0,
+                        "stem_fused_producer": 0}
 # (C, Cm, H = W) of the bottleneck kernel's inputs at 512 px, with the number
 # of blocks of each stage that run it.
 RESNET_BLOCKS = ((256, 64, 128, 2), (512, 128, 64, 3), (1024, 256, 32, 5), (2048, 512, 16, 2))
@@ -228,6 +265,7 @@ def host_ms(torch, fn, iters: int) -> list:
 PROFILE_GROUPS = (
     ("nms_kernel", ("nms_rows_kernel",)),
     ("stem_kernel", ("stem_conv12_pool_kernel",)),
+    ("stem_fp_kernel", ("stem_fp_kernel",)),
     ("l2norm_kernel", ("l2norm_requant_kernel",)),
     ("pool_bwd_kernel", ("pool_bwd_kernel",)),
     ("resnet_stem_kernel", ("resnet_stem_kernel",)),
@@ -325,6 +363,17 @@ def pool_bwd_bound_ms(x, g):
     return bound(bytes_moved, POOL_BWD_OPS_PER_WINDOW * windows, F32_OPS_PER_S)
 
 
+def stem_fp_bound_ms(x_q, out):
+    """Both convs' multiply-adds (27 and 576 a pixel and output channel) as 2
+    int8 operations each over the int8 tensor-core peak, against the input
+    codes read once, the two kernels, four vectors read once and the pooled
+    codes written once."""
+    b, h, w, _ = x_q.shape
+    ops = 2 * b * h * w * 64 * (27 + 576)
+    bytes_moved = x_q.numel() + (27 + 576) * 64 + 4 * 4 * 64 + out.numel()
+    return bound(bytes_moved, ops, INT8_OPS_PER_S)
+
+
 def resnet_stem_bound_ms(images, out):
     """The float image read once and the pooled codes written once (and the
     weights, deq and bias), against the 7x7 conv's multiply-adds as 2 int8
@@ -362,8 +411,10 @@ def main() -> int:
         from object_detector_tpu_torch.data.pipeline import DecodedCache, make_place
         from object_detector_tpu_torch.data.synthetic import make_synthetic_dataset
         from object_detector_tpu_torch.core import config as port_config
+        from object_detector_tpu_torch.cli.main import main as cli_main
+        from object_detector_tpu_torch.eval.evaluator import evaluate_dataset
         from object_detector_tpu_torch.kernels import (
-            bottleneck, build, l2norm, pool_bwd, resnet_stem, stem,
+            bottleneck, build, l2norm, pool_bwd, resnet_stem, stem, stem_fp,
         )
         from object_detector_tpu_torch.kernels import nms as nms_kernel
         from object_detector_tpu_torch.models.ssd import SSDModel
@@ -384,7 +435,8 @@ def main() -> int:
                 "l2norm_requant": l2norm.l2norm_requant,
                 "max_pool_bwd": pool_bwd.max_pool_bwd,
                 "resnet_stem": resnet_stem.resnet_stem,
-                "fused_bottleneck": bottleneck.fused_bottleneck}
+                "fused_bottleneck": bottleneck.fused_bottleneck,
+                "stem_fused_producer": stem_fp.stem_fused_producer}
 
     def counted(fn):
         """Runs the main path fn() with every launch count set to 0 just
@@ -542,7 +594,9 @@ def main() -> int:
                       "bound_ms": nms_bound, "bound_by": nms_bound_by, **where}))
     del model, predict, bs64_rows, det, det_k, same_as_postprocess
 
-    # 7. The int8 engine at bs=64 through make_int8_predict_fn.
+    # 7. The int8 engine at bs=64 through make_int8_predict_fn, on the B2
+    # route (conv1_1 through the engine's int8 conv, then B2) up to phase 23.
+    os.environ["ODT_STEM_FP"] = "0"
     calib = rng.integers(0, 256, (8, 300, 300, 3), dtype=np.uint8)
     t0 = time.perf_counter()
     predict8 = make_int8_predict_fn(cfg64, params, anchors_np, calib, device="cuda")
@@ -680,15 +734,18 @@ def main() -> int:
     check(train_cfg.model.compute_dtype == "bfloat16", "the training preset is not bfloat16")
     dataset = make_synthetic_dataset(num_images=64, image_size=train_cfg.model.image_size)
     train_steps = 6
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        t0 = time.perf_counter()
-        state, launches["train_bs32"] = counted(lambda: train(
-            train_cfg, dataset, num_steps=train_steps, metrics_path=f"{tmp}/train.jsonl",
-            checkpoint_dir=f"{tmp}/ckpt", device="cuda"))
-        train_s = time.perf_counter() - t0
-        with open(f"{tmp}/train.jsonl") as f:
-            rows = [json.loads(line) for line in f]
-        saved = sorted(os.listdir(f"{tmp}/ckpt"))
+    # The checkpoint stays for the evaluate phase (26); the directory is
+    # removed when the run ends, whichever way it ends.
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    ckpt_dir = f"{work.name}/ckpt"
+    t0 = time.perf_counter()
+    state, launches["train_bs32"] = counted(lambda: train(
+        train_cfg, dataset, num_steps=train_steps, metrics_path=f"{work.name}/train.jsonl",
+        checkpoint_dir=ckpt_dir, device="cuda"))
+    train_s = time.perf_counter() - t0
+    with open(f"{work.name}/train.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    saved = sorted(os.listdir(ckpt_dir))
     check(state.step == train_steps and [r["step"] for r in rows] == list(range(1, train_steps + 1)),
           f"train() logged steps {[r['step'] for r in rows]}")
     for r in rows:
@@ -815,16 +872,24 @@ def main() -> int:
     check(tuple(rows512["scores"].shape) == (64 * 80, 512),
           f"SSD-512 NMS rows {tuple(rows512['scores'].shape)}")
     max_abs_err = max(max_abs_err, rows512["max_abs_err"])
+    # The NMS kernel at SSD-512's 5120 rows beside its bound from these rows.
+    c512, s512, kw512 = rows512["coords"], rows512["scores"], rows512["kwargs"]
+    nms512 = {"rows": s512.shape[0],
+              "ms": cuda_ms(torch, lambda: nms_kernel.nms_rows(c512, s512, **kw512), 20),
+              "plain_ms": cuda_ms(torch, lambda: nms_kernel.nms_rows_reference(c512, s512, **kw512),
+                                  2)}
+    nms512["bound_ms"], nms512["bound_by"] = nms_bound_ms(rows512["kernel_scores"], *s512.shape,
+                                                          kw512["max_out"])
     ms512 = host_ms(torch, lambda: predict512(images512), 10)
     float512_img_per_s = 64 / (statistics.median(ms512) / 1e3)
     print(json.dumps({"phase": "ssd512_predict_bs64", "valid_detections": int(det512.valid.sum()),
                       "launches": launches["ssd512_float_bs64"],
-                      "nms_rows": list(rows512["scores"].shape),
+                      "nms_rows": list(rows512["scores"].shape), "nms_timing": nms512,
                       "median_ms": statistics.median(ms512), "img_per_s": float512_img_per_s,
                       **where}))
     print(json.dumps({"phase": "profile_ssd512_bs64",
                       **profile_window(torch, lambda: predict512(images512), 3), **where}))
-    del rows512, det512
+    del rows512, det512, c512, s512
 
     # 19. The int8 engine at bs=64 through make_int8_predict_fn.
     calib512 = rng.integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)
@@ -1039,6 +1104,189 @@ def main() -> int:
         torch, np, port_config, engine, postprocess, normalize, make_int8_predict_fn, SSDModel,
         init_params, ssd_anchors)}))
 
+    # 23. B4 (all of VGG block 1 in one kernel) against its plain version on
+    # synthetic cases.
+    stem_fp_err = stem_fp_kernel_cases(torch, stem_fp)
+
+    # 24. int8 SSD-300 at bs=64 with B4 selected (ODT_STEM_FP=1), against the
+    # B2 route on the same QuantParams.
+    os.environ["ODT_STEM_FP"] = "1"
+    calib_fp = np.random.default_rng(24).integers(0, 256, (8, 300, 300, 3), dtype=np.uint8)
+    predict_fp = make_int8_predict_fn(cfg64, params, anchors_np, calib_fp, device="cuda")
+    predict_fp(images)
+    det_fp, launches["int8_bs64_stem_fp"] = counted(lambda: predict_fp(images))
+    check(launches["int8_bs64_stem_fp"] == STEM_FP_LAUNCHES,
+          f"int8 bs=64 with B4: launches {launches['int8_bs64_stem_fp']}, expected {STEM_FP_LAUNCHES}")
+    check(bool(torch.isfinite(det_fp.boxes).all()) and bool(torch.isfinite(det_fp.scores).all())
+          and bool(det_fp.valid.any()), "int8 bs=64 with B4: detections not finite or empty")
+    held_fp = hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize, predict_fp,
+                             images, anchors_np, cfg64, stem_fp=stem_fp)
+    check(_same_detections(torch, held_fp["detections"], det_fp),
+          "int8 bs=64 with B4: the served detections differ from the same QuantParams' rerun")
+    stem_fp_err = max(stem_fp_err, held_fp["stem_err"])
+    l2norm_err = max(l2norm_err, held_fp["l2norm_err"])
+    max_abs_err = max(max_abs_err, held_fp["nms_err"])
+    os.environ["ODT_STEM_FP"] = "0"
+    det_b2, launches_b2 = counted(lambda: predict_fp(images))
+    check(launches_b2["stem_conv12_pool"] == 1 and launches_b2["stem_fused_producer"] == 0,
+          f"the B2 route launched {launches_b2}")
+    check(_same_detections(torch, det_b2, det_fp),
+          "int8 bs=64: the detections with B4 differ from the B2 route's on the same QuantParams")
+    route_ms = {"1": [], "0": []}
+    for route in ("1", "0", "0", "1"):  # in turns: B4, B2, B2, B4
+        os.environ["ODT_STEM_FP"] = route
+        route_ms[route] += host_ms(torch, lambda: predict_fp(images), 10)
+    fp_img_per_s = {r: 64 / (statistics.median(v) / 1e3) for r, v in route_ms.items()}
+    os.environ["ODT_STEM_FP"] = "1"
+    print(json.dumps({"phase": "int8_predict_bs64_stem_fp",
+                      "valid_detections": int(det_fp.valid.sum()),
+                      "launches": launches["int8_bs64_stem_fp"], "b2_route_launches": launches_b2,
+                      "kernels_vs_plain_bit_equal": True, "detections_equal_b2_route": True,
+                      "stem_fp_input": list(held_fp["stem_args"][0].shape),
+                      "nms_rows": held_fp["nms_rows"],
+                      "median_ms": statistics.median(route_ms["1"]),
+                      "img_per_s": fp_img_per_s["1"],
+                      "b2_route_median_ms": statistics.median(route_ms["0"]),
+                      "b2_route_img_per_s": fp_img_per_s["0"], **where}))
+    print(json.dumps({"phase": "profile_int8_bs64_stem_fp",
+                      **profile_window(torch, lambda: predict_fp(images), 3), **where}))
+    # B4 on the path's own input codes beside its bound, its plain version and
+    # the chain it replaces (conv1_1 through the engine's int8 conv and
+    # requant epilogue, then B2), which must give its codes.
+    sa, skw = held_fp["stem_args"], held_fp["stem_kw"]
+    qp_fp = predict_fp.qp
+
+    def conv11():
+        acc = int8_ops.conv_int8(sa[0], qp_fp.w_int8["backbone/conv1_1"], 1, "SAME", 1,
+                                 operand=qp_fp.gemm_operand("backbone/conv1_1"))
+        return int8_ops.requant_epilogue(acc, sa[2], sa[3], qp_fp.scale(sa[4], sa[0].device))
+
+    q1_chain = conv11()
+    fp_out = stem_fp.stem_fused_producer(*sa, **skw)
+    check(torch.equal(stem.stem_conv12_pool(q1_chain, *sa[5:]), fp_out),
+          "B4 differs from the chain it replaces on the bs=64 path's codes")
+    stem_fp_ms = cuda_ms(torch, lambda: stem_fp.stem_fused_producer(*sa, **skw), 20)
+    stem_fp_plain_ms = cuda_ms(torch, lambda: stem_fp.stem_fused_producer_reference(*sa), 3)
+    conv11_ms = cuda_ms(torch, conv11, 5)
+    b2_on_path_ms = cuda_ms(torch, lambda: stem.stem_conv12_pool(q1_chain, *sa[5:]), 20)
+    chain_ms = cuda_ms(torch, lambda: stem.stem_conv12_pool(conv11(), *sa[5:]), 5)
+    stem_fp_bound, stem_fp_bound_by = stem_fp_bound_ms(sa[0], fp_out)
+    print(json.dumps({"phase": "stem_fp_timing", "input": list(sa[0].shape), "ms": stem_fp_ms,
+                      "plain_ms": stem_fp_plain_ms, "bound_ms": stem_fp_bound,
+                      "bound_by": stem_fp_bound_by, "replaced_chain_ms": chain_ms,
+                      "chain_conv11_ms": conv11_ms, "chain_b2_ms": b2_on_path_ms, **where}))
+    del held_fp, det_fp, det_b2, q1_chain, fp_out
+
+    # 25. One image through Predictor(int8=True) with B4 selected, bs=1.
+    predictor_fp = Predictor(cfg1, params, VOC_CLASSES, device="cuda", int8=True)
+    dets_fp1, launches["int8_bs1_stem_fp"] = counted(
+        lambda: predictor_fp.predict_array(image, score_threshold=0.0))
+    check(launches["int8_bs1_stem_fp"] == STEM_FP_LAUNCHES,
+          f"int8 bs=1 with B4: launches {launches['int8_bs1_stem_fp']}, expected {STEM_FP_LAUNCHES}")
+    check(len(dets_fp1) > 0 and all(np.all(np.isfinite(d.box)) and 0 < d.score <= 1
+                                    for d in dets_fp1),
+          "the int8 bs=1 Predictor with B4 returned no or bad detections")
+    held_fp1 = hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize,
+                              predictor_fp._predict, torch.from_numpy(canvas1[None]).cuda(),
+                              anchors_np, cfg1, stem_fp=stem_fp)
+    stem_fp_err = max(stem_fp_err, held_fp1["stem_err"])
+    l2norm_err = max(l2norm_err, held_fp1["l2norm_err"])
+    max_abs_err = max(max_abs_err, held_fp1["nms_err"])
+    os.environ["ODT_STEM_FP"] = "0"
+    dets_b2_1 = predictor_fp.predict_array(image, score_threshold=0.0)
+    key = lambda d: (d.score, d.class_id, tuple(float(v) for v in d.box))  # noqa: E731
+    check([key(d) for d in dets_b2_1] == [key(d) for d in dets_fp1],
+          "int8 bs=1: the served detections with B4 differ from the B2 route's")
+    p50_route = {"1": [], "0": []}
+    for route in ("1", "0", "0", "1"):
+        os.environ["ODT_STEM_FP"] = route
+        p50_route[route] += host_ms(torch, lambda: predictor_fp._predict(canvas), 25)
+    os.environ["ODT_STEM_FP"] = "1"
+    print(json.dumps({"phase": "int8_predictor_bs1_stem_fp", "detections": len(dets_fp1),
+                      "launches": launches["int8_bs1_stem_fp"],
+                      "kernels_vs_plain_bit_equal": True, "detections_equal_b2_route": True,
+                      "stem_fp_input": list(held_fp1["stem_args"][0].shape),
+                      "p50_ms": statistics.median(p50_route["1"]),
+                      "b2_route_p50_ms": statistics.median(p50_route["0"]), **where}))
+    print(json.dumps({"phase": "profile_int8_bs1_stem_fp",
+                      **profile_window(torch, lambda: predictor_fp._predict(canvas), 10), **where}))
+    del held_fp1, predictor_fp, predict_fp
+
+    # 26. evaluate through the CLI's main, in-process, on phase 12's
+    # checkpoint trained on (resumed) for EVAL_TRAIN_STEPS more steps at phase
+    # 14's rate without warmup, crops or expansion, so that the detections
+    # find the boxes of the set it learned: int8 with B4, int8 on the B2
+    # route, float.
+    resume_cfg = train_cfg.override({
+        "train.warmup_steps": 0, "train.base_lr": OVERFIT_LR, "train.num_steps": 10**6,
+        "train.log_every": EVAL_TRAIN_STEPS, "data.augment.crop_prob": 0.0,
+        "data.augment.expand_prob": 0.0})
+    t0 = time.perf_counter()
+    state = train(resume_cfg, dataset, num_steps=train_steps + EVAL_TRAIN_STEPS, resume=True,
+                  checkpoint_dir=ckpt_dir, device="cuda")
+    resume_s = time.perf_counter() - t0
+    check(state.step == train_steps + EVAL_TRAIN_STEPS, f"the resumed run ended at {state.step}")
+    trained = {k: v.detach() for k, v in state.params.items()}
+    del state
+    eval_argv = ["evaluate", "--preset", "ssd300_vgg16_voc", "--set", "data.dataset=synthetic",
+                 "--set", f"eval.batch_size={EVAL_BATCH}", "--checkpoint", ckpt_dir]
+    evals = {}
+    for name, route, extra in (("evaluate_int8_stem_fp", "1", ["--int8"]),
+                               ("evaluate_int8_b2", "0", ["--int8"]),
+                               ("evaluate_float", "1", [])):
+        os.environ["ODT_STEM_FP"] = route
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc, launches[name] = counted(lambda: cli_main(eval_argv + extra))
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"{name}: main returned {rc}")
+        result = json.loads(out.getvalue().strip().splitlines()[-1])
+        check("mAP" in result and all(k == "mAP" or k.startswith("ap/class_") for k in result)
+              and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in result.values()),
+              f"{name}: not a voc07 mAP dict of finite values: {result}")
+        evals[name] = {"result": result, "launches": launches[name], "seconds": seconds,
+                       "img_per_s": EVAL_IMAGES / seconds}
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    want_fp = {**{k: 0 for k in wrappers}, "stem_fused_producer": batches,
+               "l2norm_requant": batches, "nms_rows": batches}
+    check(launches["evaluate_int8_stem_fp"] == want_fp,
+          f"evaluate --int8 with B4 launched {launches['evaluate_int8_stem_fp']}, expected {want_fp}")
+    check(launches["evaluate_int8_b2"] == {**want_fp, "stem_fused_producer": 0,
+                                           "stem_conv12_pool": batches},
+          f"evaluate --int8 on the B2 route launched {launches['evaluate_int8_b2']}")
+    check(launches["evaluate_float"] == {**{k: 0 for k in wrappers}, "nms_rows": batches},
+          f"float evaluate launched {launches['evaluate_float']}")
+    check(evals["evaluate_int8_b2"]["result"] == evals["evaluate_int8_stem_fp"]["result"],
+          "evaluate --int8: the mAP dict with B4 differs from the B2 route's")
+    check(set(evals["evaluate_float"]["result"]) == set(evals["evaluate_int8_stem_fp"]["result"]),
+          "the float and int8 evaluate dicts have different keys")
+    check(evals["evaluate_int8_stem_fp"]["result"]["mAP"] > 0.0,
+          "evaluate --int8 found no box of the set the checkpoint was trained on")
+    # The sweep alone: evaluate_dataset on a built cache (calibration
+    # included), int8 with B4, on the weights the checkpoint holds: the
+    # same dict as the command's.
+    eval_cfg = cfg1.override({"data.dataset": "synthetic", "eval.batch_size": EVAL_BATCH})
+    eval_set = make_synthetic_dataset(num_images=EVAL_IMAGES, image_size=300)
+    eval_cache = DecodedCache(eval_set, 300, eval_cfg.data.max_boxes, 4)
+    sweep_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sweep_result, sweep_launches = counted(lambda: evaluate_dataset(
+            eval_cfg, trained, eval_set, cache=eval_cache, int8=True, device="cuda"))
+        sweep_s.append(time.perf_counter() - t0)
+    check(sweep_launches == want_fp, f"evaluate_dataset with B4 launched {sweep_launches}")
+    check(sweep_result == evals["evaluate_int8_stem_fp"]["result"],
+          "evaluate_dataset on the trained weights differs from the evaluate command's dict")
+    print(json.dumps({"phase": "evaluate", "images": EVAL_IMAGES, "batch": EVAL_BATCH,
+                      "checkpoint_steps": train_steps + EVAL_TRAIN_STEPS,
+                      "resumed_training_seconds": resume_s, **evals,
+                      "sweep_on_built_cache_seconds": sweep_s,
+                      "sweep_on_built_cache_img_per_s": EVAL_IMAGES / statistics.median(sweep_s),
+                      **where}))
+    del os.environ["ODT_STEM_FP"], trained
+    work.cleanup()
+
     def counts(name: str) -> dict:
         return {"launches": sum(c[name] for c in launches.values()),
                 "launches_by_path": {path: c[name] for path, c in launches.items()}}
@@ -1057,6 +1305,7 @@ def main() -> int:
             "bound_by": nms_bound_by,
             "library_ms": None,
             "library_none_because": "no single PyTorch call computes a greedy NMS scan",
+            "at_ssd512_bs64_rows": nms512,
         },
         {
             "name": "stem_conv12_pool",
@@ -1136,6 +1385,24 @@ def main() -> int:
             "unfused_chain_ms": block_sum["unfused_chain_ms"],
             "times_are": "sums over the twelve launches of one bs=64 int8 SSD-512 forward",
         },
+        {
+            "name": "stem_fused_producer",
+            "route": "cuda",
+            "source": "object_detector_tpu_torch/csrc/stem_fp.cu",
+            "replaces": "object_detector_tpu/kernels/stem_pallas.py:514",
+            **counts("stem_fused_producer"),
+            "max_abs_err": stem_fp_err,
+            "ms": stem_fp_ms,
+            "plain_ms": stem_fp_plain_ms,
+            "bound_ms": stem_fp_bound,
+            "bound_by": stem_fp_bound_by,
+            "library_ms": None,
+            "library_none_because": "no single PyTorch call computes two int8 convs with "
+                                    "requant epilogues and a max pool",
+            "replaced_chain_ms": chain_ms,
+            "replaced_chain": "conv1_1 as the engine's int8 conv and requant epilogue, then "
+                              "stem_conv12_pool",
+        },
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
@@ -1189,42 +1456,52 @@ def hold_nms(torch, nms_kernel, cls_logits, box_offsets, anchors_np, cfg, label)
 
 
 def hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize, predict8, images,
-                   anchors_np, cfg):
+                   anchors_np, cfg, stem_fp=None):
     """Runs the int8 path of ``predict8`` (a `make_int8_predict_fn` result)
     on ``images`` (uint8, on the card) with its QuantParams, capturing the
     stem's and the L2Norm's inputs. Holds the detections through the kernels
     equal to those of the same QuantParams with the plain versions of both
     kernels, each kernel bit-equal to its plain version on the captured
     inputs, and the NMS kernel bit-equal to its plain version on the rows
-    the int8 logits give it. Returns the captured inputs, the largest code
-    differences, the NMS rows' shape and the detections through the kernels."""
+    the int8 logits give it. The stem is B2 (conv1_2 + pool, on conv1_1's
+    codes); with ``stem_fp``, the kernels.stem_fp module, it is B4 (all of
+    block 1, on the input codes), for which the caller sets ODT_STEM_FP=1.
+    Returns the captured inputs, the largest code differences, the NMS rows'
+    shape and the detections through the kernels."""
     from object_detector_tpu_torch.kernels import nms as nms_kernel
 
     captured = {}
 
     def capture(name, fn):
-        def run(*args):
-            captured[name] = args
-            return fn(*args)
+        def run(*args, **kw):
+            captured[name] = (args, kw)
+            return fn(*args, **kw)
         return run
 
+    if stem_fp is None:
+        key, kernel, plain, channels = ("stem_fn", stem.stem_conv12_pool,
+                                        stem.stem_conv12_pool_reference, 64)
+    else:
+        key, kernel, plain, channels = ("stem_fp_fn", stem_fp.stem_fused_producer,
+                                        stem_fp.stem_fused_producer_reference, 3)
     qp, spec = predict8.qp, predict8.spec
     anchors = torch.from_numpy(anchors_np).cuda()
     with torch.inference_mode():
         x = normalize(images.float() / 255.0)
-        head_k = engine.int8_forward(
-            qp, spec, cfg, x, stem_fn=capture("stem", stem.stem_conv12_pool),
-            l2norm_fn=capture("l2norm", l2norm.l2norm_requant))
+        head_k = engine.int8_forward(qp, spec, cfg, x, **{key: capture("stem", kernel)},
+                                     l2norm_fn=capture("l2norm", l2norm.l2norm_requant))
         det_k = postprocess(*head_k, anchors, cfg)
         det_p = postprocess(*engine.int8_forward(
-            qp, spec, cfg, x, stem_fn=stem.stem_conv12_pool_reference,
-            l2norm_fn=l2norm.l2norm_requant_reference), anchors, cfg)
-        sa, la = captured["stem"], captured["l2norm"]
-        stem_k, stem_p = stem.stem_conv12_pool(*sa), stem.stem_conv12_pool_reference(*sa)
+            qp, spec, cfg, x, **{key: plain}, l2norm_fn=l2norm.l2norm_requant_reference),
+            anchors, cfg)
+        check("stem" in captured, f"the path never called its {key}")
+        (sa, skw), (la, _) = captured["stem"], captured["l2norm"]
+        stem_k, stem_p = kernel(*sa, **skw), plain(*sa, **skw)
         l2_k, l2_p = l2norm.l2norm_requant(*la), l2norm.l2norm_requant_reference(*la)
     torch.cuda.synchronize()
     b, s, f0 = images.shape[0], cfg.model.image_size, cfg.anchors.feature_sizes[0]
-    check(tuple(sa[0].shape) == (b, s, s, 64), f"bs={b}: the stem's input is {tuple(sa[0].shape)}")
+    check(tuple(sa[0].shape) == (b, s, s, channels),
+          f"bs={b}: the stem's input is {tuple(sa[0].shape)}")
     check(tuple(la[0].shape) == (b, f0, f0, 512),
           f"bs={b}: the L2Norm's input is {tuple(la[0].shape)}")
     check(torch.equal(stem_k, stem_p), f"int8 bs={b}: the stem kernel differs from its plain "
@@ -1240,7 +1517,7 @@ def hold_int8_path(torch, engine, stem, l2norm, postprocess, normalize, predict8
           f"int8 bs={b}: NMS rows {tuple(nms_rows['scores'].shape)}")
     check(_same_detections(torch, det_n, det_k),
           f"int8 bs={b}: postprocess() and decode_nms() disagree on the int8 logits")
-    return {"stem_args": sa, "l2norm_args": la, "detections": det_k,
+    return {"stem_args": sa, "stem_kw": skw, "l2norm_args": la, "detections": det_k,
             "stem_err": int((stem_k.int() - stem_p.int()).abs().max()),
             "l2norm_err": int((l2_k.int() - l2_p.int()).abs().max()),
             "nms_rows": list(nms_rows["scores"].shape), "nms_err": nms_rows["max_abs_err"]}
@@ -1526,6 +1803,48 @@ def resnet_kernel_cases(torch, resnet_stem, bottleneck):
                           "shape": list(x.shape), "cm": cm,
                           "share_positive": float((want > 0).float().mean())}))
     return stem_err, bott_err
+
+
+def stem_fp_kernel_cases(torch, stem_fp):
+    """Holds B4 bit-equal to its plain version on synthetic cases: saturating
+    codes, all-negative biases, a zero input, a large positive conv1_1 bias
+    (a conv1_1 halo pixel outside the image that was not zeroed would show),
+    a size whose pooled tiles are partial, and bs=1. Returns the largest code
+    difference (0)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def randint(low, high, shape):
+        return torch.randint(low, high, shape, generator=gen, device="cuda").to(torch.int8)
+
+    worst = 0
+    for kind, (b, h, w) in (("saturating", (4, 300, 300)), ("negative_bias", (4, 300, 300)),
+                            ("zero_input", (2, 300, 300)), ("large_bias1", (2, 300, 300)),
+                            ("ragged_tile", (3, 44, 60)), ("bs1", (1, 300, 300))):
+        lim = 128 if kind == "saturating" else 10
+        x_q = randint(-lim + 1, lim, (b, h, w, 3))
+        if kind == "zero_input":
+            x_q.zero_()
+        w1, w2 = randint(-lim + 1, lim, (3, 3, 3, 64)), randint(-lim + 1, lim, (3, 3, 64, 64))
+        scale = 0.2 if kind == "saturating" else 1e-2
+        deq1, deq2 = ((torch.rand(64, generator=gen, device="cuda") + 0.5) * scale
+                      for _ in range(2))
+        bias1, bias2 = (torch.randn(64, generator=gen, device="cuda") * 0.1 for _ in range(2))
+        if kind == "negative_bias":
+            bias1, bias2 = -bias1.abs() - 100.0, -bias2.abs() - 100.0
+        elif kind == "large_bias1":
+            bias1 = bias1.abs() + 3.0
+        args = (x_q, w1, deq1, bias1, 0.043, w2, deq2, bias2, 0.021)
+        got = stem_fp.stem_fused_producer(*args)
+        torch.cuda.synchronize()
+        want = stem_fp.stem_fused_producer_reference(*args)
+        worst = max(worst, int((got.int() - want.int()).abs().max()))
+        check(got.shape == (b, h // 2, w // 2, 64) and torch.equal(got, want),
+              f"B4 differs from its plain version ({kind}): {int((got != want).sum())} codes")
+        print(json.dumps({"phase": "stem_fp_kernel_vs_plain", "case": kind, "bit_equal": True,
+                          "shape": list(x_q.shape),
+                          "share_positive": float((want > 0).float().mean()),
+                          "share_at_127": float((want == 127).float().mean())}))
+    return worst
 
 
 def unfused_stem(int8_ops, qp, op, images):

@@ -1,17 +1,21 @@
 """CLI entry points of the port.
 
-    python -m object_detector_tpu_torch train   --preset ssd300_vgg16_voc --checkpoint ckpt/ --metrics train.jsonl
-    python -m object_detector_tpu_torch predict --preset ssd300_vgg16_voc --checkpoint ckpt/ --image dog.jpg --output out.jpg
+    python -m object_detector_tpu_torch train    --preset ssd300_vgg16_voc --data-root /data/VOCdevkit --checkpoint ckpt/
+    python -m object_detector_tpu_torch predict  --preset ssd300_vgg16_voc --checkpoint ckpt/ --image dog.jpg --output out.jpg
+    python -m object_detector_tpu_torch evaluate --preset ssd300_vgg16_voc --checkpoint ckpt/ --data-root /data/VOCdevkit [--int8]
 
-``train`` trains SSD/VGG16 on one device (the synthetic dataset; the VOC and
-COCO readers and ResNet-50 training are not ported yet). ``predict`` serves
-the float model of any SSD preset (``ssd512_resnet50_coco`` too), or with
-``--int8`` the int8 engine (calibrated on 8 random images from a seed), with
-the weights of ``--checkpoint`` (a directory ``train`` wrote; the EMA weights
-if it holds them) or random weights from a seed (smoke mode). Both run on
-the card unless ``--device cpu`` is given. ``evaluate`` is not ported yet: it
-says so and exits with code 2. Config fields are overridable with
-``--set eval.score_threshold=0.05`` (repeatable).
+``train`` trains SSD/VGG16 on one device (ResNet-50 training is not ported
+yet). ``predict`` serves the float model of any SSD preset
+(``ssd512_resnet50_coco`` too), or with ``--int8`` the int8 engine
+(calibrated on 8 random images from a seed), with the weights of
+``--checkpoint`` (a directory ``train`` wrote; the EMA weights if it holds
+them) or random weights from a seed (smoke mode). ``evaluate`` sweeps a
+split (``--split``, default ``data.val_split``) through the float model or,
+with ``--int8``, the int8 engine, and prints the mAP dict of
+``eval.map_style``. ``train`` and ``evaluate`` read ``data.dataset``: VOC,
+COCO or the synthetic set. All three run on the card unless ``--device cpu``
+is given. Config fields are overridable with ``--set
+eval.score_threshold=0.05`` (repeatable).
 """
 
 from __future__ import annotations
@@ -25,9 +29,6 @@ from typing import Any, Dict, List
 import torch
 
 from object_detector_tpu_torch.core.config import DetectorConfig, get_config, list_presets
-
-NOT_PORTED = 2
-
 
 def _parse_overrides(pairs: List[str]) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
@@ -50,17 +51,15 @@ def _load_config(args: argparse.Namespace) -> DetectorConfig:
     return cfg.override(overrides)
 
 
-def _not_ported(what: str) -> int:
-    print(f"{what} is not ported yet", file=sys.stderr)
-    return NOT_PORTED
-
-
 def _load_dataset(cfg: DetectorConfig, split: str):
-    if cfg.data.dataset != "synthetic":
-        raise NotImplementedError(
-            f"the {cfg.data.dataset!r} reader is not ported yet (split {split!r}); "
-            "use --set data.dataset=synthetic"
-        )
+    if cfg.data.dataset == "voc":
+        from object_detector_tpu_torch.data.voc import load_voc
+
+        return load_voc(cfg.data.root, split)
+    if cfg.data.dataset == "coco":
+        from object_detector_tpu_torch.data.coco import load_coco
+
+        return load_coco(cfg.data.root, split)
     from object_detector_tpu_torch.data.synthetic import make_synthetic_dataset
 
     return make_synthetic_dataset(image_size=cfg.model.image_size)
@@ -129,6 +128,17 @@ def cmd_predict(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_evaluate(args: argparse.Namespace) -> int:
+    cfg = _load_config(args)
+    from object_detector_tpu_torch.eval.evaluator import evaluate_dataset
+
+    dataset = _load_dataset(cfg, args.split or cfg.data.val_split)
+    params = _restore_variables(cfg, args.checkpoint)
+    result = evaluate_dataset(cfg, params, dataset, int8=args.int8, device=args.device)
+    print(json.dumps(result))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="object_detector_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -157,17 +167,17 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--int8", action="store_true", help="serve the int8 PTQ engine")
     sp.set_defaults(fn=cmd_predict)
 
-    sp = sub.add_parser("evaluate", help="not ported yet")
-    sp.set_defaults(fn=lambda a: _not_ported("the evaluate command"))
+    sp = sub.add_parser("evaluate", help="compute mAP on a val split")
+    common(sp)
+    sp.add_argument("--checkpoint", required=True, help="a directory `train` wrote")
+    sp.add_argument("--split", default=None)
+    sp.add_argument("--int8", action="store_true", help="serve through the int8 PTQ engine")
+    sp.set_defaults(fn=cmd_evaluate)
     return p
 
 
 def main(argv=None) -> int:
-    parser = build_parser()
-    # The unported command takes whatever flags the reference's does.
-    args, unknown = parser.parse_known_args(argv)
-    if unknown and args.command != "evaluate":
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -1,20 +1,24 @@
-"""Batched inference: uint8 images -> detections.
+"""Batched inference: uint8 images -> detections, and the sweep -> mAP.
 
 The port of ``object_detector_tpu/eval/evaluator.py``: ``make_predict_fn``
-(:19, the float serving path) and ``make_int8_predict_fn`` (:33, the int8
-PTQ serving path, SSD family: VGG16 and ResNet-50). The mAP sweep is not
-ported yet.
+(:19, the float serving path), ``make_int8_predict_fn`` (:33, the int8 PTQ
+serving path, SSD family: VGG16 and ResNet-50) and ``evaluate_dataset``
+(:79, the val sweep into `MeanAPEvaluator`).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
+from object_detector_tpu_torch.anchors.priors import anchors_for_model
 from object_detector_tpu_torch.core.config import DetectorConfig
 from object_detector_tpu_torch.core.device import resolve_device
+from object_detector_tpu_torch.data.pipeline import DecodedCache
+from object_detector_tpu_torch.data.types import Dataset
+from object_detector_tpu_torch.eval.map import MeanAPEvaluator
 from object_detector_tpu_torch.ops.augment import normalize
 from object_detector_tpu_torch.ops.nms import Detections
 from object_detector_tpu_torch.ops.postprocess import postprocess
@@ -93,3 +97,72 @@ def make_int8_predict_fn(
 
     predict.qp, predict.spec = qp, spec
     return predict
+
+
+def evaluate_dataset(
+    cfg: DetectorConfig,
+    params: Mapping[str, torch.Tensor],
+    dataset: Dataset,
+    cache: Optional[DecodedCache] = None,
+    use_pallas: Optional[bool] = None,
+    int8: bool = False,
+    device: str | torch.device = "cuda",
+) -> Dict[str, float]:
+    """Run the val sweep on ``device`` and return the mAP dict for
+    ``cfg.eval.map_style``. ``params`` is the model's state_dict; with
+    ``int8`` the engine is calibrated on the first ``min(len(cache),
+    eval.batch_size)`` cached images."""
+    from object_detector_tpu_torch.models.ssd import SSDModel
+
+    dev = resolve_device(device)
+    if cache is None:
+        cache = DecodedCache(
+            dataset, cfg.model.image_size, cfg.data.max_boxes, cfg.data.num_workers,
+            max_ram_bytes=int(cfg.data.max_cache_ram_gb * 2**30),
+            spill_dir=cfg.data.cache_spill_dir or None,
+        )
+    anchors = anchors_for_model(cfg.model.family, cfg.anchors, cfg.model.image_size)
+    if int8:
+        n_calib = min(len(cache), cfg.eval.batch_size)
+        predict = make_int8_predict_fn(cfg, params, anchors, cache.images[:n_calib], use_pallas,
+                                       device=dev)
+    else:
+        model = SSDModel(cfg)
+        model.load_state_dict(params)
+        predict = make_predict_fn(cfg, model, anchors, use_pallas, device=dev)
+    evaluator = MeanAPEvaluator(dataset.num_classes, cfg.eval.map_style)
+
+    bs = cfg.eval.batch_size
+    n = len(dataset)
+    # Static batch shape: the final partial batch OVERLAPS the previous one
+    # (start = n - bs) instead of padding with repeats, so every row is a
+    # real image; rows already evaluated are skipped on the host.
+    starts = list(range(0, n, bs))
+    if n >= bs and starts and starts[-1] + bs > n:
+        starts[-1] = n - bs
+    done = 0
+    for start in starts:
+        idx = np.arange(start, min(start + bs, n))
+        pad = bs - len(idx)  # only when the whole dataset is < one batch
+        padded_idx = np.concatenate([idx, np.zeros(pad, np.int64)]) if pad else idx
+        batch = cache.gather(padded_idx)
+        det = predict(batch["image"])
+        boxes, scores, classes, valid = (t.cpu().numpy() for t in det)
+        for row, record_i in enumerate(idx):
+            if record_i < done:
+                continue  # overlap row already evaluated
+            rec = dataset.records[record_i]
+            keep = valid[row]
+            evaluator.add_image(
+                rec.image_id,
+                boxes[row][keep],
+                scores[row][keep],
+                classes[row][keep],
+                rec.boxes,
+                rec.labels,
+                rec.difficult,
+                gt_crowd=rec.crowd_mask,
+                image_size=(rec.width, rec.height),
+            )
+        done = int(idx[-1]) + 1
+    return evaluator.result()

@@ -1,0 +1,139 @@
+"""All of VGG block 1 in int8: conv1_1 + requant + conv1_2 + requant + 2x2/s2
+max pool, from the input codes to the pooled codes, as one hand-written CUDA
+kernel (``csrc/stem_fp.cu``).
+
+The port of ``object_detector_tpu/kernels/stem_pallas.py``'s
+``_stem_fp_kernel`` (launched by ``stem_fused_producer``). The TPU kernel
+reads a 128-lane tap stack of the input (``build_stem_x6``), odd-pair-packed
+weights, a column-halo mask and a batch-in-sublanes layout; those serve the
+TPU's tiles and are not ported. The contract is the function, on NHWC codes,
+with ``rq(v, s) = clip(round_half_even(v / s), -127, 127)`` and ``/`` a true
+division:
+
+    stem_fused_producer(x_q, w1, deq1, bias1, s1, w2, deq2, bias2, s2)
+      x_q   (B, H, W, 3) int8 input codes, H and W even
+      w1    (3, 3, 3, 64) int8 HWIO conv1_1 kernel
+      deq1  (64,) float32, float32(input scale) * conv1_1's weight scale
+      w2    (3, 3, 64, 64) int8 HWIO conv1_2 kernel
+      deq2  (64,) float32, float32(s1) * conv1_2's weight scale
+      bias1, bias2  (64,) float32; s1, s2 the two activation scales
+    -> (B, H/2, W/2, 64) int8:
+      q1  = rq(max(conv3x3_same(x_q, w1).f32 * deq1 + bias1, 0), s1)
+      out = maxpool2x2(rq(max(conv3x3_same(q1, w2).f32 * deq2 + bias2, 0), s2))
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from object_detector_tpu_torch.kernels import build
+from object_detector_tpu_torch.kernels.stem import stem_conv12_pool_reference
+from object_detector_tpu_torch.ops import int8 as int8_ops
+
+Tensor = torch.Tensor
+
+CHANNELS = 64
+
+
+def stem_fused_producer_reference(
+    x_q: Tensor, w1: Tensor, deq1: Tensor, bias1: Tensor, s1: float,
+    w2: Tensor, deq2: Tensor, bias2: Tensor, s2: float,
+    packed: Optional[Tuple[Tensor, Tensor]] = None,
+) -> Tensor:
+    """Plain PyTorch version, the engine's unfused route on either device:
+    conv1_1 through the int8 conv and the requant epilogue, then
+    `stem_conv12_pool_reference`. ``packed`` is the wrapper's argument,
+    unused here."""
+    del packed
+    acc = int8_ops.conv_int8(x_q, w1, 1, "SAME", 1)
+    q1 = int8_ops.requant_epilogue(acc, deq1, bias1, int8_ops.scale_tensor(float(s1), x_q.device))
+    return stem_conv12_pool_reference(q1, w2, deq2, bias2, s2)
+
+
+def pack_weights(w1: Tensor, w2: Tensor) -> Tuple[Tensor, Tensor]:
+    """The kernel's __dp4a operands: w1 (3, 3, 3, 64) -> (9, 4, 16) int32
+    words, word [tap][j][cg] holding input channels 0..2 of output channel
+    4 * cg + j and a zero byte; w2 (3, 3, 64, 64) -> (9, 16, 64) words,
+    word [tap][cin / 4][cout] holding 4 consecutive input channels."""
+    w1p = torch.nn.functional.pad(w1.reshape(9, 3, CHANNELS), (0, 0, 0, 1))  # (tap, 4 cin, cout)
+    w1_words = (w1p.permute(0, 2, 1).reshape(9, CHANNELS // 4, 4, 4).permute(0, 2, 1, 3)
+                .contiguous().view(torch.int32).reshape(9, 4, CHANNELS // 4))
+    w2_words = (w2.reshape(9, CHANNELS // 4, 4, CHANNELS).permute(0, 1, 3, 2)
+                .contiguous().view(torch.int32).reshape(9, CHANNELS // 4, CHANNELS))
+    return w1_words, w2_words
+
+
+def _check(x_q: Tensor, w1: Tensor, deq1: Tensor, bias1: Tensor,
+           w2: Tensor, deq2: Tensor, bias2: Tensor) -> None:
+    if x_q.dim() != 4 or x_q.shape[-1] != 3 or x_q.shape[1] % 2 or x_q.shape[2] % 2:
+        raise ValueError(f"x_q must be (B, H, W, 3) with H, W even, got {tuple(x_q.shape)}")
+    if tuple(w1.shape) != (3, 3, 3, CHANNELS):
+        raise ValueError(f"w1 must be (3, 3, 3, {CHANNELS}), got {tuple(w1.shape)}")
+    if tuple(w2.shape) != (3, 3, CHANNELS, CHANNELS):
+        raise ValueError(f"w2 must be (3, 3, {CHANNELS}, {CHANNELS}), got {tuple(w2.shape)}")
+    vectors = (deq1, bias1, deq2, bias2)
+    if any(tuple(v.shape) != (CHANNELS,) for v in vectors):
+        raise ValueError(f"deq1, bias1, deq2 and bias2 must be ({CHANNELS},), got "
+                         f"{[tuple(v.shape) for v in vectors]}")
+    if x_q.dtype != torch.int8 or w1.dtype != torch.int8 or w2.dtype != torch.int8:
+        raise TypeError(f"x_q, w1 and w2 must be int8, got {x_q.dtype}, {w1.dtype}, {w2.dtype}")
+    if any(v.dtype != torch.float32 for v in vectors):
+        raise TypeError(f"deq1, bias1, deq2 and bias2 must be float32, got "
+                        f"{[v.dtype for v in vectors]}")
+    for t in (w1, w2, *vectors):
+        if t.device != x_q.device:
+            raise ValueError(f"all operands must be on {x_q.device}, got one on {t.device}")
+
+
+def stem_fused_producer(
+    x_q: Tensor, w1: Tensor, deq1: Tensor, bias1: Tensor, s1: float,
+    w2: Tensor, deq2: Tensor, bias2: Tensor, s2: float,
+    packed: Optional[Tuple[Tensor, Tensor]] = None,
+) -> Tensor:
+    """Launches the CUDA kernel for CUDA tensors and runs
+    `stem_fused_producer_reference` for CPU tensors. ``packed`` is
+    ``pack_weights(w1, w2)`` where the caller keeps it (it is made here
+    otherwise). ``stem_fused_producer.launches`` counts kernel launches."""
+    _check(x_q, w1, deq1, bias1, w2, deq2, bias2)
+    if x_q.device.type == "cpu":
+        return stem_fused_producer_reference(x_q, w1, deq1, bias1, s1, w2, deq2, bias2, s2)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"stem_fused_producer runs on cuda or cpu tensors, got {x_q.device}")
+    if not all(t.is_contiguous() for t in (x_q, deq1, bias1, deq2, bias2)):
+        raise ValueError("stem_fused_producer takes contiguous x_q, deq1, bias1, deq2 and bias2")
+    w1_words, w2_words = pack_weights(w1, w2) if packed is None else packed
+    b, h, w, _ = x_q.shape
+    out = torch.empty((b, h // 2, w // 2, CHANNELS), dtype=torch.int8, device=x_q.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x_q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().stem_fused_producer(
+            x_q.data_ptr(), w1_words.data_ptr(), w2_words.data_ptr(), deq1.data_ptr(),
+            bias1.data_ptr(), float(s1), deq2.data_ptr(), bias2.data_ptr(), float(s2),
+            b, h, w, out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"stem_fused_producer kernel launch failed with CUDA error {err}")
+    stem_fused_producer.launches += 1
+    return out
+
+
+stem_fused_producer.launches = 0
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("stem_fp")
+    fn = lib.stem_fused_producer
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return lib

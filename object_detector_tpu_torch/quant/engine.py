@@ -9,8 +9,10 @@ by two interpreters that share it:
     for calibration;
   - `run_int8`: int8 convs with int32 accumulation, then
     ``acc * deq + bias -> ReLU -> requant`` per conv; max pools on the
-    codes. Block 1 (`FusedStemOp`) is conv1_1 through the generic int8 conv,
-    then the fused conv1_2 + pool of `kernels.stem`. The ResNet trunk
+    codes. Block 1 (`FusedStemOp`) is one kernel from the input codes to
+    the pooled codes (`kernels.stem_fp`); with ``ODT_STEM_FP=0`` it is
+    conv1_1 through the generic int8 conv, then the fused conv1_2 + pool of
+    `kernels.stem`. The ResNet trunk
     (BatchNorm folded into the convs by `fold_resnet50`) starts with
     `StemPoolPallasOp`, the fused stem of `kernels.resnet_stem`, and runs
     every stride-1 block without a projection as `BottleneckOp`, the fused
@@ -25,9 +27,10 @@ Parameters are the port's state_dict (``backbone.conv1_1.weight``, OIHW);
 op paths keep the reference's ``/``-joined names. Tensors are NHWC at every
 public function, as in the reference. The requant follows the reference's
 op-by-op form: multiply, add, divide by the scale, round half to even.
-The reference's TPU layout devices (packed conv+pool, image-pair packing,
-the space-to-depth stem) are accepted where they are options and computed
-in the direct form; RetinaNet's int8 path is not ported yet.
+Two of the reference's TPU layout devices, image-pair packing and the
+space-to-depth stem, are accepted as options and computed in the direct
+form. Its packed conv+pool (``PackedConvPoolOp``) is not ported: a spec that
+holds one raises. RetinaNet's int8 path is not ported yet.
 """
 
 from __future__ import annotations
@@ -44,10 +47,12 @@ import torch.nn.functional as F
 from object_detector_tpu_torch.core.config import DetectorConfig
 from object_detector_tpu_torch.kernels import bottleneck as bottleneck_kernel
 from object_detector_tpu_torch.kernels import resnet_stem as resnet_stem_kernel
+from object_detector_tpu_torch.kernels import stem_fp as stem_fp_kernel
 from object_detector_tpu_torch.kernels.bottleneck import fused_bottleneck
 from object_detector_tpu_torch.kernels.l2norm import l2norm_requant
 from object_detector_tpu_torch.kernels.resnet_stem import resnet_stem
 from object_detector_tpu_torch.kernels.stem import stem_conv12_pool
+from object_detector_tpu_torch.kernels.stem_fp import stem_fused_producer
 from object_detector_tpu_torch.ops import int8 as int8_ops
 
 Tensor = torch.Tensor
@@ -70,9 +75,10 @@ class ConvOp:
 @dataclasses.dataclass(frozen=True)
 class FusedStemOp:
     """VGG block 1: conv1_1, then conv1_2 + ReLU + requant + 2x2/s2 max pool
-    as one kernel (`kernels.stem.stem_conv12_pool`). Exact against the
-    unfused chain: the same int32 sums and float32 epilogue, and the pool
-    commutes with the monotone requant."""
+    as one kernel (`kernels.stem.stem_conv12_pool`); or, where `stem_fp_on`
+    says so, all of it as one kernel (`kernels.stem_fp.stem_fused_producer`).
+    Both are exact against the unfused chain: the same int32 sums and
+    float32 epilogues, and the pool commutes with the monotone requant."""
 
     path1: str = "backbone/conv1_1"
     path2: str = "backbone/conv1_2"
@@ -152,6 +158,17 @@ def _env_tristate(name: str, auto: bool) -> bool:
     if val == "0":
         return False
     raise ValueError(f"{name}={val!r}: expected unset, 'auto', '0', or '1'")
+
+
+def stem_fp_on() -> bool:
+    """Whether `FusedStemOp` runs as the one-kernel block 1
+    (`kernels.stem_fp`): ``ODT_STEM_FP``, read at each `run_int8` call as
+    the reference reads it; unset or "auto" is on, "1" on, "0" off (conv1_1
+    through the int8 conv, then `kernels.stem`). The reference leaves it off;
+    on an NVIDIA H100 80GB HBM3 at 700 W the one kernel took 5.41 ms where
+    the other route took 12.66 ms, at SSD-300 bs=64 (PERF.md). Both routes
+    give the same codes."""
+    return _env_tristate("ODT_STEM_FP", auto=True)
 
 
 def _extras_spec(cfg: DetectorConfig, n_taps_so_far: int) -> Spec:
@@ -565,17 +582,19 @@ def run_int8(
     stem_fn: KernelFn = stem_conv12_pool,
     resnet_stem_fn: KernelFn = resnet_stem,
     bottleneck_fn: KernelFn = fused_bottleneck,
+    stem_fp_fn: KernelFn = stem_fused_producer,
 ) -> List[Any]:
     """Int8 trunk forward.
 
     dequantize_taps=True  -> list of bf16 float taps (for float heads)
     dequantize_taps=False -> list of (int8 tap, scale) (for int8 heads)
 
-    ``stem_fn`` is VGG block 1's conv1_2 + pool, ``resnet_stem_fn`` the fused
-    ResNet stem and ``bottleneck_fn`` the fused bottleneck: each the kernel
-    wrapper unless a caller swaps in its plain version
-    (`stem_conv12_pool_reference`, `resnet_stem_reference`,
-    `fused_bottleneck_reference`)."""
+    ``stem_fn`` is VGG block 1's conv1_2 + pool, ``stem_fp_fn`` all of VGG
+    block 1 (run instead of conv1_1 and ``stem_fn`` where `stem_fp_on`),
+    ``resnet_stem_fn`` the fused ResNet stem and ``bottleneck_fn`` the fused
+    bottleneck: each the kernel wrapper unless a caller swaps in its plain
+    version (`stem_conv12_pool_reference`, `stem_fused_producer_reference`,
+    `resnet_stem_reference`, `fused_bottleneck_reference`)."""
     dev = images.device
     cur_scale = qp.act_scale["__input__"]
     if spec and isinstance(spec[0], StemPoolPallasOp):
@@ -622,9 +641,17 @@ def run_int8(
             )
             cur_scale = s3
         elif isinstance(op, FusedStemOp):
-            x = conv(x, ConvOp(op.path1), cur_scale)
             s1, s2 = qp.act_scale[op.path1], qp.act_scale[op.path2]
-            x = stem_fn(x, qp.w_int8[op.path2], qp.deq(op.path2, s1, dev), qp.bias[op.path2], s2)
+            if stem_fp_on():
+                packed = qp.derived(("stem_fp", op.path1), lambda: stem_fp_kernel.pack_weights(
+                    qp.w_int8[op.path1], qp.w_int8[op.path2]))
+                x = stem_fp_fn(x, qp.w_int8[op.path1], qp.deq(op.path1, cur_scale, dev),
+                               qp.bias[op.path1], s1, qp.w_int8[op.path2],
+                               qp.deq(op.path2, s1, dev), qp.bias[op.path2], s2, packed=packed)
+            else:
+                x = conv(x, ConvOp(op.path1), cur_scale)
+                x = stem_fn(x, qp.w_int8[op.path2], qp.deq(op.path2, s1, dev), qp.bias[op.path2],
+                            s2)
             cur_scale = s2
         elif isinstance(op, SaveOp):
             regs[op.name] = (x, cur_scale)
@@ -730,13 +757,15 @@ def int8_forward(
     l2norm_fn: KernelFn = l2norm_requant,
     resnet_stem_fn: KernelFn = resnet_stem,
     bottleneck_fn: KernelFn = fused_bottleneck,
+    stem_fp_fn: KernelFn = stem_fused_producer,
 ) -> Tuple[Tensor, Tensor]:
     """Normalized float images (B, S, S, 3) -> (cls_logits, box_offsets),
-    int8 trunk. The four kernel functions as in `run_int8` and
+    int8 trunk. The five kernel functions as in `run_int8` and
     `apply_heads_int8`."""
     if not concat_heads:
         raise NotImplementedError("per-level head outputs (concat_heads=False) are not ported yet")
-    fns = dict(stem_fn=stem_fn, resnet_stem_fn=resnet_stem_fn, bottleneck_fn=bottleneck_fn)
+    fns = dict(stem_fn=stem_fn, resnet_stem_fn=resnet_stem_fn, bottleneck_fn=bottleneck_fn,
+               stem_fp_fn=stem_fp_fn)
     if int8_heads:
         taps_q = run_int8(qp, spec, images, dequantize_taps=False, **fns)
         logits_dtype = torch.bfloat16 if cfg.eval.int8_logits_bf16 else torch.float32

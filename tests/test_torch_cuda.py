@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from object_detector_tpu_torch.kernels import bottleneck, l2norm, pool_bwd, resnet_stem, stem
+from object_detector_tpu_torch.kernels import (
+    bottleneck, l2norm, pool_bwd, resnet_stem, stem, stem_fp,
+)
 from object_detector_tpu_torch.kernels import nms as nms_kernel
 from object_detector_tpu_torch.ops import int8 as int8_ops
 from object_detector_tpu_torch.ops.pooling import max_pool_2x2_fastgrad
@@ -89,6 +91,62 @@ def test_stem_kernel_bit_equal_to_plain_version(cuda_device, kind):
     assert stem.stem_conv12_pool.launches == before + 1
     want = stem.stem_conv12_pool_reference(*args, 0.021)
     assert got.shape == (3, h // 2, w // 2, 64) and torch.equal(got, want)
+
+
+def _stem_fp_case(kind, device, seed=12):
+    """x_q, w1, deq1, bias1, s1, w2, deq2, bias2, s2 for all of VGG block 1
+    on ``device``. "large_bias1": rq(relu(bias1)) well above 0, so a conv1_1
+    halo pixel outside the image that was not zeroed would show;
+    "ragged_tile": a pooled size (11 x 18) that is not a multiple of the
+    kernel's 8 x 8 tile; "full_width": one SSD-300 image."""
+    b, h, w = {"ragged_tile": (3, 22, 36), "full_width": (1, 300, 300),
+               "bs1": (1, 32, 32)}.get(kind, (2, 32, 32))
+    rng = np.random.default_rng(seed)
+    lim = 128 if kind == "saturating" else 10
+    x_q = rng.integers(-lim + 1, lim, (b, h, w, 3), dtype=np.int8)
+    if kind == "zero_input":
+        x_q[:] = 0
+    w1 = rng.integers(-lim + 1, lim, (3, 3, 3, 64)).astype(np.int8)
+    w2 = rng.integers(-lim + 1, lim, (3, 3, 64, 64)).astype(np.int8)
+    deq1 = ((rng.random(64) + 0.5) * (0.2 if kind == "saturating" else 1e-2)).astype(np.float32)
+    deq2 = ((rng.random(64) + 0.5) * (0.2 if kind == "saturating" else 1e-2)).astype(np.float32)
+    bias1 = (rng.normal(size=64) * 0.1).astype(np.float32)
+    bias2 = (rng.normal(size=64) * 0.1).astype(np.float32)
+    if kind == "negative_bias":
+        bias1, bias2 = -np.abs(bias1) - 100.0, -np.abs(bias2) - 100.0
+    elif kind == "large_bias1":
+        bias1 = np.abs(bias1) + 3.0
+    t = [torch.from_numpy(a).to(device) for a in (x_q, w1, deq1, bias1, w2, deq2, bias2)]
+    return t[0], t[1], t[2], t[3], 0.043, t[4], t[5], t[6], 0.021
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "saturating", "negative_bias", "zero_input",
+                                  "large_bias1", "ragged_tile", "bs1", "full_width"])
+def test_stem_fp_kernel_bit_equal_to_plain_version(cuda_device, kind):
+    """All of VGG block 1 in one kernel against its plain version."""
+    args = _stem_fp_case(kind, cuda_device)
+    before = stem_fp.stem_fused_producer.launches
+    got = stem_fp.stem_fused_producer(*args)
+    torch.cuda.synchronize()
+    assert stem_fp.stem_fused_producer.launches == before + 1
+    want = stem_fp.stem_fused_producer_reference(*args)
+    b, h, w, _ = args[0].shape
+    assert got.shape == (b, h // 2, w // 2, 64) and got.dtype == torch.int8
+    assert torch.equal(got, want), int((got != want).sum())
+    packed = stem_fp.pack_weights(args[1], args[5])
+    assert torch.equal(stem_fp.stem_fused_producer(*args, packed=packed), want)
+    if kind in ("negative_bias", "zero_input"):
+        assert kind == "zero_input" or not want.any()
+    else:
+        assert 0.05 < float((want > 0).float().mean())
+
+
+@pytest.mark.cuda
+def test_stem_fp_wrapper_rejects_a_strided_input(cuda_device):
+    args = _stem_fp_case("random", cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        stem_fp.stem_fused_producer(args[0].transpose(1, 2), *args[1:])
 
 
 @pytest.mark.cuda

@@ -129,3 +129,29 @@ def test_init_params_is_seeded_and_follows_the_reference_scheme():
     std = (1.0 / w[0].numel()) ** 0.5
     assert abs(w.std().item() / std - 1.0) < 0.05
     assert w.abs().max().item() <= 2.0 * std / 0.87962566103423978 + 1e-6
+
+
+@pytest.mark.parametrize("pack_block1", [False, True])
+@pytest.mark.parametrize("remat_block1", [False, True])
+def test_pack_and_remat_block1_are_accepted_and_change_nothing(pack_block1, remat_block1):
+    """The reference's image-pair packing of block 1 (models/vgg.py:119) and
+    its rematerialisation (:141-142) are accepted and ignored by the port
+    (models/vgg.py): every combination gives the same forward and the same
+    gradients on tiny_test, bit for bit."""
+    base_cfg = config.get_config("tiny_test")
+    params = init_params(ssd.SSDModel(base_cfg), seed=6).state_dict()
+    x = torch.from_numpy(np.random.default_rng(7).normal(0, 1, (2, 64, 64, 3)).astype(np.float32))
+
+    def run(pack, remat):
+        cfg = base_cfg.override({"model.pack_block1": pack, "model.remat_block1": remat})
+        model = ssd.SSDModel(cfg)
+        model.load_state_dict(params)
+        cls, box = model(x)
+        loss = cls.square().mean() + box.abs().mean()
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return [cls.detach(), box.detach()], grads
+
+    want_out, want_grads = run(False, False)
+    got_out, got_grads = run(pack_block1, remat_block1)
+    for g, w in zip(got_out + list(got_grads), want_out + list(want_grads)):
+        assert torch.equal(g, w)

@@ -101,13 +101,24 @@ def test_cli_predict_runs_on_cpu(tmp_path):
     "argv",
     [
         ["evaluate", "--preset", "tiny_test", "--int8"],
-        ["evaluate", "--preset", "tiny_test", "--checkpoint", "ck", "--split", "val"],
-        ["evaluate", "--preset", "tiny_test", "--checkpoint", "ck"],
-        ["evaluate"],
+        ["evaluate", "--preset", "tiny_test", "--checkpoint", "ck", "--no-such-flag"],
+        ["evaluate", "--preset", "tiny_test", "--device", "cpu", "--checkpoint", "{empty}"],
+        ["evaluate", "--preset", "no_such_preset", "--checkpoint", "ck"],
     ],
 )
-def test_cli_unported_paths_exit_nonzero(argv, capsys):
+def test_cli_unported_paths_exit_nonzero(argv, capsys, tmp_path):
+    """The evaluate command's refusals: no --checkpoint, an unknown flag and
+    an unknown preset are argparse errors (exit 2); a directory that holds
+    no checkpoint says so."""
     from object_detector_tpu_torch.cli.main import main
 
-    assert main(argv) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    argv = [a.replace("{empty}", str(tmp_path)) for a in argv]
+    with pytest.raises(SystemExit) as exc:
+        main(argv)
+    err = capsys.readouterr().err
+    if str(tmp_path) in argv:
+        assert str(exc.value) == f"no checkpoint found in {tmp_path}"
+    else:
+        assert exc.value.code == 2
+        assert ("required: --checkpoint" in err or "unrecognized arguments: --no-such-flag" in err
+                or "invalid choice: 'no_such_preset'" in err), err

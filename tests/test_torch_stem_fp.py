@@ -1,0 +1,230 @@
+"""All of VGG block 1 in one kernel (`kernels.stem_fp`): its plain version
+against the Pallas `stem_fused_producer` in interpret mode and against the
+reference's unfused int8 chain, the kernel's weight layout, and the
+engine's ``ODT_STEM_FP`` route on `tiny_test` against the reference. Every
+comparison is of int8 codes, bit for bit."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from object_detector_tpu.core import config as ref_config
+from object_detector_tpu.kernels import stem_pallas
+from object_detector_tpu.models.ssd import SSDModel as RefSSDModel
+from object_detector_tpu.quant import engine as ref_engine
+from object_detector_tpu_torch.convert import flatten_tree, params_from_jax, quant_params_from_jax
+from object_detector_tpu_torch.core import config
+from object_detector_tpu_torch.kernels import stem_fp
+from object_detector_tpu_torch.ops import int8 as int8_ops
+from object_detector_tpu_torch.quant import engine
+
+torch.set_num_threads(2)
+
+
+def _ref_conv(x, w):
+    dn = jax.lax.conv_dimension_numbers(x.shape, w.shape, ("NHWC", "HWIO", "NHWC"))
+    return jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(w), (1, 1), "SAME", dimension_numbers=dn,
+        preferred_element_type=jnp.int32,
+    )
+
+
+def _ref_requant(acc, deq, b, s):
+    y = jnp.maximum(acc.astype(jnp.float32) * deq + b, 0.0)
+    return jnp.clip(jnp.round(y / s), -127, 127).astype(jnp.int8)
+
+
+def _ref_block1(x_q, w1, deq1, b1, s1, w2, deq2, b2, s2):
+    """The reference's unfused int8 block 1 (tests/test_quant.py:463-480)."""
+    q1 = _ref_requant(_ref_conv(x_q, w1), deq1, b1, s1)
+    q2 = _ref_requant(_ref_conv(q1, w2), deq2, b2, s2)
+    return np.asarray(jax.lax.reduce_window(
+        q2, jnp.int8(-128), jax.lax.max, (1, 2, 2, 1), (1, 2, 2, 1), "VALID"))
+
+
+def _case(kind, seed=7):
+    """(x_q, w1, deq1, b1, s1, w2, deq2, b2, s2) as numpy arrays and floats."""
+    rng = np.random.default_rng(seed)
+    b, h, w = {"ragged": (2, 12, 28), "bs1": (1, 20, 20)}.get(kind, (2, 20, 20))
+    lim = 128 if kind == "saturating" else 10
+    x_q = rng.integers(-lim + 1, lim, (b, h, w, 3), dtype=np.int8)
+    w1 = rng.integers(-lim + 1, lim, (3, 3, 3, 64)).astype(np.int8)
+    w2 = rng.integers(-lim + 1, lim, (3, 3, 64, 64)).astype(np.int8)
+    deq1 = ((rng.random(64) + 0.5) * 1e-2).astype(np.float32)
+    b1 = (rng.normal(size=64) * 0.1).astype(np.float32)
+    deq2 = ((rng.random(64) + 0.5) * 1e-2).astype(np.float32)
+    b2 = (rng.normal(size=64) * 0.1).astype(np.float32)
+    s1, s2 = 0.043, 0.021
+    if kind == "saturating":  # large sums: most codes of both convs clip at +127
+        deq1 *= 20.0
+        deq2 *= 20.0
+    elif kind == "negative_bias":  # both convs' outputs all below zero
+        b1 = -np.abs(b1) - 100.0
+        b2 = -np.abs(b2) - 100.0
+    elif kind == "large_bias1":  # rq(relu(b1)) well above 0: an unzeroed halo would show
+        b1 = np.abs(b1) + 3.0
+    elif kind == "zero_input":
+        x_q[:] = 0
+    return x_q, w1, deq1, b1, s1, w2, deq2, b2, s2
+
+
+def _torch_args(args):
+    return [torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args]
+
+
+@pytest.mark.parametrize("band_rows", [20, 10])
+def test_reference_bit_equal_to_pallas_interpret(band_rows):
+    """The TPU kernel in interpret mode, fed as tests/test_quant.py:482-508
+    feeds it: pre-paired input codes, flat odd-pair conv1_1 weights, packed
+    conv1_2 weights and every vector tiled twice."""
+    x_q, w1, deq1, b1, s1, w2, deq2, b2, s2 = _case("random")
+    b, h, w, _ = x_q.shape
+    want = np.asarray(stem_pallas.stem_fused_producer(
+        jnp.asarray(x_q).reshape(b, h, w // 2, 6),
+        jnp.asarray(stem_pallas.pack_conv11_flat(stem_pallas.pack_conv11_pair(w1))),
+        jnp.asarray(np.tile(deq1, 2)), jnp.asarray(np.tile(b1, 2)), jnp.float32(s1),
+        jnp.asarray(stem_pallas.pack_conv12_pair(w2)),
+        jnp.asarray(np.tile(deq2, 2)), jnp.asarray(np.tile(b2, 2)), jnp.float32(s2),
+        out_width=w // 2, interpret=True, band_rows=band_rows,
+    ))
+    got = stem_fp.stem_fused_producer_reference(*_torch_args(_case("random"))).numpy()
+    assert got.shape == (b, h // 2, w // 2, 64) and got.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["random", "large_bias1", "saturating", "negative_bias",
+                                  "zero_input", "ragged", "bs1"])
+def test_reference_bit_equal_to_unfused_chain(kind):
+    """Against the reference's unfused chain; "ragged" is (12, 28), whose
+    pooled 6 x 14 leaves the kernel's 8 x 8 tiles partial."""
+    args = _case(kind)
+    want = _ref_block1(*args)
+    got = stem_fp.stem_fused_producer_reference(*_torch_args(args)).numpy()
+    np.testing.assert_array_equal(got, want)
+    if kind == "saturating":
+        assert (got == 127).mean() > 0.5
+    if kind in ("negative_bias",):
+        assert not got.any()
+    if kind == "large_bias1":
+        # conv1_1 computed over the one-pixel halo and not zeroed there (the
+        # trap a halo'd tile sets) gives other codes on this case.
+        x_q, w1, deq1, b1, s1, w2, deq2, b2, s2 = _torch_args(args)
+        padded = torch.nn.functional.pad(x_q, (0, 0, 1, 1, 1, 1))
+        halo = int8_ops.requant_epilogue(int8_ops.conv_int8(padded, w1), deq1, b1,
+                                         int8_ops.scale_tensor(s1, x_q.device))
+        unzeroed = int8_ops.max_pool(int8_ops.requant_epilogue(
+            int8_ops.conv_int8(halo, w2, padding="VALID"), deq2, b2,
+            int8_ops.scale_tensor(s2, x_q.device)), 2, 2)
+        assert (unzeroed.numpy() != got).any()
+    # On CPU tensors the wrapper is the plain version and launches nothing.
+    before = stem_fp.stem_fused_producer.launches
+    np.testing.assert_array_equal(stem_fp.stem_fused_producer(*_torch_args(args)).numpy(), want)
+    assert stem_fp.stem_fused_producer.launches == before
+
+
+def _bytes(words):
+    """int32 words -> their four int8 bytes on a new last axis."""
+    return words.contiguous().view(torch.int8).reshape(*words.shape, 4).to(torch.int64)
+
+
+def test_pack_weights_is_the_kernels_dp4a_layout():
+    """Both convs rebuilt from the packed words the way csrc/stem_fp.cu reads
+    them (conv1_1: input word of a pixel times word [tap][j][cg] for output
+    channel 4 * cg + j; conv1_2: word [tap][cin / 4][cout]) equal the int8
+    convs they stand for."""
+    x_q, w1, _, _, _, w2, _, _, _ = _torch_args(_case("saturating"))
+    w1_words, w2_words = stem_fp.pack_weights(w1, w2)
+    assert tuple(w1_words.shape) == (9, 4, 16) and tuple(w2_words.shape) == (9, 16, 64)
+    assert w1_words.dtype == w2_words.dtype == torch.int32
+    w1b, w2b = _bytes(w1_words), _bytes(w2_words)  # (9, 4, 16, 4), (9, 16, 64, 4)
+    assert not w1b[..., 3].any()  # the zero fourth byte of each 3-channel word
+    b, h, w, _ = x_q.shape
+    xp = torch.nn.functional.pad(x_q.to(torch.int64), (0, 1, 1, 1, 1, 1))  # (B, H+2, W+2, 4)
+    acc1 = torch.zeros((b, h, w, 64), dtype=torch.int64)
+    for t in range(9):
+        win = xp[:, t // 3: t // 3 + h, t % 3: t % 3 + w]  # (B, H, W, 4)
+        # weight bytes of output channel 4 * cg + j, ordered by channel
+        wt = w1b[t].permute(1, 0, 2).reshape(64, 4)
+        acc1 += torch.einsum("bhwk,ck->bhwc", win, wt)
+    np.testing.assert_array_equal(acc1.numpy(), int8_ops.conv_int8(x_q, w1).numpy())
+    q1 = torch.randint(-127, 128, (1, 6, 8, 64), generator=torch.Generator().manual_seed(0),
+                       dtype=torch.int8)
+    qp = torch.nn.functional.pad(q1.to(torch.int64), (0, 0, 1, 1, 1, 1))
+    acc2 = torch.zeros((1, 6, 8, 64), dtype=torch.int64)
+    for t in range(9):
+        win = qp[:, t // 3: t // 3 + 6, t % 3: t % 3 + 8].reshape(1, 6, 8, 16, 4)
+        acc2 += torch.einsum("bhwgk,gck->bhwc", win, w2b[t])
+    np.testing.assert_array_equal(acc2.numpy(), int8_ops.conv_int8(q1, w2).numpy())
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    x_q, w1, deq1, b1, s1, w2, deq2, b2, s2 = _torch_args(_case("random"))
+    with pytest.raises(ValueError):
+        stem_fp.stem_fused_producer(x_q[:, :19], w1, deq1, b1, s1, w2, deq2, b2, s2)  # odd H
+    with pytest.raises(ValueError):
+        stem_fp.stem_fused_producer(x_q, w2, deq1, b1, s1, w2, deq2, b2, s2)
+    with pytest.raises(ValueError):
+        stem_fp.stem_fused_producer(x_q, w1, deq1[:32], b1, s1, w2, deq2, b2, s2)
+    with pytest.raises(TypeError):
+        stem_fp.stem_fused_producer(x_q.float(), w1, deq1, b1, s1, w2, deq2, b2, s2)
+    with pytest.raises(TypeError):
+        stem_fp.stem_fused_producer(x_q, w1, deq1.double(), b1, s1, w2, deq2, b2, s2)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    ref_cfg, cfg = ref_config.get_config("tiny_test"), config.get_config("tiny_test")
+    init = jax.jit(lambda k, x: RefSSDModel(ref_cfg).init(k, x, train=False))
+    params = init(jax.random.key(4), jnp.zeros((1, 64, 64, 3)))["params"]
+    x = np.random.default_rng(8).normal(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    spec = ref_engine.build_ssd_spec(ref_cfg)
+    ref_qp = ref_engine.quantize_params(params, spec, ref_engine.calibrate_scales(
+        params, spec, [jnp.asarray(x)]))
+    return ref_cfg, cfg, x, ref_qp
+
+
+def test_engine_route_bit_equal_to_b2_route_and_reference(tiny, monkeypatch):
+    """``ODT_STEM_FP=1`` against ``=0`` on the same QuantParams: tap codes
+    and int8-head logits equal; the taps equal to the reference's op-by-op
+    `run_int8` on its default (unfused) route, which its own
+    tests/test_quant.py:443 holds equal to its fully-fused kernel."""
+    ref_cfg, cfg, x, ref_qp = tiny
+    qp, spec = quant_params_from_jax(ref_qp), engine.build_spec(cfg)
+    assert isinstance(spec[0], engine.FusedStemOp)
+    want = ref_engine.run_int8(ref_qp, ref_engine.build_ssd_spec(ref_cfg), jnp.asarray(x),
+                               dequantize_taps=False)
+    out = {}
+    for value in ("0", "1"):
+        monkeypatch.setenv("ODT_STEM_FP", value)
+        seen = []
+
+        def stem_fp_fn(*args, **kwargs):
+            seen.append(args[0].shape)
+            return stem_fp.stem_fused_producer(*args, **kwargs)
+
+        taps = engine.run_int8(qp, spec, torch.from_numpy(x), dequantize_taps=False,
+                               stem_fp_fn=stem_fp_fn)
+        heads = engine.int8_forward(qp, spec, cfg, torch.from_numpy(x), stem_fp_fn=stem_fp_fn)
+        assert seen == ([] if value == "0" else [(2, 64, 64, 3)] * 2)
+        out[value] = (taps, heads)
+        for (q, s), (q_ref, s_ref) in zip(taps, want):
+            assert s == s_ref
+            np.testing.assert_array_equal(q.numpy(), np.asarray(q_ref))
+    for a, b in zip(out["0"][1], out["1"][1]):
+        assert torch.equal(a, b)
+    assert ("stem_fp", "backbone/conv1_1") in qp._derived
+
+
+def test_stem_fp_is_on_by_default_and_the_grammar_is_strict(monkeypatch):
+    """On unless ODT_STEM_FP=0, where the reference is off unless =1
+    (quant/engine.py:1069-1072): the card's times decide (PERF.md)."""
+    monkeypatch.delenv("ODT_STEM_FP", raising=False)
+    assert engine.stem_fp_on() is True
+    for value, want in (("auto", True), ("0", False), ("1", True)):
+        monkeypatch.setenv("ODT_STEM_FP", value)
+        assert engine.stem_fp_on() is want
+    monkeypatch.setenv("ODT_STEM_FP", "yes")
+    with pytest.raises(ValueError, match="ODT_STEM_FP"):
+        engine.stem_fp_on()

@@ -64,9 +64,11 @@ def test_train_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
         train(cfg.override({"mesh.data_parallel": 8}), ds, num_steps=1,
               checkpoint_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="reader is not ported"):
-        main(["train", "--preset", "ssd300_vgg16_voc", "--device", "cpu", "--steps", "1"])
-    assert main(["evaluate", "--preset", "tiny_test", "--checkpoint", "ck"]) == 2
+    # The VOC reader runs: with no data.root it finds no split file.
+    with pytest.raises(FileNotFoundError, match="trainval.txt") as exc:
+        main(["train", "--preset", "ssd300_vgg16_voc", "--device", "cpu", "--steps", "1",
+              "--checkpoint", str(tmp_path)])
+    assert exc.traceback[-1].name == "load_voc"
 
 
 def test_train_takes_a_profile_and_logs_the_steps_really_done(tmp_path):
