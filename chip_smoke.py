@@ -64,8 +64,10 @@ Phases, each fatal on failure:
      and saturated inputs with extreme biases and on a size whose tiles are
      partial; the bottleneck at each of ResNet-50's four shapes, on H and W
      that its tile does not divide, with a large conv1 bias (a halo pixel
-     outside the image that was not zeroed would show), on a zero input and
-     at its narrowest widths;
+     outside the image that was not zeroed would show), on a zero input, at
+     its narrowest widths (C = Cm = 64), at widths that are not powers of
+     two (C = 448, Cm = 320) and on codes whose quotients y / s lie at or
+     next to half-integers (deq = s / 2);
  18. serve full-width ssd512_resnet50_coco (seeded random weights, seeded
      non-trivial BatchNorm statistics) in float at bs=64 through
      make_predict_fn: check that the NMS kernel ran (5120 rows), hold it
@@ -84,14 +86,16 @@ Phases, each fatal on failure:
      and with the unfused spec (ODT_STEM_KERNEL=0, ODT_FUSED_BOTTLENECK=0)
      on the same QuantParams;
  20. time the stem kernel and each of the twelve bottleneck launches on the
-     bs=64 path's inputs beside their bounds, their plain versions and the
+     bs=64 path's inputs beside their bounds, their plain versions, the
      engine's unfused chain for the same work (which must give the kernel's
-     codes);
+     codes) and, for the bottleneck, the products alone as torch._int_mm on
+     operands laid out beforehand (its GEMM yardstick);
  21. serve one image through the Predictor in float and in int8 at bs=1: the
      same launch counts, the kernels bit-equal to their plain versions on
      that path's inputs (the NMS kernel on the (80, 512) rows of the float
      and of the int8 path), the served detections equal to the plain
-     versions' run, p50 and a profile of both;
+     versions' run, p50 and a profile of both, and the bottleneck's twelve
+     launches timed on that path's inputs;
  22. on a small ResNet-50 config (64 px): the float32 logits and the int8 tap
      codes, logits and detections on the card against the CPU (the CPU runs
      the kernels' plain versions), and what bfloat16 gives on the card
@@ -99,14 +103,15 @@ Phases, each fatal on failure:
  23. hold B4 (all of VGG block 1 in one kernel) bit-equal to its plain
      version on synthetic cases: saturating codes, all-negative biases, a
      zero input, a large positive conv1_1 bias, a size whose pooled tiles
-     are partial, bs=1;
+     are partial, bs=1, quotients at or next to half-integers;
  24. serve ssd300_infer_bs64 at bs=64 in int8 with B4 selected
      (ODT_STEM_FP=1): one B4 launch and no B2 launch a forward, the
      detections bit-equal to the plain versions' run and to the B2 route's on
      the same QuantParams, B4, B3 and B1 bit-equal to their plain versions on
      the path's own inputs; img/s of both routes in turns and a profile; B4
-     timed on the path's input codes beside its bound, its plain version and
-     the chain it replaces (which must give its codes);
+     timed on the path's input codes beside its bound, its plain version,
+     the chain it replaces (which must give its codes) and its GEMM
+     yardstick;
  25. serve one image through Predictor(int8=True) with B4 selected: the same
      launch counts and holds, the served detections equal to the B2 route's,
      the p50 of both routes in turns and a profile;
@@ -393,6 +398,55 @@ def bottleneck_bound_ms(x, cm):
     ops = 2 * pixels * (2 * c * cm + 9 * cm * cm)
     bytes_moved = 2 * x.numel() + 2 * c * cm + 9 * cm * cm + 4 * (4 * cm + 2 * c)
     return bound(bytes_moved, ops, INT8_OPS_PER_S)
+
+
+def im2col3x3(torch, a):
+    """(B, H, W, K) codes -> (B*H*W, 9*K) rows of a SAME 3x3, tap-major, the
+    rows of the GEMM that a 3x3 conv is."""
+    b, h, w, k = a.shape
+    ap = torch.nn.functional.pad(a, (0, 0, 1, 1, 1, 1))
+    return torch.cat([ap[:, ky:ky + h, kx:kx + w] for ky in range(3) for kx in range(3)],
+                     dim=-1).reshape(b * h * w, 9 * k)
+
+
+def col_major(w_kn):
+    """A (K, N) right operand in column-major order, the layout cuBLASLt
+    takes on its int8 tensor-core path."""
+    return w_kn.t().contiguous().t()
+
+
+def gemm_yardstick_ms(torch, gemms, iters: int) -> float:
+    """Device ms of the products alone: one torch._int_mm a (rows, K) x (K, N)
+    pair, on operands laid out beforehand, no epilogue. A yardstick of what
+    cuBLASLt's tensor cores take for the same multiply-adds; the port never
+    calls it."""
+    return sum(cuda_ms(torch, lambda a=a, b=b: torch._int_mm(a, b), iters) for a, b in gemms)
+
+
+def bottleneck_gemms(torch, x, w1, w2, w3):
+    """The bottleneck's three products over its output pixels as GEMMs:
+    x . w1, the 3x3's im2col rows of mid1 . w2, mid2 . w3 (mid codes drawn
+    at random: the values do not change the time)."""
+    b, h, w, c = x.shape
+    cm = w1.shape[1]
+    gen = torch.Generator(device=x.device).manual_seed(20)
+    mid = torch.randint(-127, 128, (b, h, w, cm), generator=gen, device=x.device,
+                        dtype=torch.int8)
+    return [(x.reshape(-1, c), col_major(w1)), (im2col3x3(torch, mid), col_major(w2.reshape(9 * cm, cm))),
+            (mid.reshape(-1, cm), col_major(w3))]
+
+
+def stem_fp_gemms(torch, x_q, w1, w2):
+    """VGG block 1's two products over the pre-pool pixels as GEMMs: the
+    input's im2col rows (27 codes padded to 32) . w1, and the 3x3's im2col
+    rows of conv1_1's codes (drawn at random) . w2."""
+    b, h, w, _ = x_q.shape
+    rows1 = torch.nn.functional.pad(im2col3x3(torch, x_q), (0, 5))
+    w1_kn = torch.nn.functional.pad(w1.reshape(27, 64), (0, 0, 0, 5))
+    gen = torch.Generator(device=x_q.device).manual_seed(24)
+    q1 = torch.randint(-127, 128, (b, h, w, 64), generator=gen, device=x_q.device,
+                       dtype=torch.int8)
+    return [(rows1, col_major(w1_kn)), (im2col3x3(torch, q1), col_major(w2.reshape(576, 64)))]
 
 
 def main() -> int:
@@ -996,12 +1050,18 @@ def main() -> int:
     rstem_bound, rstem_bound_by = resnet_stem_bound_ms(stem_args[0], rstem_out)
     block_ops = [op for op in predict512_8.spec if isinstance(op, engine.BottleneckOp)]
     block_rows = []
+    yardstick = {}  # the products as torch._int_mm, once per shape
     for op, (args, kw) in zip(block_ops, held512["block_args"]):
         x_in, cm = args[0], args[1].shape[1]
         chain = unfused_block(int8_ops, qp512, op, x_in, kw["resid_scale"])
         check(torch.equal(chain, bottleneck.fused_bottleneck(*args, **kw)),
               f"{op.base}: the kernel differs from the engine's unfused chain")
+        del chain
         b_ms, b_by = bottleneck_bound_ms(x_in, cm)
+        if tuple(x_in.shape) not in yardstick:
+            gemms = bottleneck_gemms(torch, x_in, args[1], args[4], args[7])
+            yardstick[tuple(x_in.shape)] = gemm_yardstick_ms(torch, gemms, 5)
+            del gemms
         block_rows.append({
             "block": op.base, "x": list(x_in.shape), "cm": cm,
             "ms": cuda_ms(torch, lambda: bottleneck.fused_bottleneck(*args, **kw), 5),
@@ -1009,11 +1069,11 @@ def main() -> int:
                 torch, lambda: bottleneck.fused_bottleneck_reference(*args, **kw), 2),
             "unfused_chain_ms": cuda_ms(
                 torch, lambda: unfused_block(int8_ops, qp512, op, x_in, kw["resid_scale"]), 3),
+            "gemm_yardstick_ms": yardstick[tuple(x_in.shape)],
             "bound_ms": b_ms, "bound_by": b_by,
         })
-        del chain
-    block_sum = {k: sum(r[k] for r in block_rows)
-                 for k in ("ms", "plain_ms", "unfused_chain_ms", "bound_ms")}
+    timed = ("ms", "plain_ms", "unfused_chain_ms", "gemm_yardstick_ms", "bound_ms")
+    block_sum = {k: sum(r[k] for r in block_rows) for k in timed}
     # What bounds the twelve launches together: the kind that holds the larger
     # part of the summed bounds.
     bound_parts = {kind: sum(r["bound_ms"] for r in block_rows if r["bound_by"] == kind)
@@ -1022,14 +1082,13 @@ def main() -> int:
     by_shape = {}
     for r in block_rows:
         key = "x".join(str(v) for v in r["x"][1:])
-        by_shape.setdefault(key, {"launches": 0, "ms": 0.0, "plain_ms": 0.0,
-                                  "unfused_chain_ms": 0.0, "bound_ms": 0.0,
+        by_shape.setdefault(key, {"launches": 0, **{k: 0.0 for k in timed},
                                   "bound_by": r["bound_by"]})
         by_shape[key]["launches"] += 1
-        for k in ("ms", "plain_ms", "unfused_chain_ms", "bound_ms"):
+        for k in timed:
             by_shape[key][k] += r[k]
     for v in by_shape.values():  # means per launch of each shape
-        for k in ("ms", "plain_ms", "unfused_chain_ms", "bound_ms"):
+        for k in timed:
             v[k] /= v["launches"]
     print(json.dumps({"phase": "resnet_kernel_timing", "batch": 64,
                       "stem": {"input": list(stem_args[0].shape), "ms": rstem_ms,
@@ -1072,6 +1131,10 @@ def main() -> int:
     rstem_err = max(rstem_err, held512_1["stem_err"])
     bott_err = max(bott_err, held512_1["bottleneck_err"])
     max_abs_err = max(max_abs_err, held512_1["nms_err"])
+    # B7's device time at bs=1: each of the path's twelve launches on its own
+    # inputs, summed.
+    bott_bs1 = [cuda_ms(torch, lambda a=a, k=k: bottleneck.fused_bottleneck(*a, **k), 20)
+                for a, k in held512_1["block_args"]]
     det1 = held512_1["detections"]
     v1 = det1.valid[0]
     served = torch.tensor([[d.score, d.class_id, *d.box] for d in dets512_8], dtype=torch.float32)
@@ -1091,6 +1154,8 @@ def main() -> int:
                       "nms_rows": {"float": list(rows512_1["scores"].shape),
                                    "int8": held512_1["nms_rows"]},
                       "bottleneck_inputs": [list(a[0].shape) for a, _ in held512_1["block_args"]],
+                      "bottleneck_bs1_ms_per_launch": bott_bs1,
+                      "bottleneck_bs1_ms_per_forward": sum(bott_bs1),
                       "float_p50_ms": p50_512, "int8_p50_ms": p50_512_8, **where}))
     print(json.dumps({"phase": "profile_ssd512_bs1", **profile_window(
         torch, lambda: predictor512._predict(canvas_512), 10), **where}))
@@ -1171,7 +1236,11 @@ def main() -> int:
     b2_on_path_ms = cuda_ms(torch, lambda: stem.stem_conv12_pool(q1_chain, *sa[5:]), 20)
     chain_ms = cuda_ms(torch, lambda: stem.stem_conv12_pool(conv11(), *sa[5:]), 5)
     stem_fp_bound, stem_fp_bound_by = stem_fp_bound_ms(sa[0], fp_out)
+    gemms = stem_fp_gemms(torch, sa[0], sa[1], sa[5])
+    stem_fp_yardstick_ms = gemm_yardstick_ms(torch, gemms, 5)
+    del gemms
     print(json.dumps({"phase": "stem_fp_timing", "input": list(sa[0].shape), "ms": stem_fp_ms,
+                      "gemm_yardstick_ms": stem_fp_yardstick_ms,
                       "plain_ms": stem_fp_plain_ms, "bound_ms": stem_fp_bound,
                       "bound_by": stem_fp_bound_by, "replaced_chain_ms": chain_ms,
                       "chain_conv11_ms": conv11_ms, "chain_b2_ms": b2_on_path_ms, **where}))
@@ -1383,7 +1452,12 @@ def main() -> int:
             "library_none_because": "no single PyTorch call computes three int8 convs with "
                                     "requant epilogues and a residual",
             "unfused_chain_ms": block_sum["unfused_chain_ms"],
-            "times_are": "sums over the twelve launches of one bs=64 int8 SSD-512 forward",
+            "gemm_yardstick_ms": block_sum["gemm_yardstick_ms"],
+            "ms_by_shape": {k: v["ms"] for k, v in by_shape.items()},
+            "launches_by_shape": {k: v["launches"] for k, v in by_shape.items()},
+            "bs1_ms": sum(bott_bs1),
+            "times_are": "sums over the twelve launches of one bs=64 int8 SSD-512 forward "
+                         "(ms_by_shape: a launch; bs1_ms: the twelve of a bs=1 forward)",
         },
         {
             "name": "stem_fused_producer",
@@ -1399,6 +1473,7 @@ def main() -> int:
             "library_ms": None,
             "library_none_because": "no single PyTorch call computes two int8 convs with "
                                     "requant epilogues and a max pool",
+            "gemm_yardstick_ms": stem_fp_yardstick_ms,
             "replaced_chain_ms": chain_ms,
             "replaced_chain": "conv1_1 as the engine's int8 conv and requant epilogue, then "
                               "stem_conv12_pool",
@@ -1774,11 +1849,12 @@ def resnet_kernel_cases(torch, resnet_stem, bottleneck):
 
     bott_err = 0
     cases = [(f"{h}x{h}x{c}", (2, h, h, c, cm)) for c, cm, h, _ in RESNET_BLOCKS]
-    cases += [("ragged", (2, 13, 19, 256, 64)), ("large_b1", (2, 12, 20, 128, 32)),
-              ("zero_input", (1, 16, 16, 256, 64)), ("narrow", (2, 12, 16, 32, 16))]
+    cases += [("ragged", (2, 13, 19, 256, 64)), ("large_b1", (2, 12, 20, 128, 64)),
+              ("zero_input", (1, 16, 16, 256, 64)), ("narrow", (2, 12, 16, 64, 64)),
+              ("wide_odd", (1, 9, 10, 448, 320)), ("ties", (2, 16, 16, 256, 64))]
     for kind, (b, h, w, c, cm) in cases:
-        lim = 40
-        x = randint(-127, 128, (b, h, w, c))
+        xlim, lim = (4, 1) if kind == "ties" else (128, 40)
+        x = randint(-xlim + 1, xlim, (b, h, w, c))
         if kind == "zero_input":
             x.zero_()
 
@@ -1793,6 +1869,12 @@ def resnet_kernel_cases(torch, resnet_stem, bottleneck):
                randint(-lim, lim + 1, (3, 3, cm, cm)), deq(9 * cm, cm), bias(cm),
                randint(-lim, lim + 1, (cm, c)), deq(cm, c), bias(c))
         scales = dict(s1=0.43, s2=0.51, s3=0.37, resid_scale=0.29)
+        if kind == "ties":  # deq = s / 2 on small codes: quotients at half-integers
+            half = lambda v, n: torch.full((n,), v / 2, device="cuda")  # noqa: E731
+            zero = lambda n: torch.zeros(n, device="cuda")  # noqa: E731
+            ops = (x, ops[1], half(0.43, cm), zero(cm), ops[4], half(0.51, cm), zero(cm), ops[7],
+                   half(0.37, c), zero(c))
+            scales["resid_scale"] = float(torch.tensor(0.37) / 2)
         got = bottleneck.fused_bottleneck(*ops, **scales)
         torch.cuda.synchronize()
         want = bottleneck.fused_bottleneck_reference(*ops, **scales)
@@ -1819,8 +1901,9 @@ def stem_fp_kernel_cases(torch, stem_fp):
     worst = 0
     for kind, (b, h, w) in (("saturating", (4, 300, 300)), ("negative_bias", (4, 300, 300)),
                             ("zero_input", (2, 300, 300)), ("large_bias1", (2, 300, 300)),
-                            ("ragged_tile", (3, 44, 60)), ("bs1", (1, 300, 300))):
-        lim = 128 if kind == "saturating" else 10
+                            ("ragged_tile", (3, 44, 60)), ("bs1", (1, 300, 300)),
+                            ("ties", (2, 300, 300))):
+        lim = {"saturating": 128, "ties": 2}.get(kind, 10)
         x_q = randint(-lim + 1, lim, (b, h, w, 3))
         if kind == "zero_input":
             x_q.zero_()
@@ -1833,6 +1916,10 @@ def stem_fp_kernel_cases(torch, stem_fp):
             bias1, bias2 = -bias1.abs() - 100.0, -bias2.abs() - 100.0
         elif kind == "large_bias1":
             bias1 = bias1.abs() + 3.0
+        elif kind == "ties":  # deq = s / 2 and s / 8: quotients at half-integers
+            deq1 = torch.full((64,), float(torch.tensor(0.043)) / 2, device="cuda")
+            deq2 = torch.full((64,), float(torch.tensor(0.021)) / 8, device="cuda")
+            bias1, bias2 = torch.zeros(64, device="cuda"), torch.zeros(64, device="cuda")
         args = (x_q, w1, deq1, bias1, 0.043, w2, deq2, bias2, 0.021)
         got = stem_fp.stem_fused_producer(*args)
         torch.cuda.synchronize()

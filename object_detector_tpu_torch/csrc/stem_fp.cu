@@ -1,6 +1,7 @@
 // All of VGG block 1 in int8: conv1_1 (3x3 SAME, 3 -> 64) over the input
 // codes, requant, conv1_2 (3x3 SAME, 64 -> 64), requant and the 2x2/s2 max
-// pool, with int32 accumulation and the engine's float32 epilogues.
+// pool, with int32 accumulation on the int8 tensor cores (mma.sync
+// m16n8k32, csrc/int8_mma.cuh) and the engine's float32 epilogues.
 //
 // Replaces the Pallas TPU kernel object_detector_tpu/kernels/stem_pallas.py
 // ::_stem_fp_kernel (:514, launched through stem_fused_producer :650,
@@ -10,12 +11,12 @@
 // TPU's matrix unit and are not carried over. A block here reads the
 // 3-channel codes directly. The contract is the function, on NHWC codes.
 //
-// Contract. x_q (B, H, W, 3) int8 input codes, H and W even; w1_words the
-// (3, 3, 3, 64) HWIO conv1_1 kernel as 32-bit words [ky*3+kx][j][cg], each
-// holding input channels 0..2 of output channel 4*cg + j and a zero byte;
-// w2_words the (3, 3, 64, 64) conv1_2 kernel as words [ky*3+kx][cin/4][cout]
-// of 4 input channels (the layout of csrc/stem.cu); deq1, bias1, deq2, bias2
-// (64,) float32; s1, s2 float32. With rq(v, s) = clip(rint(v / s), -127, 127):
+// Contract. x_q (B, H, W, 3) int8 input codes, H and W even; w1 the (3, 3,
+// 3, 64) HWIO conv1_1 kernel as a (32, 64) matrix, k = 3 * tap + cin for k <
+// 27 and zero rows after, and w2 the (3, 3, 64, 64) conv1_2 kernel as a (576,
+// 64) matrix, k = 64 * tap + cin, both in the packed B layout of
+// csrc/int8_mma.cuh; deq1, bias1, deq2, bias2 (64,) float32; s1, s2 float32.
+// With rq(v, s) = clip(rint(v / s), -127, 127):
 //   q1  = rq(max(conv3x3_same(x_q, w1) * deq1 + bias1, 0), s1)
 //   out = maxpool2x2(rq(max(conv3x3_same(q1, w2) * deq2 + bias2, 0), s2))
 // (B, H/2, W/2, 64) int8. conv1_2's SAME padding reads zero codes: q1 is 0
@@ -23,196 +24,318 @@
 // requant, on the float values, which is exact: the requant is monotone.
 //
 // Bit-exactness. |acc1| <= 27 * 127^2 and |acc2| <= 576 * 127^2 are below
-// 2^24, so acc -> float is exact. Each epilogue rounds after every operation
-// (__fmul_rn, __fadd_rn), divides by the scale (__fdiv_rn; a reciprocal
-// multiply flips codes at rounding boundaries) and rounds half to even
-// (rintf), as the engine's op-by-op requant does. The build passes
-// -fmad=false too.
+// 2^24, so acc -> float is exact, and int32 sums are exact in any order.
+// Each epilogue rounds after every operation (__fmul_rn, __fadd_rn), divides
+// by the scale and rounds half to even, as the engine's op-by-op requant
+// does, in the exact form of csrc/int8_mma.cuh `requant2` (a multiply by RN(1
+// / s) alone flips codes at rounding boundaries; there it divides). The
+// build passes -fmad=false too.
 //
 // What bounds it on an H100. At SSD-300 bs=64 the two convs are
 // 2 * (27 + 576) * 64 int8 operations a pixel over 5.76e6 pixels, 4.4e11,
 // 0.22 ms at the tensor cores' 1,979e12 int8 operations/s; the bytes (17 MB
 // of input codes in, 92 MB of pooled codes out) take 0.03 ms at 3.35 TB/s.
-// The operations bound it. This first kernel runs them as __dp4a on the CUDA
-// cores, far below the tensor-core rate; an mma/wgmma version is later work.
+// The operations bound it. Beside the bound, every conv1_1 output pays a
+// requant (20,736 a tile), a floor that the tile size sets.
 //
-// Design. csrc/stem.cu's block with conv1_1 in front: neither conv1_1's
-// output (369 MB of codes at bs=64, 1.47 GB as int32 sums) nor conv1_2's
-// reaches device memory. Each block owns an 8 x 8 tile of pooled pixels of
-// one image. It stages the 20 x 20 input pixels around the tile, each as one
-// word (3 codes and a zero byte), and both kernels in shared memory; it
-// computes conv1_1 for the 18 x 18 pixels conv1_2 needs (the tile and its
-// one-pixel halo), 4 output channels a work item (9 __dp4a each), writing 0
-// for pixels outside the image; then runs csrc/stem.cu's conv1_2 + pool
-// loop on those codes. conv1_1 is under a tenth of conv1_2's work.
+// Design. A persistent grid (as many blocks as fit on the card) walks the
+// 8 x 8 pooled tiles; a block stages both packed kernels and the four
+// vectors in shared memory once, and loads the next tile's 20 x 20 input
+// pixels into registers while it computes the current tile. Per tile:
+//  - conv1_1 for the 18 x 18 pixels conv1_2 needs, as one k32 step: 21 m16
+//    tiles of pixels by 8 n8 tiles, K = 27 padded to 32. A warp builds its
+//    A fragment in registers from the staged input words (each a pixel's 3
+//    codes and a zero byte) with __byte_perm, so no im2col buffer exists.
+//    Pixels outside the image get 0.
+//  - conv1_2 as an implicit GEMM over the staged conv1_1 codes, M = 256
+//    pre-pool pixels, N = 64, K = 9 * 64: warp w owns pooled row w, as two
+//    m16 tiles of two pre-pool rows by 8 columns, by all 8 n8 tiles. Row r
+//    of an m16 tile is pre-pool row r / 8, column r % 8, so accumulator
+//    registers c[0], c[2] of a thread are vertical neighbours (the vertical
+//    max stays in the thread) and lane ^ 4 holds the horizontal neighbour
+//    (one __shfl_xor_sync). The two lanes of a pair then requant one
+//    channel each into a shared-memory tile of pooled codes, which leaves
+//    in 16-byte stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_mma.cuh"
+
 namespace {
 
-constexpr int kC = 64;                          // channels of conv1_1's output and conv1_2's
-constexpr int kTile = 8;                        // pooled rows and columns per block
-constexpr int kGroups = 8;                      // conv1_2 output-channel groups
-constexpr int kPerThread = kC / kGroups;        // conv1_2 channels per thread
-constexpr int kThreads = kTile * kTile * kGroups;  // 512
-constexpr int kMid = 2 * kTile + 2;             // conv1_1 rows and columns, with halo
-constexpr int kInX = kMid + 2;                  // input rows and columns, with halo
-constexpr int kWordsPerPixel = kC / 4;          // 16 words of 4 channels
-constexpr int kPixelStride = 20;                // words per staged conv1_1 pixel (16 used)
-constexpr int kW2Words = 9 * kWordsPerPixel * kC;         // 9216 words
-constexpr int kW1Words = 9 * 4 * kWordsPerPixel;          // 576 words
-constexpr int kMidWords = kMid * kMid * kPixelStride;     // 6480 words
-constexpr int kXWords = kInX * kInX;                      // 400 words
-constexpr size_t kSmemBytes = (kW2Words + kMidWords + kW1Words + kXWords) * sizeof(int);
+using namespace int8mma;
 
-__device__ __forceinline__ float requant(int acc, float deq, float bias, float scale) {
-  const float y = fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc), deq), bias), 0.0f);
-  return fminf(fmaxf(rintf(__fdiv_rn(y, scale)), -127.0f), 127.0f);
+constexpr int kC = 64;                          // channels of conv1_1's output and conv1_2's
+constexpr int kTile = 8;                        // pooled rows and columns per tile
+constexpr int kMid = 2 * kTile + 2;             // conv1_1 rows and columns, with halo: 18
+constexpr int kMidPix = kMid * kMid;            // 324
+constexpr int kMidTiles = (kMidPix + 15) / 16;  // 21 m16 tiles
+constexpr int kInX = kMid + 2;                  // input rows and columns, with halo: 20
+constexpr int kXWords = kInX * kInX;            // 400
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;           // 8, one per pooled row
+constexpr int kMidStride = kC + 16;             // bytes per staged conv1_1 pixel
+constexpr int kW1Bytes = kStepBytes;            // (32, 64) packed: one k-step
+constexpr int kW2Bytes = 18 * kStepBytes;       // (576, 64) packed: 18 k-steps
+constexpr int kOutBytes = kTile * kTile * kC;   // 4,096
+constexpr int kXPerThread = (kXWords + kThreads - 1) / kThreads;  // 2
+constexpr size_t kSmemBytes = kW2Bytes + kW1Bytes + 4 * kC * sizeof(float) +
+                              kMidPix * kMidStride + kOutBytes + kXWords * sizeof(int);
+
+struct Tile {
+  int b, pr0, pc0;
+};
+
+__device__ __forceinline__ Tile tile_of(int t, int tiles_x, int tiles_per_image) {
+  Tile r;
+  r.b = t / tiles_per_image;
+  const int i = t - r.b * tiles_per_image;
+  r.pr0 = (i / tiles_x) * kTile;
+  r.pc0 = (i % tiles_x) * kTile;
+  return r;
 }
 
-__global__ void __launch_bounds__(kThreads) stem_fp_kernel(
-    const int8_t* __restrict__ x_q, const int* __restrict__ w1_words,
-    const int* __restrict__ w2_words, const float* __restrict__ deq1,
-    const float* __restrict__ bias1, float s1, const float* __restrict__ deq2,
-    const float* __restrict__ bias2, float s2, int h, int w, int8_t* __restrict__ out) {
-  extern __shared__ int4 smem4[];
-  int* s_w2 = reinterpret_cast<int*>(smem4);
-  int* s_mid = s_w2 + kW2Words;
-  int* s_w1 = s_mid + kMidWords;
-  int* s_x = s_w1 + kW1Words;
+// Input pixel word k (< 400) of a tile: rows 2*pr0 - 2 .., columns 2*pc0 - 2
+// .., 3 codes and a zero byte, zero outside the image (conv1_1's padding).
+__device__ __forceinline__ int input_word(const int8_t* __restrict__ x_q, const Tile& t, int k,
+                                         int h, int w) {
+  const int y = 2 * t.pr0 - 2 + k / kInX;
+  const int x = 2 * t.pc0 - 2 + k % kInX;
+  if (y < 0 || y >= h || x < 0 || x >= w) return 0;
+  const uint8_t* p =
+      reinterpret_cast<const uint8_t*>(x_q + ((static_cast<size_t>(t.b) * h + y) * w + x) * 3);
+  return static_cast<int>(p[0] | (p[1] << 8) | (p[2] << 16));
+}
 
-  const int b = blockIdx.z;
+// Word j (0..7) of the 32-byte im2col row of mid pixel (my, mx): bytes
+// 3 * tap + cin for the nine taps, then zeros. Word j spans taps a = j +
+// j / 3 and a + 1; __byte_perm picks their bytes.
+__device__ __forceinline__ unsigned im2col_word(const int* s_x, int my, int mx, int j) {
+  if (j == 7) return 0u;
+  const int a = j + j / 3;
+  const unsigned lo = static_cast<unsigned>(s_x[(my + a / 3) * kInX + mx + a % 3]);
+  const unsigned hi = a < 8 ? static_cast<unsigned>(s_x[(my + (a + 1) / 3) * kInX + mx + (a + 1) % 3])
+                            : 0u;
+  const int r = j % 3;
+  return __byte_perm(lo, hi, r == 0 ? 0x4210 : (r == 1 ? 0x5421 : 0x6542));
+}
+
+__global__ void __launch_bounds__(kThreads, 2) stem_fp_kernel(
+    const int8_t* __restrict__ x_q, const int8_t* __restrict__ w1p,
+    const int8_t* __restrict__ w2p, const float* __restrict__ deq1,
+    const float* __restrict__ bias1, float s1, const float* __restrict__ deq2,
+    const float* __restrict__ bias2, float s2, int batch, int h, int w,
+    int8_t* __restrict__ out) {
+  extern __shared__ int4 smem4[];
+  int8_t* s_w2 = reinterpret_cast<int8_t*>(smem4);
+  int8_t* s_w1 = s_w2 + kW2Bytes;
+  float* s_vec = reinterpret_cast<float*>(s_w1 + kW1Bytes);  // deq1, bias1, deq2, bias2
+  int8_t* s_mid = reinterpret_cast<int8_t*>(s_vec + 4 * kC);
+  int8_t* s_out = s_mid + kMidPix * kMidStride;
+  int* s_x = reinterpret_cast<int*>(s_out + kOutBytes);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
   const int h2 = h / 2;
   const int w2 = w / 2;
-  const int pr0 = blockIdx.y * kTile;
-  const int pc0 = blockIdx.x * kTile;
+  const int tiles_x = (w2 + kTile - 1) / kTile;
+  const int tiles_per_image = tiles_x * ((h2 + kTile - 1) / kTile);
+  const int tiles = batch * tiles_per_image;
+  const float inv1 = __frcp_rn(s1), inv2 = __frcp_rn(s2);
 
-  const int4* w2_src = reinterpret_cast<const int4*>(w2_words);
-  for (int i = threadIdx.x; i < kW2Words / 4; i += kThreads) smem4[i] = w2_src[i];
-  for (int i = threadIdx.x; i < kW1Words; i += kThreads) s_w1[i] = w1_words[i];
-
-  // Input rows 2*pr0 - 2 .. 2*pr0 + 2*kTile + 1 and the same columns, one
-  // word a pixel, zero outside the image (conv1_1's SAME padding).
-  const int iy0 = 2 * pr0 - 2;
-  const int ix0 = 2 * pc0 - 2;
-  const int8_t* img = x_q + static_cast<size_t>(b) * h * w * 3;
-  for (int i = threadIdx.x; i < kXWords; i += kThreads) {
-    const int y = iy0 + i / kInX;
-    const int x = ix0 + i % kInX;
-    int v = 0;
-    if (y >= 0 && y < h && x >= 0 && x < w) {
-      const uint8_t* p = reinterpret_cast<const uint8_t*>(img + (static_cast<size_t>(y) * w + x) * 3);
-      v = static_cast<int>(p[0] | (p[1] << 8) | (p[2] << 16));
+  // Both kernels and the four vectors, once per block.
+  {
+    const unsigned dst = smem_addr(s_w2);
+    for (int i = threadIdx.x; i < kW2Bytes / 16; i += kThreads) cp_async16(dst + 16 * i, w2p + 16 * i, true);
+    const unsigned dst1 = smem_addr(s_w1);
+    for (int i = threadIdx.x; i < kW1Bytes / 16; i += kThreads) cp_async16(dst1 + 16 * i, w1p + 16 * i, true);
+    cp_async_commit();
+    for (int i = threadIdx.x; i < kC; i += kThreads) {
+      s_vec[i] = deq1[i];
+      s_vec[kC + i] = bias1[i];
+      s_vec[2 * kC + i] = deq2[i];
+      s_vec[3 * kC + i] = bias2[i];
     }
-    s_x[i] = v;
   }
-  __syncthreads();
 
-  // conv1_1 over rows 2*pr0 - 1 .. 2*pr0 + 2*kTile (the mid tile): mid pixel
-  // (my, mx) reads staged input pixels (my + ky, mx + kx). A work item is one
-  // pixel's 4 output channels 4*cg .. 4*cg + 3, packed into one word.
-  for (int i = threadIdx.x; i < kMid * kMid * kWordsPerPixel; i += kThreads) {
-    const int cg = i % kWordsPerPixel;
-    const int pix = i / kWordsPerPixel;
-    const int my = pix / kMid;
-    const int mx = pix % kMid;
-    const int y = 2 * pr0 - 1 + my;
-    const int x = 2 * pc0 - 1 + mx;
-    int word = 0;  // zero codes outside the image: conv1_2's SAME padding
-    if (y >= 0 && y < h && x >= 0 && x < w) {
-      int acc[4] = {0, 0, 0, 0};
+  int xw[kXPerThread];
+  int t = blockIdx.x;
+  if (t < tiles) {
+    const Tile first = tile_of(t, tiles_x, tiles_per_image);
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
+    for (int r = 0; r < kXPerThread; ++r) {
+      const int k = threadIdx.x + r * kThreads;
+      xw[r] = k < kXWords ? input_word(x_q, first, k, h, w) : 0;
+    }
+  }
+  cp_async_wait<0>();
+
+  for (; t < tiles; t += gridDim.x) {
+    const Tile cur = tile_of(t, tiles_x, tiles_per_image);
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const int a = s_x[(my + ky) * kInX + mx + kx];
-          const int* wt = s_w1 + (ky * 3 + kx) * 4 * kWordsPerPixel + cg;
+    for (int r = 0; r < kXPerThread; ++r) {
+      const int k = threadIdx.x + r * kThreads;
+      if (k < kXWords) s_x[k] = xw[r];
+    }
+    __syncthreads();
+    // The next tile's input, in flight while this one is computed.
+    if (t + static_cast<int>(gridDim.x) < tiles) {
+      const Tile next = tile_of(t + gridDim.x, tiles_x, tiles_per_image);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[j] = __dp4a(a, wt[j * kWordsPerPixel], acc[j]);
+      for (int r = 0; r < kXPerThread; ++r) {
+        const int k = threadIdx.x + r * kThreads;
+        xw[r] = k < kXWords ? input_word(x_q, next, k, h, w) : 0;
+      }
+    }
+
+    // conv1_1: m16 tile mt covers mid pixels 16 mt .. 16 mt + 15 (rows past
+    // 323 read pixel 0 and are not stored).
+    for (int mt = warp; mt < kMidTiles; mt += kWarps) {
+      int row[2];
+      unsigned a[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        row[half] = mt * 16 + gq + 8 * half;
+        const int p = row[half] < kMidPix ? row[half] : 0;
+        const int my = p / kMid;
+        const int mx = p - my * kMid;
+        a[half] = im2col_word(s_x, my, mx, tq);
+        a[2 + half] = im2col_word(s_x, my, mx, tq + 4);
+      }
+      int acc[8][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint4 b = load_pair(s_w1 + q * kPairBytes, lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[2 * q][i] = acc[2 * q + 1][i] = 0;
+        mma_s8(acc[2 * q], a, b.x, b.y);
+        mma_s8(acc[2 * q + 1], a, b.z, b.w);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = row[half];
+        if (p >= kMidPix) continue;
+        const int my = p / kMid;
+        const int mx = p - my * kMid;
+        const int y = 2 * cur.pr0 - 1 + my;
+        const int x = 2 * cur.pc0 - 1 + mx;
+        const bool inside = y >= 0 && y < h && x >= 0 && x < w;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int ch = nt * 8 + 2 * tq;
+          unsigned short v = 0;  // zero codes outside the image: conv1_2's SAME padding
+          if (inside) {
+            v = requant2(dequant(acc[nt][2 * half], s_vec[ch], s_vec[kC + ch]),
+                     dequant(acc[nt][2 * half + 1], s_vec[ch + 1], s_vec[kC + ch + 1]), s1, inv1);
+          }
+          *reinterpret_cast<unsigned short*>(s_mid + p * kMidStride + ch) = v;
         }
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = 4 * cg + j;
-        const int code = static_cast<int>(requant(acc[j], deq1[c], bias1[c], s1));
-        word |= (code & 0xff) << (8 * j);
-      }
     }
-    s_mid[pix * kPixelStride + cg] = word;
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // conv1_2 + pool, as csrc/stem.cu. Thread t owns pooled pixel t / 8 and
-  // output channels (t % 8) + 8j, j < 8, with the four pre-pool sums of each.
-  const int g = threadIdx.x % kGroups;
-  const int p = threadIdx.x / kGroups;
-  const int py = p / kTile;
-  const int px = p % kTile;
-
-  int acc[4][kPerThread];
+    // conv1_2 + pool: warp w computes pre-pool rows 2w, 2w + 1 as m16 tiles
+    // j = 0, 1 (columns 8j .. 8j + 7), all 64 channels.
+    {
+      const int r = lane & 15;
+      unsigned base[2];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+      for (int j = 0; j < 2; ++j) {
+        base[j] = smem_addr(s_mid + ((2 * warp + (r >> 3)) * kMid + 8 * j + (r & 7)) * kMidStride) +
+                  16 * (lane >> 4);
+      }
+      int acc[2][8][4];
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) acc[q][j] = 0;
-  }
-
-  for (int ky = 0; ky < 3; ++ky) {
-    for (int kx = 0; kx < 3; ++kx) {
-      const int* wk = s_w2 + (ky * 3 + kx) * kWordsPerPixel * kC + g;
-      // Pre-pool position (2py + dy, 2px + dx) reads mid pixel
-      // (2py + dy + ky, 2px + dx + kx).
-      const int* in00 = s_mid + ((2 * py + ky) * kMid + 2 * px + kx) * kPixelStride;
-#pragma unroll 4
-      for (int c4 = 0; c4 < kWordsPerPixel; ++c4) {
-        const int a0 = in00[c4];
-        const int a1 = in00[kPixelStride + c4];
-        const int a2 = in00[kMid * kPixelStride + c4];
-        const int a3 = in00[(kMid + 1) * kPixelStride + c4];
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int j = 0; j < kPerThread; ++j) {
-          const int wv = wk[c4 * kC + j * kGroups];
-          acc[0][j] = __dp4a(a0, wv, acc[0][j]);
-          acc[1][j] = __dp4a(a1, wv, acc[1][j]);
-          acc[2][j] = __dp4a(a2, wv, acc[2][j]);
-          acc[3][j] = __dp4a(a3, wv, acc[3][j]);
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][nt][i] = 0;
+#pragma unroll 2
+      for (int s = 0; s < 18; ++s) {
+        const int tap = s >> 1;
+        const unsigned off = ((tap / 3) * kMid + tap % 3) * kMidStride + (s & 1) * kStepK;
+        unsigned a[2][4];
+        ldmatrix_x4(a[0], base[0] + off);
+        ldmatrix_x4(a[1], base[1] + off);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint4 b = load_pair(s_w2 + s * kStepBytes + q * kPairBytes, lane);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            mma_s8(acc[j][2 * q], a[j], b.x, b.y);
+            mma_s8(acc[j][2 * q + 1], a[j], b.z, b.w);
+          }
+        }
+      }
+      // Vertical max in the thread, horizontal with lane ^ 4; then the pair's
+      // even lane requants channel ch, the odd one ch + 1, of both m16 tiles
+      // (the ReLU floor is the requant's).
+      const int odd = gq & 1;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int ch = nt * 8 + 2 * tq;
+        const float d0 = s_vec[2 * kC + ch], d1 = s_vec[2 * kC + ch + 1];
+        const float b0 = s_vec[3 * kC + ch], b1 = s_vec[3 * kC + ch + 1];
+        float m[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int* c = acc[j][nt];
+          float v0 = fmaxf(dequant(c[0], d0, b0), dequant(c[2], d0, b0));
+          float v1 = fmaxf(dequant(c[1], d1, b1), dequant(c[3], d1, b1));
+          v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, 4));
+          v1 = fmaxf(v1, __shfl_xor_sync(0xffffffffu, v1, 4));
+          m[j] = odd ? v1 : v0;
+        }
+        const unsigned short codes = requant2(m[0], m[1], s2, inv2);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          s_out[(warp * kTile + 4 * j + (gq >> 1)) * kC + ch + odd] =
+              static_cast<int8_t>(codes >> (8 * j));
         }
       }
     }
-  }
+    __syncthreads();
 
-  const int pr = pr0 + py;
-  const int pc = pc0 + px;
-  if (pr >= h2 || pc >= w2) return;
-  int8_t* o = out + ((static_cast<size_t>(b) * h2 + pr) * w2 + pc) * kC;
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int c = j * kGroups + g;
-    const float d = deq2[c];
-    const float bb = bias2[c];
-    float m = 0.0f;  // the ReLU floor; the max of the four ReLU'd values
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      m = fmaxf(m, __fadd_rn(__fmul_rn(__int2float_rn(acc[q][j]), d), bb));
+    // The pooled tile to device memory, 16 bytes a thread.
+    {
+      const int px = threadIdx.x >> 2;
+      const int part = threadIdx.x & 3;
+      const int pr = cur.pr0 + px / kTile;
+      const int pc = cur.pc0 + px % kTile;
+      if (pr < h2 && pc < w2) {
+        *reinterpret_cast<int4*>(out + ((static_cast<size_t>(cur.b) * h2 + pr) * w2 + pc) * kC +
+                                 16 * part) =
+            *reinterpret_cast<const int4*>(s_out + px * kC + 16 * part);
+      }
     }
-    const float code = fminf(fmaxf(rintf(__fdiv_rn(m, s2)), -127.0f), 127.0f);
-    o[c] = static_cast<int8_t>(static_cast<int>(code));
   }
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int stem_fused_producer(const int8_t* x_q, const int* w1_words, const int* w2_words,
+extern "C" int stem_fused_producer(const int8_t* x_q, const int8_t* w1p, const int8_t* w2p,
                                    const float* deq1, const float* bias1, float s1,
                                    const float* deq2, const float* bias2, float s2, int batch,
                                    int h, int w, int8_t* out, void* stream) {
-  const cudaError_t attr = cudaFuncSetAttribute(
-      stem_fp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((w / 2 + kTile - 1) / kTile, (h / 2 + kTile - 1) / kTile, batch);
+  cudaError_t err = cudaFuncSetAttribute(
+      stem_fp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stem_fp_kernel, kThreads,
+                                                           kSmemBytes)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int tiles = batch * ((h / 2 + kTile - 1) / kTile) * ((w / 2 + kTile - 1) / kTile);
+  const int resident = sms * (per_sm > 0 ? per_sm : 1);
+  const int grid = tiles < resident ? tiles : resident;
   stem_fp_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      x_q, w1_words, w2_words, deq1, bias1, s1, deq2, bias2, s2, h, w, out);
+      x_q, w1p, w2p, deq1, bias1, s1, deq2, bias2, s2, batch, h, w, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,14 @@
 """A stride-1 ResNet bottleneck in int8, fused: 1x1 -> 3x3 SAME -> 1x1 plus
 the residual, each conv with its dequant, bias, ReLU and requant, as one
-hand-written CUDA kernel (``csrc/bottleneck.cu``) that keeps both
-intermediates out of device memory.
+hand-written CUDA kernel (``csrc/bottleneck.cu``) that runs the three
+products on the int8 tensor cores and keeps both intermediates out of device
+memory.
 
 The port of ``object_detector_tpu/kernels/bottleneck_pallas.py``'s
 ``_bottleneck_kernel`` (entry ``fused_bottleneck``). The TPU kernel walks row
 bands with one-row halos and holds all three kernels in its fast memory; the
-port's kernel walks 8 x 8 spatial tiles and streams the weights. The contract
+port's kernel walks 8 x 16 spatial tiles and streams the weights, packed
+for ``mma.sync`` (`int8_pack.pack_b_operand`). The contract
 is the function, on NHWC codes:
 
     fused_bottleneck(x, w1, deq1, bias1, w2, deq2, bias2, w3, deq3, bias3,
@@ -31,16 +33,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from object_detector_tpu_torch.kernels import build
+from object_detector_tpu_torch.kernels import build, int8_pack
 from object_detector_tpu_torch.ops import int8 as int8_ops
 
 Tensor = torch.Tensor
 
-# The kernel reads 16 input channels at a time and writes 8 output channels
-# a thread, so both widths are multiples of 16; its shared memory holds both
-# intermediates of a tile, which bounds Cm.
-CHANNEL_MULTIPLE = 16
-MAX_MID_CHANNELS = 1024
+# The kernel computes passes of 64 output channels and stages input channels
+# in chunks of 64 or more, so both widths are multiples of 64 (all of
+# ResNet-50's are); its shared memory holds both intermediates of an 8 x 16
+# tile (308 rows of Cm + 16 bytes) beside the staging buffers, which bounds
+# Cm at 576 within the 227 KB a block may use.
+CHANNEL_MULTIPLE = 64
+MAX_MID_CHANNELS = 576
 
 
 def fused_bottleneck_reference(
@@ -62,20 +66,13 @@ def fused_bottleneck_reference(
         resid=x, resid_scale=scale(resid_scale))
 
 
-def _words(w: Tensor) -> Tensor:
-    """(..., K, N) int8 -> (..., K/4, N) int32: each word holds 4 consecutive
-    input channels of one output channel, the operand of the kernel's
-    __dp4a."""
-    *lead, k, n = w.shape
-    return (w.reshape(*lead, k // 4, 4, n).transpose(-1, -2).contiguous()
-            .view(torch.int32).reshape(*lead, k // 4, n))
-
-
 def pack_weights(w1: Tensor, w2: Tensor, w3: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """The three kernels as the CUDA kernel reads them: (C/4, Cm),
-    (9, Cm/4, Cm) and (Cm/4, C) int32 words (see `_words`)."""
-    cm = w2.shape[-1]
-    return _words(w1), _words(w2.reshape(9, cm, cm)), _words(w3)
+    """The three kernels as the CUDA kernel reads them: the (C, Cm), (9 Cm,
+    Cm) (tap-major) and (Cm, C) matrices in the packed B layout of
+    `int8_pack.pack_b_operand`, int8."""
+    c, cm = w1.shape
+    return (int8_pack.pack_b_operand(w1), int8_pack.pack_b_operand(w2.reshape(9 * cm, cm)),
+            int8_pack.pack_b_operand(w3))
 
 
 def _check(x, w1, deq1, bias1, w2, deq2, bias2, w3, deq3, bias3) -> None:

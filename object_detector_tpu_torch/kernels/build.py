@@ -11,9 +11,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE / "csrc"
@@ -43,11 +44,30 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _included(src: Path, seen: List[Path]) -> List[Path]:
+    """``src`` and every header under ``CSRC_DIR`` it includes with quotes,
+    directly or through another such header, each once, in include order."""
+    if src in seen:
+        return seen
+    seen.append(src)
+    for name in _INCLUDE.findall(src.read_bytes()):
+        header = CSRC_DIR / name.decode()
+        if header.is_file():
+            _included(header, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Output path keyed by the source and the flags, so an edit rebuilds."""
-    src = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Output path keyed by the source, the headers it includes from csrc/
+    and the flags, so an edit to any of them rebuilds."""
+    digest = hashlib.sha256()
+    for path in _included(CSRC_DIR / SOURCES[name], []):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

@@ -1,6 +1,6 @@
 """All of VGG block 1 in int8: conv1_1 + requant + conv1_2 + requant + 2x2/s2
 max pool, from the input codes to the pooled codes, as one hand-written CUDA
-kernel (``csrc/stem_fp.cu``).
+kernel (``csrc/stem_fp.cu``) whose two convs run on the int8 tensor cores.
 
 The port of ``object_detector_tpu/kernels/stem_pallas.py``'s
 ``_stem_fp_kernel`` (launched by ``stem_fused_producer``). The TPU kernel
@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from object_detector_tpu_torch.kernels import build
+from object_detector_tpu_torch.kernels import build, int8_pack
 from object_detector_tpu_torch.kernels.stem import stem_conv12_pool_reference
 from object_detector_tpu_torch.ops import int8 as int8_ops
 
@@ -54,16 +54,14 @@ def stem_fused_producer_reference(
 
 
 def pack_weights(w1: Tensor, w2: Tensor) -> Tuple[Tensor, Tensor]:
-    """The kernel's __dp4a operands: w1 (3, 3, 3, 64) -> (9, 4, 16) int32
-    words, word [tap][j][cg] holding input channels 0..2 of output channel
-    4 * cg + j and a zero byte; w2 (3, 3, 64, 64) -> (9, 16, 64) words,
-    word [tap][cin / 4][cout] holding 4 consecutive input channels."""
-    w1p = torch.nn.functional.pad(w1.reshape(9, 3, CHANNELS), (0, 0, 0, 1))  # (tap, 4 cin, cout)
-    w1_words = (w1p.permute(0, 2, 1).reshape(9, CHANNELS // 4, 4, 4).permute(0, 2, 1, 3)
-                .contiguous().view(torch.int32).reshape(9, 4, CHANNELS // 4))
-    w2_words = (w2.reshape(9, CHANNELS // 4, 4, CHANNELS).permute(0, 1, 3, 2)
-                .contiguous().view(torch.int32).reshape(9, CHANNELS // 4, CHANNELS))
-    return w1_words, w2_words
+    """The kernel's B operands in the packed layout of
+    `int8_pack.pack_b_operand`: w1 (3, 3, 3, 64) as the (32, 64) matrix of
+    row k = 3 * tap + cin for k < 27 and zero rows 27..31 (the kernel's
+    im2col row of a pixel is its 27 input codes and 5 zero bytes); w2 (3, 3,
+    64, 64) as the (576, 64) matrix of row 64 * tap + cin."""
+    w1_kn = torch.nn.functional.pad(w1.reshape(27, CHANNELS), (0, 0, 0, 5))
+    return (int8_pack.pack_b_operand(w1_kn),
+            int8_pack.pack_b_operand(w2.reshape(9 * CHANNELS, CHANNELS)))
 
 
 def _check(x_q: Tensor, w1: Tensor, deq1: Tensor, bias1: Tensor,
@@ -104,7 +102,7 @@ def stem_fused_producer(
         raise ValueError(f"stem_fused_producer runs on cuda or cpu tensors, got {x_q.device}")
     if not all(t.is_contiguous() for t in (x_q, deq1, bias1, deq2, bias2)):
         raise ValueError("stem_fused_producer takes contiguous x_q, deq1, bias1, deq2 and bias2")
-    w1_words, w2_words = pack_weights(w1, w2) if packed is None else packed
+    w1_packed, w2_packed = pack_weights(w1, w2) if packed is None else packed
     b, h, w, _ = x_q.shape
     out = torch.empty((b, h // 2, w // 2, CHANNELS), dtype=torch.int8, device=x_q.device)
     if out.numel() == 0:
@@ -112,7 +110,7 @@ def stem_fused_producer(
     with torch.cuda.device(x_q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().stem_fused_producer(
-            x_q.data_ptr(), w1_words.data_ptr(), w2_words.data_ptr(), deq1.data_ptr(),
+            x_q.data_ptr(), w1_packed.data_ptr(), w2_packed.data_ptr(), deq1.data_ptr(),
             bias1.data_ptr(), float(s1), deq2.data_ptr(), bias2.data_ptr(), float(s2),
             b, h, w, out.data_ptr(), stream,
         )

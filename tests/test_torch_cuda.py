@@ -98,11 +98,13 @@ def _stem_fp_case(kind, device, seed=12):
     on ``device``. "large_bias1": rq(relu(bias1)) well above 0, so a conv1_1
     halo pixel outside the image that was not zeroed would show;
     "ragged_tile": a pooled size (11 x 18) that is not a multiple of the
-    kernel's 8 x 8 tile; "full_width": one SSD-300 image."""
+    kernel's 8 x 8 tile; "full_width": one SSD-300 image; "ties": deq = s / 2
+    and s / 8, so that many quotients y / s lie at or within an ulp of a
+    half-integer, where a reciprocal multiply alone would round wrongly."""
     b, h, w = {"ragged_tile": (3, 22, 36), "full_width": (1, 300, 300),
                "bs1": (1, 32, 32)}.get(kind, (2, 32, 32))
     rng = np.random.default_rng(seed)
-    lim = 128 if kind == "saturating" else 10
+    lim = {"saturating": 128, "ties": 2}.get(kind, 10)
     x_q = rng.integers(-lim + 1, lim, (b, h, w, 3), dtype=np.int8)
     if kind == "zero_input":
         x_q[:] = 0
@@ -112,7 +114,11 @@ def _stem_fp_case(kind, device, seed=12):
     deq2 = ((rng.random(64) + 0.5) * (0.2 if kind == "saturating" else 1e-2)).astype(np.float32)
     bias1 = (rng.normal(size=64) * 0.1).astype(np.float32)
     bias2 = (rng.normal(size=64) * 0.1).astype(np.float32)
-    if kind == "negative_bias":
+    if kind == "ties":  # quotients at or within an ulp of half-integers
+        deq1 = np.full(64, np.float32(0.043) / 2, np.float32)
+        deq2 = np.full(64, np.float32(0.021) / 8, np.float32)
+        bias1, bias2 = np.zeros(64, np.float32), np.zeros(64, np.float32)
+    elif kind == "negative_bias":
         bias1, bias2 = -np.abs(bias1) - 100.0, -np.abs(bias2) - 100.0
     elif kind == "large_bias1":
         bias1 = np.abs(bias1) + 3.0
@@ -122,7 +128,7 @@ def _stem_fp_case(kind, device, seed=12):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["random", "saturating", "negative_bias", "zero_input",
-                                  "large_bias1", "ragged_tile", "bs1", "full_width"])
+                                  "large_bias1", "ragged_tile", "bs1", "full_width", "ties"])
 def test_stem_fp_kernel_bit_equal_to_plain_version(cuda_device, kind):
     """All of VGG block 1 in one kernel against its plain version."""
     args = _stem_fp_case(kind, cuda_device)
@@ -302,23 +308,26 @@ def test_resnet_stem_kernel_bit_equal_to_plain_version(cuda_device, kind):
 
 def _bottleneck_case(kind, device, seed=9):
     """The fused bottleneck's operands on ``device``. The four shapes of
-    ResNet-50 at 512 px; "ragged": H and W that the kernel's 8 x 8 tile does
+    ResNet-50 at 512 px; "ragged": H and W that the kernel's 8 x 16 tile does
     not divide; "large_b1": a bias that makes rq(relu(b1)) well above zero,
     so a halo pixel outside the image that was not zeroed would show;
-    "narrow": the narrowest widths the kernel takes, where a pass is
-    partial."""
+    "narrow": the narrowest widths the kernel takes (one pass of 64
+    channels, one chunk); "wide_odd": widths that are not powers of two,
+    whose chunks are 64 channels (C) and 64 of 320 (Cm); "ties": deq = s / 2
+    and small codes, so that many quotients y / s lie at or within an ulp of
+    a half-integer."""
     b, h, w, c, cm = {
         "stage1": (2, 128, 128, 256, 64), "stage2": (2, 64, 64, 512, 128),
         "stage3": (2, 32, 32, 1024, 256), "stage4": (2, 16, 16, 2048, 512),
-        "ragged": (2, 13, 19, 256, 64), "large_b1": (2, 12, 20, 128, 32),
-        "zero_input": (1, 16, 16, 256, 64), "narrow": (2, 12, 16, 32, 16),
-        "wide_odd": (1, 9, 10, 400, 144),
+        "ragged": (2, 13, 19, 256, 64), "large_b1": (2, 12, 20, 128, 64),
+        "zero_input": (1, 16, 16, 256, 64), "narrow": (2, 12, 16, 64, 64),
+        "wide_odd": (1, 9, 10, 448, 320), "ties": (2, 16, 16, 256, 64),
     }[kind]
     rng = np.random.default_rng(seed)
-    x = rng.integers(-127, 128, (b, h, w, c), dtype=np.int8)
+    xlim, lim = (4, 1) if kind == "ties" else (128, 40)
+    x = rng.integers(-xlim + 1, xlim, (b, h, w, c), dtype=np.int8)
     if kind == "zero_input":
         x[:] = 0
-    lim = 40
     w1 = rng.integers(-lim, lim + 1, (c, cm)).astype(np.int8)
     w2 = rng.integers(-lim, lim + 1, (3, 3, cm, cm)).astype(np.int8)
     w3 = rng.integers(-lim, lim + 1, (cm, c)).astype(np.int8)
@@ -328,12 +337,18 @@ def _bottleneck_case(kind, device, seed=9):
     ops = (x, w1, deq(c, cm), bias(cm, 60.0 if kind == "large_b1" else 0.0),
            w2, deq(9 * cm, cm), bias(cm), w3, deq(cm, c), bias(c))
     scales = dict(s1=0.43, s2=0.51, s3=0.37, resid_scale=0.29)
+    if kind == "ties":  # y / s at or within an ulp of half-integers
+        half = lambda s, n: np.full(n, np.float32(s) / 2, np.float32)  # noqa: E731
+        zero = lambda n: np.zeros(n, np.float32)  # noqa: E731
+        ops = (x, w1, half(0.43, cm), zero(cm), w2, half(0.51, cm), zero(cm), w3,
+               half(0.37, c), zero(c))
+        scales["resid_scale"] = float(np.float32(0.37) / 2)
     return [torch.from_numpy(a).to(device) for a in ops], scales
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["stage1", "stage2", "stage3", "stage4", "ragged", "large_b1",
-                                  "zero_input", "narrow", "wide_odd"])
+                                  "zero_input", "narrow", "wide_odd", "ties"])
 def test_bottleneck_kernel_bit_equal_to_plain_version(cuda_device, kind):
     ops, scales = _bottleneck_case(kind, cuda_device)
     before = bottleneck.fused_bottleneck.launches
@@ -352,11 +367,19 @@ def test_bottleneck_kernel_bit_equal_to_plain_version(cuda_device, kind):
 @pytest.mark.cuda
 def test_bottleneck_and_resnet_stem_reject_what_the_kernels_do_not_take(cuda_device):
     ops, scales = _bottleneck_case("narrow", cuda_device)
-    narrow = [ops[0][..., :24].contiguous(), ops[1][:24, :8].contiguous(), ops[2][:8], ops[3][:8],
-              ops[4][:, :, :8, :8].contiguous(), ops[5][:8], ops[6][:8],
-              ops[7][:8, :24].contiguous(), ops[8][:24], ops[9][:24]]
-    with pytest.raises(ValueError, match="multiples of 16"):
-        bottleneck.fused_bottleneck(*narrow, **scales)  # C=24, Cm=8
+    narrow = [ops[0][..., :32].contiguous(), ops[1][:32, :32].contiguous(), ops[2][:32],
+              ops[3][:32], ops[4][:, :, :32, :32].contiguous(), ops[5][:32], ops[6][:32],
+              ops[7][:32, :32].contiguous(), ops[8][:32], ops[9][:32]]
+    with pytest.raises(ValueError, match="multiples of 64"):
+        bottleneck.fused_bottleneck(*narrow, **scales)  # C=32, Cm=32
+    cm = bottleneck.MAX_MID_CHANNELS + 64  # past what shared memory holds
+    wide = [ops[0], torch.zeros((64, cm), dtype=torch.int8, device=cuda_device),
+            ops[2].new_ones(cm), ops[3].new_zeros(cm),
+            torch.zeros((3, 3, cm, cm), dtype=torch.int8, device=cuda_device),
+            ops[5].new_ones(cm), ops[6].new_zeros(cm),
+            torch.zeros((cm, 64), dtype=torch.int8, device=cuda_device), ops[8], ops[9]]
+    with pytest.raises(ValueError, match=f"up to {bottleneck.MAX_MID_CHANNELS}"):
+        bottleneck.fused_bottleneck(*wide, **scales)
     with pytest.raises(ValueError, match="contiguous"):
         bottleneck.fused_bottleneck(ops[0].transpose(1, 2), *ops[1:], **scales)
     args = _resnet_stem_case("random", cuda_device)

@@ -1,0 +1,151 @@
+"""The operands of the int8 tensor-core kernels, checked on the CPU where
+they are made (the kernels themselves run only on the card).
+
+Each conv of the fused bottleneck (``csrc/bottleneck.cu``) and of VGG block 1
+(``csrc/stem_fp.cu``) is rebuilt from the packed weights the way the
+kernel's ``mma.sync.m16n8k32`` fragments read them (`kernel_b_matrix`; for
+conv1_1 also the A rows the kernel builds with ``__byte_perm``) and held
+equal to the int8 conv it stands for. Also: an edit to a header that a
+source includes changes the library's path, so both kernels rebuild."""
+
+import numpy as np
+import pytest
+import torch
+
+from object_detector_tpu_torch.kernels import bottleneck, build, int8_pack, stem_fp
+from object_detector_tpu_torch.ops import int8 as int8_ops
+
+torch.set_num_threads(2)
+
+
+def kernel_b_matrix(packed: torch.Tensor, k: int, n: int) -> np.ndarray:
+    """The (K, N) matrix that the kernel's B fragments read from ``packed``.
+    Lane L of pair q at k-step s of pass p holds b[0], b[1] of n-tile 2q, then
+    of n-tile 2q + 1; b[0] is column g = L // 4 of its n-tile, rows 4t .. 4t
+    + 3 of the k-step (t = L % 4), b[1] rows 16 + 4t .. 16 + 4t + 3. Fails if
+    an element is read twice or not at all."""
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert tuple(packed.shape) == (n // 64, k // 32, 4, 32, 16)
+    p, s, q, lane, byte = np.meshgrid(*(np.arange(d) for d in packed.shape), indexing="ij")
+    g, t = lane // 4, lane % 4
+    n_tile = 2 * q + byte // 8
+    reg = (byte // 4) % 2
+    rows = (32 * s + 16 * reg + 4 * t + byte % 4).ravel()
+    cols = (64 * p + 8 * n_tile + g).ravel()
+    seen = np.zeros((k, n), np.int64)
+    np.add.at(seen, (rows, cols), 1)
+    assert (seen == 1).all()
+    w = np.zeros((k, n), np.int64)
+    w[rows, cols] = packed.numpy().astype(np.int64).ravel()
+    return w
+
+
+def _taps(a: np.ndarray):
+    """The nine (ky, kx) windows of a SAME 3x3 over NHWC ``a`` (zero padded)."""
+    h, w = a.shape[1:3]
+    ap = np.pad(a, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    return [ap[:, ky:ky + h, kx:kx + w] for ky in range(3) for kx in range(3)]
+
+
+def _ints(shape, seed, lim=127):
+    return np.random.default_rng(seed).integers(-lim, lim + 1, shape).astype(np.int8)
+
+
+def _conv(x, w):
+    return int8_ops.conv_int8(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+
+
+# (C, Cm) of ResNet-50's four stages.
+RESNET_WIDTHS = {"stage1": (256, 64), "stage2": (512, 128), "stage3": (1024, 256),
+                 "stage4": (2048, 512)}
+
+
+@pytest.mark.parametrize("stage", list(RESNET_WIDTHS))
+def test_bottleneck_packed_operands_rebuild_the_convs(stage):
+    """conv1 (x . W1), conv2 (the nine taps of mid1, each against rows
+    Cm * tap .. of W2) and conv3 (mid2 . W3), from the matrices the kernel
+    reads, equal the int8 convs."""
+    c, cm = RESNET_WIDTHS[stage]
+    w1, w2, w3 = _ints((c, cm), 1), _ints((3, 3, cm, cm), 2), _ints((cm, c), 3)
+    p1, p2, p3 = bottleneck.pack_weights(*(torch.from_numpy(w) for w in (w1, w2, w3)))
+    m1, m2, m3 = kernel_b_matrix(p1, c, cm), kernel_b_matrix(p2, 9 * cm, cm), \
+        kernel_b_matrix(p3, cm, c)
+    x, mid1, mid2 = _ints((1, 3, 5, c), 4), _ints((1, 3, 5, cm), 5), _ints((1, 3, 5, cm), 6)
+    np.testing.assert_array_equal(x.astype(np.int64) @ m1, _conv(x, w1.reshape(1, 1, c, cm)))
+    acc2 = sum(win.astype(np.int64) @ m2[cm * tap: cm * (tap + 1)]
+               for tap, win in enumerate(_taps(mid1)))
+    np.testing.assert_array_equal(acc2, _conv(mid1, w2))
+    np.testing.assert_array_equal(mid2.astype(np.int64) @ m3, _conv(mid2, w3.reshape(1, 1, cm, c)))
+
+
+def _byte_perm(lo: np.ndarray, hi: np.ndarray, sel: int) -> np.ndarray:
+    """CUDA's __byte_perm on words given as (..., 4) uint8 arrays: byte i of
+    the result is byte (sel >> 4 i) & 7 of lo's four bytes then hi's."""
+    both = np.concatenate([lo, hi], axis=-1)
+    return np.stack([both[..., (sel >> (4 * i)) & 7] for i in range(4)], axis=-1)
+
+
+def _conv11_rows(x_q: np.ndarray) -> np.ndarray:
+    """The 32-byte A row of every pixel as csrc/stem_fp.cu's im2col_word
+    builds it: the nine taps' words (3 codes and a zero byte); word j < 7 is
+    __byte_perm of the words of taps a = j + j // 3 and a + 1 (a zero word
+    past tap 8) by selector 0x4210, 0x5421, 0x6542 for j % 3; word 7 is 0."""
+    words = [np.pad(win, ((0, 0),) * 3 + ((0, 1),)).view(np.uint8) for win in _taps(x_q)]
+    zero = np.zeros_like(words[0])
+    out = []
+    for j in range(7):
+        a = j + j // 3
+        out.append(_byte_perm(words[a], words[a + 1] if a < 8 else zero,
+                              (0x4210, 0x5421, 0x6542)[j % 3]))
+    out.append(zero)
+    return np.concatenate(out, axis=-1).view(np.int8)
+
+
+@pytest.mark.parametrize("conv", ["conv1_1", "conv1_2"])
+def test_stem_fp_packed_operands_rebuild_the_convs(conv):
+    """conv1_1 from the kernel's A rows (K = 27 padded to 32) against the
+    (32, 64) matrix it reads, conv1_2 from the nine taps against rows 64 *
+    tap .. of the (576, 64) one: both equal the int8 convs."""
+    w1, w2 = _ints((3, 3, 3, 64), 7), _ints((3, 3, 64, 64), 8)
+    p1, p2 = stem_fp.pack_weights(torch.from_numpy(w1), torch.from_numpy(w2))
+    if conv == "conv1_1":
+        x_q = _ints((2, 5, 7, 3), 9)
+        rows = _conv11_rows(x_q).astype(np.int64)
+        assert rows.shape == (2, 5, 7, 32) and not rows[..., 27:].any()
+        m1 = kernel_b_matrix(p1, 32, 64)
+        assert not m1[27:].any()
+        np.testing.assert_array_equal(rows @ m1, _conv(x_q, w1))
+    else:
+        q1 = _ints((1, 6, 8, 64), 10)
+        m2 = kernel_b_matrix(p2, 576, 64)
+        acc = sum(win.astype(np.int64) @ m2[64 * tap: 64 * (tap + 1)]
+                  for tap, win in enumerate(_taps(q1)))
+        np.testing.assert_array_equal(acc, _conv(q1, w2))
+
+
+def test_pack_b_operand_refuses_widths_off_the_layout():
+    with pytest.raises(ValueError, match="multiple of 32"):
+        int8_pack.pack_b_operand(torch.zeros((48, 64), dtype=torch.int8))
+    with pytest.raises(ValueError, match="N of 64"):
+        int8_pack.pack_b_operand(torch.zeros((64, 96), dtype=torch.int8))
+
+
+def test_library_path_changes_with_an_included_header(tmp_path, monkeypatch):
+    """Both tensor-core sources include int8_mma.cuh: an edit to it (or to
+    a source) gives each a new library path, so both rebuild; a source that
+    does not include it keeps its path."""
+    for name in ("bottleneck.cu", "stem_fp.cu", "nms.cu", "int8_mma.cuh"):
+        (tmp_path / name).write_bytes((build.CSRC_DIR / name).read_bytes())
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    names = ("bottleneck", "stem_fp", "nms")
+    before = {n: build.library_path(n) for n in names}
+    assert len(set(before.values())) == 3
+    header = tmp_path / "int8_mma.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// an edit\n")
+    after = {n: build.library_path(n) for n in names}
+    assert after["bottleneck"] != before["bottleneck"] and after["stem_fp"] != before["stem_fp"]
+    assert after["nms"] == before["nms"]
+    src = tmp_path / "stem_fp.cu"
+    src.write_bytes(src.read_bytes() + b"\n")
+    assert build.library_path("stem_fp") != after["stem_fp"]
+    assert build.library_path("bottleneck") == after["bottleneck"]

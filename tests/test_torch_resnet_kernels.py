@@ -183,18 +183,24 @@ def test_bottleneck_pads_the_3x3_with_zero_codes_of_mid1():
 
 
 def test_packed_weights_hold_four_input_channels_a_word():
-    """The layouts the CUDA kernels read, checked where they are made."""
+    """The layouts the CUDA kernels read, checked where they are made: the
+    bottleneck's three kernels as (K, N) matrices (w2 tap-major) in the
+    tensor cores' packed B layout (tests/test_torch_int8_pack.py rebuilds
+    the convs from them at ResNet-50's widths), and the ResNet stem's
+    kernel as __dp4a words of four input channels."""
+    from test_torch_int8_pack import kernel_b_matrix
+
     rng = np.random.default_rng(1)
-    w1 = _t(rng.integers(-127, 128, (32, 16)).astype(np.int8))
-    w2 = _t(rng.integers(-127, 128, (3, 3, 16, 16)).astype(np.int8))
-    w3 = _t(rng.integers(-127, 128, (16, 32)).astype(np.int8))
+    w1 = _t(rng.integers(-127, 128, (128, 64)).astype(np.int8))
+    w2 = _t(rng.integers(-127, 128, (3, 3, 64, 64)).astype(np.int8))
+    w3 = _t(rng.integers(-127, 128, (64, 128)).astype(np.int8))
     p1, p2, p3 = bottleneck.pack_weights(w1, w2, w3)
-    assert p1.dtype == torch.int32 and p1.shape == (8, 16) and p2.shape == (9, 4, 16)
-    assert p3.shape == (4, 32) and all(p.is_contiguous() for p in (p1, p2, p3))
-    bytes1 = p1.view(torch.int8).reshape(8, 16, 4)  # [k / 4][n][k % 4]
-    assert torch.equal(bytes1.permute(0, 2, 1).reshape(32, 16), w1)
-    bytes2 = p2.view(torch.int8).reshape(9, 4, 16, 4)
-    assert torch.equal(bytes2.permute(0, 1, 3, 2).reshape(3, 3, 16, 16), w2)
+    assert all(p.dtype == torch.int8 and p.is_contiguous() for p in (p1, p2, p3))
+    assert p1.shape == (1, 4, 4, 32, 16) and p2.shape == (1, 18, 4, 32, 16)
+    assert p3.shape == (2, 2, 4, 32, 16)
+    np.testing.assert_array_equal(kernel_b_matrix(p1, 128, 64), w1.numpy())
+    np.testing.assert_array_equal(kernel_b_matrix(p2, 576, 64), w2.reshape(576, 64).numpy())
+    np.testing.assert_array_equal(kernel_b_matrix(p3, 64, 128), w3.numpy())
     w_q = _t(rng.integers(-127, 128, (7, 7, 3, 64)).astype(np.int8))
     packed = resnet_stem.pack_weights(w_q)
     assert packed.dtype == torch.int32 and packed.shape == (7, 6, 64) and packed.is_contiguous()

@@ -202,7 +202,7 @@ def test_kernel_specs_against_the_unfused_spec(quant):
 
     def bottleneck_fn(*args, packed=None, **scales):
         calls["bottleneck"] += 1
-        assert len(packed) == 3 and packed[0].dtype == torch.int32
+        assert len(packed) == 3 and all(p.dtype == torch.int8 for p in packed)
         return bottleneck.fused_bottleneck(*args, **scales)
 
     spec_b = _with_env(lambda: engine.build_resnet_ssd_spec(cfg, fused_bottleneck=True),

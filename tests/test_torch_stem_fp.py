@@ -124,39 +124,31 @@ def test_reference_bit_equal_to_unfused_chain(kind):
     assert stem_fp.stem_fused_producer.launches == before
 
 
-def _bytes(words):
-    """int32 words -> their four int8 bytes on a new last axis."""
-    return words.contiguous().view(torch.int8).reshape(*words.shape, 4).to(torch.int64)
-
-
 def test_pack_weights_is_the_kernels_dp4a_layout():
-    """Both convs rebuilt from the packed words the way csrc/stem_fp.cu reads
-    them (conv1_1: input word of a pixel times word [tap][j][cg] for output
-    channel 4 * cg + j; conv1_2: word [tap][cin / 4][cout]) equal the int8
-    convs they stand for."""
+    """The operands csrc/stem_fp.cu reads, now for mma.sync rather than
+    __dp4a: w1 as the (32, 64) matrix of row 3 * tap + cin with zero rows
+    27..31, w2 as the (576, 64) matrix of row 64 * tap + cin, each in the
+    packed B layout; both convs rebuilt from what the kernel reads equal
+    the int8 convs they stand for (the A rows of conv1_1 as the kernel
+    builds them; tests/test_torch_int8_pack.py has the case by case
+    version)."""
+    from test_torch_int8_pack import _conv11_rows, _taps, kernel_b_matrix
+
     x_q, w1, _, _, _, w2, _, _, _ = _torch_args(_case("saturating"))
-    w1_words, w2_words = stem_fp.pack_weights(w1, w2)
-    assert tuple(w1_words.shape) == (9, 4, 16) and tuple(w2_words.shape) == (9, 16, 64)
-    assert w1_words.dtype == w2_words.dtype == torch.int32
-    w1b, w2b = _bytes(w1_words), _bytes(w2_words)  # (9, 4, 16, 4), (9, 16, 64, 4)
-    assert not w1b[..., 3].any()  # the zero fourth byte of each 3-channel word
-    b, h, w, _ = x_q.shape
-    xp = torch.nn.functional.pad(x_q.to(torch.int64), (0, 1, 1, 1, 1, 1))  # (B, H+2, W+2, 4)
-    acc1 = torch.zeros((b, h, w, 64), dtype=torch.int64)
-    for t in range(9):
-        win = xp[:, t // 3: t // 3 + h, t % 3: t % 3 + w]  # (B, H, W, 4)
-        # weight bytes of output channel 4 * cg + j, ordered by channel
-        wt = w1b[t].permute(1, 0, 2).reshape(64, 4)
-        acc1 += torch.einsum("bhwk,ck->bhwc", win, wt)
-    np.testing.assert_array_equal(acc1.numpy(), int8_ops.conv_int8(x_q, w1).numpy())
+    w1_packed, w2_packed = stem_fp.pack_weights(w1, w2)
+    assert tuple(w1_packed.shape) == (1, 1, 4, 32, 16)
+    assert tuple(w2_packed.shape) == (1, 18, 4, 32, 16)
+    assert w1_packed.dtype == w2_packed.dtype == torch.int8
+    m1, m2 = kernel_b_matrix(w1_packed, 32, 64), kernel_b_matrix(w2_packed, 576, 64)
+    np.testing.assert_array_equal(m1[:27], w1.reshape(27, 64).numpy())
+    assert not m1[27:].any()
+    acc1 = _conv11_rows(x_q.numpy()).astype(np.int64) @ m1
+    np.testing.assert_array_equal(acc1, int8_ops.conv_int8(x_q, w1).numpy())
     q1 = torch.randint(-127, 128, (1, 6, 8, 64), generator=torch.Generator().manual_seed(0),
                        dtype=torch.int8)
-    qp = torch.nn.functional.pad(q1.to(torch.int64), (0, 0, 1, 1, 1, 1))
-    acc2 = torch.zeros((1, 6, 8, 64), dtype=torch.int64)
-    for t in range(9):
-        win = qp[:, t // 3: t // 3 + 6, t % 3: t % 3 + 8].reshape(1, 6, 8, 16, 4)
-        acc2 += torch.einsum("bhwgk,gck->bhwc", win, w2b[t])
-    np.testing.assert_array_equal(acc2.numpy(), int8_ops.conv_int8(q1, w2).numpy())
+    acc2 = sum(win.astype(np.int64) @ m2[64 * t: 64 * (t + 1)]
+               for t, win in enumerate(_taps(q1.numpy())))
+    np.testing.assert_array_equal(acc2, int8_ops.conv_int8(q1, w2).numpy())
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
