@@ -6,18 +6,27 @@
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from csrc/ with nvcc, one process per source
-     (a source built before, unchanged, is reused);
-  3. hold the NMS kernel against its plain PyTorch version at the SSD-300
-     bs=64 shape (R=1280 rows, k=512, max_out=100): dense, sparse and
-     tie-heavy scores, bit-equal; hold the stem and L2Norm kernels against
-     theirs on synthetic saturating, all-negative-bias and all-zero inputs;
+     (a source built before, unchanged, is reused); print each kernel's
+     registers and spills (ptxas), its SASS counts of the opcodes that show
+     its design (cuobjdump: B6 must hold IMMA and no IDP4A, the NMS scan's
+     warp route no block barrier) and the dynamic shared memory of B6 and
+     of the NMS scan's two routes;
+  3. hold the NMS kernel against its plain PyTorch version, bit-equal: at
+     the SSD-300 bs=64 shape (R=1280 rows, k=512, max_out=100) on dense,
+     sparse, tie-heavy and negative-corner rows; at 20, 80 and 5120 rows;
+     at k = 1, 100, the warp route's widest row (512), the block route's
+     narrowest (513) and the widest the wrapper takes (8192); hold the stem
+     and L2Norm kernels against theirs on synthetic saturating,
+     all-negative-bias and all-zero inputs;
   4. serve the full-width ssd300_vgg16_voc float model through the Predictor
      at bs=1 (seeded random weights), check that the NMS kernel ran, hold it
-     against its plain version on that path's own rows and time the bs=1 p50;
+     against its plain version on that path's own rows, time it there (20
+     rows) beside its bound and time the bs=1 p50;
   5. serve ssd300_infer_bs64 at bs=64 through make_predict_fn, check that the
      NMS kernel ran, hold its detections against the plain path, time img/s;
   6. profile both float paths and time the NMS kernel against its plain
-     version on the bs=64 path's inputs;
+     version on the bs=64 path's inputs (its device time by CUDA graph
+     replay here and in phases 4, 18 and 21);
   7. serve ssd300_infer_bs64 at bs=64 through make_int8_predict_fn
      (calibrated on 8 synthesized images), on the B2 route (ODT_STEM_FP=0:
      conv1_1 through the engine's int8 conv, then B2, up to phase 23): check
@@ -61,13 +70,16 @@ Phases, each fatal on failure:
      ATen's max-pool backward;
  17. hold the fused ResNet stem and the fused bottleneck kernels bit-equal
      to their plain PyTorch versions on synthetic cases: the stem on random
-     and saturated inputs with extreme biases and on a size whose tiles are
-     partial; the bottleneck at each of ResNet-50's four shapes, on H and W
-     that its tile does not divide, with a large conv1 bias (a halo pixel
-     outside the image that was not zeroed would show), on a zero input, at
-     its narrowest widths (C = Cm = 64), at widths that are not powers of
-     two (C = 448, Cm = 320) and on codes whose quotients y / s lie at or
-     next to half-integers (deq = s / 2);
+     and saturated inputs with extreme biases, on a size whose pooled H/4
+     and W/4 its 8 x 16 tile does not divide, on pixels at (n + 1/2) *
+     in_scale and one ulp either side (the input quantize's ties), on
+     quotients y / out_scale at or next to half-integers (the requant's
+     ties) and on one full-width 512 x 512 image; the bottleneck at each of
+     ResNet-50's four shapes, on H and W that its tile does not divide, with
+     a large conv1 bias (a halo pixel outside the image that was not zeroed
+     would show), on a zero input, at its narrowest widths (C = Cm = 64), at
+     widths that are not powers of two (C = 448, Cm = 320) and on codes
+     whose quotients y / s lie at or next to half-integers (deq = s / 2);
  18. serve full-width ssd512_resnet50_coco (seeded random weights, seeded
      non-trivial BatchNorm statistics) in float at bs=64 through
      make_predict_fn: check that the NMS kernel ran (5120 rows), hold it
@@ -87,15 +99,19 @@ Phases, each fatal on failure:
      on the same QuantParams;
  20. time the stem kernel and each of the twelve bottleneck launches on the
      bs=64 path's inputs beside their bounds, their plain versions, the
-     engine's unfused chain for the same work (which must give the kernel's
-     codes) and, for the bottleneck, the products alone as torch._int_mm on
-     operands laid out beforehand (its GEMM yardstick);
+     engine's unfused chain for the same work (which must give the
+     bottleneck's codes, and the stem's within one code on 1e-4 of them: the
+     chain divides where the stem multiplies by the reciprocal) and the
+     products alone as torch._int_mm on operands laid out beforehand (their
+     GEMM yardsticks; the stem's and its own time by CUDA graph replay);
  21. serve one image through the Predictor in float and in int8 at bs=1: the
      same launch counts, the kernels bit-equal to their plain versions on
      that path's inputs (the NMS kernel on the (80, 512) rows of the float
      and of the int8 path), the served detections equal to the plain
-     versions' run, p50 and a profile of both, and the bottleneck's twelve
-     launches timed on that path's inputs;
+     versions' run, p50 and a profile of both, the bottleneck's twelve
+     launches timed on that path's inputs, the stem kernel on that path's
+     image beside the same comparisons as in phase 20, and the NMS kernel on
+     the float path's 80 rows;
  22. on a small ResNet-50 config (64 px): the float32 logits and the int8 tap
      codes, logits and detections on the card against the CPU (the CPU runs
      the kernels' plain versions), and what bfloat16 gives on the card
@@ -221,20 +237,22 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def rows_case(np, torch, kind: str, seed: int):
-    """(coords (4, R, K), scores (R, K)) on the card for one kernel case."""
+def rows_case(np, torch, kind: str, seed: int, rows: int = R, k: int = K):
+    """(coords (4, rows, k), scores (rows, k)) on the card for one kernel case."""
     rng = np.random.default_rng(seed)
-    xy = rng.uniform(0, 0.8, (2, R, K))
-    wh = rng.uniform(0.02, 0.3, (2, R, K))
+    xy = rng.uniform(0, 0.8, (2, rows, k))
+    wh = rng.uniform(0.02, 0.3, (2, rows, k))
     coords = np.concatenate([xy, np.minimum(xy + wh, 1.0)]).astype(np.float32)
-    if kind == "dense":
-        scores = rng.uniform(0, 1, (R, K))
-    elif kind == "sparse":  # about 1% of candidates above 0.01
-        scores = np.where(rng.uniform(0, 1, (R, K)) < 0.01,
-                          rng.uniform(0.01, 1, (R, K)), rng.uniform(0, 0.01, (R, K)))
-    else:  # ties: five distinct scores, every box duplicated
-        scores = rng.integers(0, 5, (R, K)) / 4.0
+    if kind == "sparse":  # about 1% of candidates above 0.01
+        scores = np.where(rng.uniform(0, 1, (rows, k)) < 0.01,
+                          rng.uniform(0.01, 1, (rows, k)), rng.uniform(0, 0.01, (rows, k)))
+    elif kind == "ties":  # five distinct scores, every box duplicated
+        scores = rng.integers(0, 5, (rows, k)) / 4.0
         coords[:, :, 1::2] = coords[:, :, 0::2]
+    else:  # dense; negative: corners outside [0, 1], the winner's are max(x[w], 0)
+        scores = rng.uniform(0, 1, (rows, k))
+        if kind == "negative":
+            coords -= 0.4
     return (torch.from_numpy(coords).cuda(),
             torch.from_numpy(scores.astype(np.float32)).cuda())
 
@@ -249,6 +267,27 @@ def cuda_ms(torch, fn, iters: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """Mean device time of fn() over iters calls captured in one CUDA graph
+    and replayed between CUDA events: the kernel's own time where a call is
+    too short to hide the host's enqueue (cuda_ms would time the host)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -268,7 +307,7 @@ def host_ms(torch, fn, iters: int) -> list:
 
 # Kernel-name fragments that group the profile's device time.
 PROFILE_GROUPS = (
-    ("nms_kernel", ("nms_rows_kernel",)),
+    ("nms_kernel", ("nms_rows_",)),
     ("stem_kernel", ("stem_conv12_pool_kernel",)),
     ("stem_fp_kernel", ("stem_fp_kernel",)),
     ("l2norm_kernel", ("l2norm_requant_kernel",)),
@@ -325,6 +364,50 @@ def profile_window(torch, fn, iters: int) -> dict:
     }
 
 
+# SASS opcodes that show a kernel's design: tensor-core products (IMMA), the
+# CUDA cores' dot products (IDP4A), ldmatrix, cp.async, block barriers, warp
+# shuffles and reductions.
+SASS_OPS = ("IMMA", "IDP4A", "LDSM", "LDGSTS", "BAR", "SHFL", "REDUX")
+
+
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name in a mangled symbol, with its template argument
+    (the length-prefixed component that ends in "_kernel", then "ILi<n>E")."""
+    import re
+
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):  # a hash's digits may run into the length
+            name = mangled[m.end():m.end() + int(m.group()[i:])]
+            if name.endswith("_kernel"):
+                arg = re.match(r"ILi(\d+)E", mangled[m.end() + len(name):])
+                return name + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
+
+
+def sass_counts(library: str) -> dict:
+    """{kernel: {opcode: count}} for each kernel function of a built
+    library, from `cuobjdump -sass` (kernel names shortened to the
+    function and its template argument)."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    check(CUDA_HOME is not None, "no CUDA toolkit found for cuobjdump")
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", library],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {library} failed: {out.stderr[-2000:]}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            counts[fn] = {op: 0 for op in SASS_OPS}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and fn is not None and m.group(1) in SASS_OPS:
+            counts[fn][m.group(1)] += 1
+    return counts
+
+
 def bound(bytes_moved: float, ops: float, ops_per_s: float):
     """(least ms, "bytes" or "operations") for work of these sizes."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -341,6 +424,21 @@ def nms_bound_ms(scores_out, rows: int, k: int, max_out: int):
     bytes_moved = 5 * rows * k * 4 + rows * max_out * 8
     ops = NMS_OPS_PER_COLUMN_STEP * k * steps + NMS_OPS_PER_COLUMN_HOISTED * rows * k
     return bound(bytes_moved, ops, F32_OPS_PER_S)
+
+
+def nms_timing(torch, nms_kernel, held: dict, plain_iters: int) -> dict:
+    """The NMS kernel on a path's captured rows (``hold_nms``'s result): its
+    device time (a CUDA graph's replay, so that a launch shorter than the
+    host's enqueue is still timed on the card), the plain version's time,
+    and the bound from the rows each row really ran."""
+    coords, scores, kwargs = held["coords"], held["scores"], held["kwargs"]
+    rows, k = scores.shape
+    bound_ms, bound_by = nms_bound_ms(held["kernel_scores"], rows, k, kwargs["max_out"])
+    return {"rows": rows, "k": k, "max_out": kwargs["max_out"],
+            "ms": graph_ms(torch, lambda: nms_kernel.nms_rows(coords, scores, **kwargs), 20),
+            "plain_ms": cuda_ms(
+                torch, lambda: nms_kernel.nms_rows_reference(coords, scores, **kwargs), plain_iters),
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def stem_bound_ms(q1, out):
@@ -449,6 +547,48 @@ def stem_fp_gemms(torch, x_q, w1, w2):
     return [(rows1, col_major(w1_kn)), (im2col3x3(torch, q1), col_major(w2.reshape(576, 64)))]
 
 
+def resnet_stem_gemms(torch, int8_ops, images, w_q, in_scale):
+    """B6's products as one GEMM: the quantized image's 7x7/s2 pad-3 im2col
+    rows (147 codes, padded to 160) . the (160, 64) kernel."""
+    pad = torch.nn.functional.pad
+    x = int8_ops.quantize(images.clone(), int8_ops.scale_tensor(in_scale, images.device))
+    b, h, w, _ = x.shape
+    xp = pad(x, (0, 0, 3, 3, 3, 3))
+    rows = torch.cat([xp[:, ky:ky + h:2, kx:kx + w:2] for ky in range(7) for kx in range(7)],
+                     dim=-1)
+    w_kn = pad(w_q.reshape(147, 64), (0, 0, 0, 13))
+    return [(pad(rows.reshape(-1, 147), (0, 13)), col_major(w_kn))]
+
+
+def resnet_stem_timing(torch, int8_ops, resnet_stem, qp, op, stem_args, stem_kw) -> dict:
+    """B6 on a path's own stem inputs: its device time (a CUDA graph's
+    replay), its plain version's, the engine's unfused chain's (which must
+    stay within one code of the kernel on 1e-4 of the codes: it divides where
+    the kernel multiplies by the reciprocal), the GEMM yardstick's (the same
+    products as torch._int_mm on im2col rows laid out beforehand, device
+    time) and the bound."""
+    images = stem_args[0]
+    out = resnet_stem.resnet_stem(*stem_args, **stem_kw)
+    chain = unfused_stem(int8_ops, qp, op, images)
+    diff = (out.int() - chain.int()).abs()
+    vs_chain = {"max_code_diff": int(diff.max()),
+                "share_differing": float((diff > 0).float().mean())}
+    check(vs_chain["max_code_diff"] <= 1 and vs_chain["share_differing"] <= 1e-4,
+          f"B6 on {tuple(images.shape)}: further from the unfused chain than one code on 1e-4 "
+          f"of the codes: {vs_chain}")
+    bound_ms, bound_by = resnet_stem_bound_ms(images, out)
+    del out, chain, diff
+    gemms = resnet_stem_gemms(torch, int8_ops, images, stem_args[1], stem_args[4])
+    yardstick = sum(graph_ms(torch, lambda a=a, b=b: torch._int_mm(a, b), 5) for a, b in gemms)
+    del gemms
+    return {"input": list(images.shape),
+            "ms": graph_ms(torch, lambda: resnet_stem.resnet_stem(*stem_args, **stem_kw), 20),
+            "plain_ms": cuda_ms(torch, lambda: resnet_stem.resnet_stem_reference(*stem_args), 2),
+            "unfused_chain_ms": cuda_ms(torch, lambda: unfused_stem(int8_ops, qp, op, images), 3),
+            "gemm_yardstick_ms": yardstick, "bound_ms": bound_ms, "bound_by": bound_by,
+            "vs_unfused_chain": vs_chain}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -515,24 +655,55 @@ def main() -> int:
     check(not missing, f"no library for {missing} after the build")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            entry = line.find("Compiling entry function")
+            if entry >= 0:
+                print(f"ptxas[{name}]: " + kernel_name(line[entry:].split("'")[1]))
+            elif "registers" in line or "smem" in line or "spill" in line:
                 print(f"ptxas[{name}]: {line.strip()}")
+    # What each kernel was built into: B6's products on the tensor cores and
+    # none on __dp4a; the NMS scan's warp route without a block barrier.
+    sass = {name: sass_counts(str(build.library_path(name))) for name in build.SOURCES}
+    for name, fns in sass.items():
+        print(json.dumps({"phase": "sass", "library": name, "counts": fns}))
+    stem_sass = sass["resnet_stem"].get("resnet_stem_kernel", {})
+    check(stem_sass.get("IMMA", 0) > 0 and stem_sass.get("IDP4A", 1) == 0,
+          f"resnet_stem_kernel's SASS is not the tensor-core design: {stem_sass}")
+    warp_routes = {fn: c for fn, c in sass["nms"].items() if fn.startswith("nms_rows_kernel<")}
+    check(len(warp_routes) == 5 and all(c["BAR"] == 0 for c in warp_routes.values()),
+          f"the NMS scan's warp route is not five barrier-free kernels: {warp_routes}")
+    print(json.dumps({"phase": "dynamic_smem_bytes", "resnet_stem": resnet_stem.smem_bytes(),
+                      "nms_rows_warp_route_block_at_k512": 4 * 512 * 16,
+                      "nms_rows_block_route_per_column": 24,
+                      "nms_rows_warp_route_max_k": nms_kernel.warp_route_max_k()}))
+    check(nms_kernel.warp_route_max_k() == nms_kernel.WARP_ROUTE_MAX_K,
+          "the built NMS library's warp route disagrees with WARP_ROUTE_MAX_K")
 
     # 3. Each kernel against its plain version on synthetic cases, bit-equal.
-    kw = dict(max_out=MAX_OUT, iou_threshold=0.45, score_threshold=0.01)
+    # The NMS scan: the four kinds at the SSD-300 bs=64 shape, the bs=1
+    # paths' 20 and 80 rows and SSD-512 bs=64's 5120; k = 1, a k that is not
+    # a multiple of 32, the warp route's widest row and the block route's
+    # narrowest, and the widest row the wrapper takes.
     max_abs_err = 0.0
-    for i, case in enumerate(("dense", "sparse", "ties")):
-        coords, scores = rows_case(np, torch, case, seed=i)
+    widest = nms_kernel.WARP_ROUTE_MAX_K
+    nms_cases = [("dense", R, K), ("sparse", R, K), ("ties", R, K), ("negative", R, K),
+                 ("dense", 20, K), ("dense", 80, K), ("dense", 5120, K), ("dense", 64, 1),
+                 ("ties", 64, 100), ("dense", 64, widest), ("dense", 64, widest + 1),
+                 ("dense", 16, nms_kernel.MAX_K)]
+    for i, (case, rows, k) in enumerate(nms_cases):
+        coords, scores = rows_case(np, torch, case, seed=i, rows=rows, k=k)
+        kw = dict(max_out=min(MAX_OUT, k), iou_threshold=0.45, score_threshold=0.01)
         got_s, got_c = nms_kernel.nms_rows(coords, scores, **kw)
         torch.cuda.synchronize()
         want_s, want_c = nms_kernel.nms_rows_reference(coords, scores, **kw)
         err = (got_s - want_s).abs().max().item()
         max_abs_err = max(max_abs_err, err)
         check(torch.equal(got_s, want_s) and torch.equal(got_c, want_c),
-              f"nms kernel differs from nms_rows_reference ({case}): max_abs_err {err}, "
-              f"{int((got_c != want_c).sum())} columns differ")
-        print(json.dumps({"phase": "nms_kernel_vs_plain", "case": case, "bit_equal": True,
+              f"nms kernel differs from nms_rows_reference ({case}, {rows} x {k}): max_abs_err "
+              f"{err}, {int((got_c != want_c).sum())} columns differ")
+        print(json.dumps({"phase": "nms_kernel_vs_plain", "case": case, "rows": rows, "k": k,
+                          "route": "warp" if k <= widest else "block", "bit_equal": True,
                           "emitted": int((got_s > 0).sum())}))
+    del coords, scores, got_s, got_c, want_s, want_c
     stem_err = l2norm_err = 0
     gen = torch.Generator(device="cuda").manual_seed(1)
     w2 = torch.randint(-127, 128, (3, 3, 64, 64), generator=gen, device="cuda",
@@ -595,12 +766,15 @@ def main() -> int:
     check(bs1_rows["scores"].shape[0] == cfg1.model.num_classes,
           f"bs=1 NMS rows {tuple(bs1_rows['scores'].shape)}, expected one per class")
     max_abs_err = max(max_abs_err, bs1_rows["max_abs_err"])
+    # The kernel at these 20 rows: one row's serial chain of emit steps sets
+    # the time; 20 rows (five blocks) cannot fill 132 SMs.
+    nms20 = nms_timing(torch, nms_kernel, bs1_rows, 3)
     predict1 = make_predict_fn(cfg1, predictor.model, anchors_np, device="cuda")
     canvas = rng.integers(0, 256, (1, 300, 300, 3), dtype=np.uint8)
     p50_bs1 = statistics.median(host_ms(torch, lambda: predict1(canvas), 50))
     print(json.dumps({"phase": "predictor_bs1", "detections": len(dets),
                       "launches": launches["float_bs1"],
-                      "nms_rows": list(bs1_rows["scores"].shape),
+                      "nms_rows": list(bs1_rows["scores"].shape), "nms_timing": nms20,
                       "kernel_vs_plain_bit_equal": True, "p50_ms": p50_bs1, **where}))
 
     # 5. ssd300_infer_bs64 at bs=64 through make_predict_fn.
@@ -637,15 +811,8 @@ def main() -> int:
 
     # 6. The NMS kernel against its plain version on the bs=64 path's own
     # inputs (held bit-equal in phase 5).
-    coords, scores, kwargs = bs64_rows["coords"], bs64_rows["scores"], bs64_rows["kwargs"]
-    rows, k = scores.shape
-    nms_ms = cuda_ms(torch, lambda: nms_kernel.nms_rows(coords, scores, **kwargs), 50)
-    nms_plain_ms = cuda_ms(
-        torch, lambda: nms_kernel.nms_rows_reference(coords, scores, **kwargs), 3)
-    nms_bound, nms_bound_by = nms_bound_ms(bs64_rows["kernel_scores"], rows, k, kwargs["max_out"])
-    print(json.dumps({"phase": "nms_timing", "rows": rows, "k": k,
-                      "max_out": kwargs["max_out"], "ms": nms_ms, "plain_ms": nms_plain_ms,
-                      "bound_ms": nms_bound, "bound_by": nms_bound_by, **where}))
+    nms1280 = nms_timing(torch, nms_kernel, bs64_rows, 3)
+    print(json.dumps({"phase": "nms_timing", **nms1280, **where}))
     del model, predict, bs64_rows, det, det_k, same_as_postprocess
 
     # 7. The int8 engine at bs=64 through make_int8_predict_fn, on the B2
@@ -927,13 +1094,7 @@ def main() -> int:
           f"SSD-512 NMS rows {tuple(rows512['scores'].shape)}")
     max_abs_err = max(max_abs_err, rows512["max_abs_err"])
     # The NMS kernel at SSD-512's 5120 rows beside its bound from these rows.
-    c512, s512, kw512 = rows512["coords"], rows512["scores"], rows512["kwargs"]
-    nms512 = {"rows": s512.shape[0],
-              "ms": cuda_ms(torch, lambda: nms_kernel.nms_rows(c512, s512, **kw512), 20),
-              "plain_ms": cuda_ms(torch, lambda: nms_kernel.nms_rows_reference(c512, s512, **kw512),
-                                  2)}
-    nms512["bound_ms"], nms512["bound_by"] = nms_bound_ms(rows512["kernel_scores"], *s512.shape,
-                                                          kw512["max_out"])
+    nms512 = nms_timing(torch, nms_kernel, rows512, 2)
     ms512 = host_ms(torch, lambda: predict512(images512), 10)
     float512_img_per_s = 64 / (statistics.median(ms512) / 1e3)
     print(json.dumps({"phase": "ssd512_predict_bs64", "valid_detections": int(det512.valid.sum()),
@@ -943,7 +1104,7 @@ def main() -> int:
                       **where}))
     print(json.dumps({"phase": "profile_ssd512_bs64",
                       **profile_window(torch, lambda: predict512(images512), 3), **where}))
-    del rows512, det512, c512, s512
+    del rows512, det512
 
     # 19. The int8 engine at bs=64 through make_int8_predict_fn.
     calib512 = rng.integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)
@@ -1041,13 +1202,8 @@ def main() -> int:
 
     # 20. The stem kernel and each of the twelve bottleneck launches on the
     # bs=64 path's own inputs (held bit-equal in 19).
-    stem_args, stem_kw = held512["stem_args"], held512["stem_kw"]
-    rstem_out = resnet_stem.resnet_stem(*stem_args, **stem_kw)
-    rstem_ms = cuda_ms(torch, lambda: resnet_stem.resnet_stem(*stem_args, **stem_kw), 10)
-    rstem_plain_ms = cuda_ms(torch, lambda: resnet_stem.resnet_stem_reference(*stem_args), 2)
-    rstem_unfused_ms = cuda_ms(
-        torch, lambda: unfused_stem(int8_ops, qp512, predict512_8.spec[0], stem_args[0]), 3)
-    rstem_bound, rstem_bound_by = resnet_stem_bound_ms(stem_args[0], rstem_out)
+    rstem64 = resnet_stem_timing(torch, int8_ops, resnet_stem, qp512, predict512_8.spec[0],
+                                 held512["stem_args"], held512["stem_kw"])
     block_ops = [op for op in predict512_8.spec if isinstance(op, engine.BottleneckOp)]
     block_rows = []
     yardstick = {}  # the products as torch._int_mm, once per shape
@@ -1091,13 +1247,11 @@ def main() -> int:
         for k in timed:
             v[k] /= v["launches"]
     print(json.dumps({"phase": "resnet_kernel_timing", "batch": 64,
-                      "stem": {"input": list(stem_args[0].shape), "ms": rstem_ms,
-                               "plain_ms": rstem_plain_ms, "unfused_chain_ms": rstem_unfused_ms,
-                               "bound_ms": rstem_bound, "bound_by": rstem_bound_by},
+                      "stem": rstem64,
                       "bottleneck_per_launch_by_shape": by_shape,
                       "bottleneck_per_forward": block_sum,
                       "bottleneck_per_block": block_rows, **where}))
-    del held512, stem_args, rstem_out, predict512_8, predict_unfused, qp512, images512
+    del held512, predict512_8, predict_unfused, qp512, images512
     torch.cuda.empty_cache()
 
     # 21. One image through the Predictor at bs=1, float and int8.
@@ -1116,6 +1270,7 @@ def main() -> int:
     check(tuple(rows512_1["scores"].shape) == (cfg512.model.num_classes, 512),
           f"SSD-512 float bs=1 NMS rows {tuple(rows512_1['scores'].shape)}")
     max_abs_err = max(max_abs_err, rows512_1["max_abs_err"])
+    nms80 = nms_timing(torch, nms_kernel, rows512_1, 3)
     predictor512_8 = Predictor(cfg512, params512, class_names, device="cuda", int8=True)
     dets512_8, launches["ssd512_int8_bs1"] = counted(
         lambda: predictor512_8.predict_array(image, score_threshold=0.0))
@@ -1131,6 +1286,10 @@ def main() -> int:
     rstem_err = max(rstem_err, held512_1["stem_err"])
     bott_err = max(bott_err, held512_1["bottleneck_err"])
     max_abs_err = max(max_abs_err, held512_1["nms_err"])
+    # B6 at bs=1 on the path's own image, beside the same comparisons as at bs=64.
+    rstem1 = resnet_stem_timing(torch, int8_ops, resnet_stem, predictor512_8._predict.qp,
+                                predictor512_8._predict.spec[0], held512_1["stem_args"],
+                                held512_1["stem_kw"])
     # B7's device time at bs=1: each of the path's twelve launches on its own
     # inputs, summed.
     bott_bs1 = [cuda_ms(torch, lambda a=a, k=k: bottleneck.fused_bottleneck(*a, **k), 20)
@@ -1153,7 +1312,9 @@ def main() -> int:
                       "kernels_vs_plain_bit_equal": True,
                       "nms_rows": {"float": list(rows512_1["scores"].shape),
                                    "int8": held512_1["nms_rows"]},
+                      "nms_timing_float_rows": nms80,
                       "bottleneck_inputs": [list(a[0].shape) for a, _ in held512_1["block_args"]],
+                      "resnet_stem_bs1": rstem1,
                       "bottleneck_bs1_ms_per_launch": bott_bs1,
                       "bottleneck_bs1_ms_per_forward": sum(bott_bs1),
                       "float_p50_ms": p50_512, "int8_p50_ms": p50_512_8, **where}))
@@ -1368,13 +1529,15 @@ def main() -> int:
             "replaces": "object_detector_tpu/kernels/nms_pallas.py:61",
             **counts("nms_rows"),
             "max_abs_err": max_abs_err,
-            "ms": nms_ms,
-            "plain_ms": nms_plain_ms,
-            "bound_ms": nms_bound,
-            "bound_by": nms_bound_by,
+            "ms": nms1280["ms"],
+            "plain_ms": nms1280["plain_ms"],
+            "bound_ms": nms1280["bound_ms"],
+            "bound_by": nms1280["bound_by"],
             "library_ms": None,
             "library_none_because": "no single PyTorch call computes a greedy NMS scan",
-            "at_ssd512_bs64_rows": nms512,
+            "times_are": "at the SSD-300 bs=64 path's 1280 rows; at_rows: each serving "
+                         "shape's own rows; kernel ms by CUDA graph replay",
+            "at_rows": {"20": nms20, "80": nms80, "1280": nms1280, "5120": nms512},
         },
         {
             "name": "stem_conv12_pool",
@@ -1427,14 +1590,19 @@ def main() -> int:
             "replaces": "object_detector_tpu/kernels/resnet_stem_pallas.py:160",
             **counts("resnet_stem"),
             "max_abs_err": rstem_err,
-            "ms": rstem_ms,
-            "plain_ms": rstem_plain_ms,
-            "bound_ms": rstem_bound,
-            "bound_by": rstem_bound_by,
+            "ms": rstem64["ms"],
+            "plain_ms": rstem64["plain_ms"],
+            "bound_ms": rstem64["bound_ms"],
+            "bound_by": rstem64["bound_by"],
             "library_ms": None,
             "library_none_because": "no single PyTorch call computes an input quantize, an int8 "
                                     "conv with a requant epilogue and a max pool",
-            "unfused_chain_ms": rstem_unfused_ms,
+            "unfused_chain_ms": rstem64["unfused_chain_ms"],
+            "gemm_yardstick_ms": rstem64["gemm_yardstick_ms"],
+            "bs1": {k: rstem1[k] for k in ("ms", "plain_ms", "unfused_chain_ms",
+                                           "gemm_yardstick_ms", "bound_ms", "bound_by")},
+            "times_are": "at the int8 SSD-512 bs=64 path's images (bs1: the bs=1 path's image); "
+                         "kernel and yardstick ms by CUDA graph replay",
         },
         {
             "name": "fused_bottleneck",
@@ -1820,7 +1988,8 @@ def resnet_kernel_cases(torch, resnet_stem, bottleneck):
 
     stem_err = 0
     for kind, (b, h, w) in (("random", (2, 128, 128)), ("edge", (2, 64, 64)),
-                            ("ragged_tile", (3, 40, 52))):
+                            ("ragged_tile", (3, 40, 52)), ("ties_input", (2, 64, 72)),
+                            ("ties_requant", (2, 48, 64)), ("bs1_full_width", (1, 512, 512))):
         if kind == "edge":  # saturated inputs, extreme weights and biases
             levels = torch.tensor([-2.6, -0.02, 0.0, 0.02, 2.6], device="cuda")
             images = levels[torch.randint(0, 5, (b, h, w, 3), generator=gen, device="cuda")]
@@ -1829,6 +1998,22 @@ def resnet_kernel_cases(torch, resnet_stem, bottleneck):
             deq = torch.full((64,), 0.02 * 0.01, device="cuda")
             bias = torch.randn(64, generator=gen, device="cuda") * 3.0
             scales = (0.02, 0.05)
+        elif kind == "ties_input":  # pixels at (n + 1/2) * in_scale and one ulp either side
+            s_in = torch.tensor(0.0173, device="cuda")
+            half = (torch.randint(-135, 135, (b, h, w, 3), generator=gen, device="cuda") + 0.5) * s_in
+            side = torch.randint(0, 3, half.shape, generator=gen, device="cuda")
+            images = torch.where(side == 0, half, torch.nextafter(
+                half, torch.where(side == 1, -torch.inf, torch.inf)))
+            w_q = randint(-127, 128, (7, 7, 3, 64))
+            deq = float(s_in) * (torch.rand(64, generator=gen, device="cuda") * 0.015 + 0.005)
+            bias = torch.randn(64, generator=gen, device="cuda") * 0.5
+            scales = (float(s_in), 0.4)
+        elif kind == "ties_requant":  # deq = out_scale / 2: y / out_scale at half-integers
+            images = torch.randint(-1, 2, (b, h, w, 3), generator=gen, device="cuda") * 0.02
+            w_q = randint(-1, 2, (7, 7, 3, 64))
+            deq = torch.full((64,), float(torch.tensor(0.37)) / 2, device="cuda")
+            bias = torch.zeros(64, device="cuda")
+            scales = (0.02, 0.37)
         else:
             images = torch.randn((b, h, w, 3), generator=gen, device="cuda") * 1.2
             w_q = randint(-127, 128, (7, 7, 3, 64))

@@ -29,18 +29,39 @@
 // compares, 7 for the intersection's sides, its multiply, the right-hand
 // side's add, the suppress compare), about 0.79 G operations at most. None
 // is an FMA, so they issue at half the data sheet's 67 TFLOP/s: about 23 us.
-// The operations bound it, not the bytes. Past both lies the serial chain inside a row: every step is a
-// block-wide argmax that the next step depends on.
+// The operations bound it, not the bytes. Past both lies the serial chain
+// inside a row: every step is an argmax over the whole row that the next
+// step depends on. The first design gave each row a block of 128 threads
+// and paid three __syncthreads and a serial combine in one thread a step:
+// 0.180 ms at 1280 rows and 0.590 ms at 5120, where the barriers, not the
+// operations, set the pace. This one takes 0.0764 ms at the SSD-300 bs=64
+// path's 1280 rows and 0.233 ms at SSD-512's 5120 (5.9x and 3.0x the
+// bound), and 0.0378 and 0.0386 ms at the bs=1 paths' 20 and 80 rows, where
+// one row's chain of emit steps sets the time and a few blocks cannot fill
+// 132 SMs (chip_smoke.py, CUDA-graph replay, NVIDIA H100 80GB HBM3,
+// 700.00 W). Most of a step's instructions are the suppress test's min/max
+// and compares, 16 columns a lane at k = 512, which run at half rate.
 //
-// Design. One block of 128 threads per row; thread t owns columns
-// t, t + 128, ... . The row's four corner planes, its remaining scores and
-// the hoisted area * t stay in shared memory (24 bytes a column, 12 KB at
-// k = 512) for all steps, so device memory is read once and written once.
-// Each step reduces (score, column) pairs with warp shuffles and then across
-// the four warps, ties going to the lower column, and reads the winner's
-// corners straight from shared memory instead of by a masked reduce. At
-// 12 KB a block, all 1280 rows of the bs=64 shape are resident at once on the
-// 132 SMs.
+// Design. Rows of up to kWarpMaxK = 512 columns (every serving path's) take
+// the warp route: one warp owns a row, four rows a block. Lane l holds
+// columns l, l + 32, ... (J = 1, 2, 4, 8 or 16 of them, the fewest that
+// cover k) in registers: the four corners, area * t and the remaining
+// score, 96 registers at k = 512; columns past k hold score -inf and
+// area * t = +inf, so they never win and are never suppressed. A step takes
+// the lane's best as a tree (four dependent compares at k = 512, not
+// sixteen), then the warp's with two __reduce_max_sync / __reduce_min_sync
+// (one instruction each, where five __shfl_xor_sync rounds of (score,
+// column) are five dependent shuffle pairs): the largest score as an
+// order-preserving key, then the lowest column among the lanes that hold
+// it. The winner's corners come in one 16-byte broadcast read from the
+// warp's own copy of the row's boxes in shared memory, written once when the
+// row is loaded (16 bytes a column, 8 KB at k = 512): picking them from the
+// owning lane's registers would take 60 selects a step, which run at half
+// rate. Each lane then suppresses its own columns. The emit loop has no
+// barrier and writes no shared memory; device memory is read once and
+// written once. Wider rows (k up to 8192) take the block route, the first
+// design: one block of 128 threads a row, the row in shared memory (24 bytes
+// a column).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -49,6 +70,40 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kWarpMaxK = 512;  // the widest row of the warp route: 16 columns a lane
+
+// A key whose unsigned order is the float order of s, with -0 taken as +0
+// (they compare equal): the warp's argmax is then one __reduce_max_sync.
+__device__ __forceinline__ unsigned order_key(float s) {
+  const unsigned u = __float_as_uint(__fadd_rn(s, 0.0f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The first of the largest of v[0 .. J) and its index, as a tree over
+// neighbouring ranges (the left range holds the lower indices, so a strict >
+// keeps the first on ties): log2(J) dependent steps, not J.
+template <int J>
+__device__ __forceinline__ void lane_argmax(const float (&v)[J], float& s, int& j) {
+  float ts[J];
+  int tj[J];
+#pragma unroll
+  for (int i = 0; i < J; ++i) {
+    ts[i] = v[i];
+    tj[i] = i;
+  }
+#pragma unroll
+  for (int step = 1; step < J; step *= 2) {
+#pragma unroll
+    for (int i = 0; i + step < J; i += 2 * step) {
+      if (ts[i + step] > ts[i]) {
+        ts[i] = ts[i + step];
+        tj[i] = tj[i + step];
+      }
+    }
+  }
+  s = ts[0];
+  j = tj[0];
+}
 
 // (s, i) takes (os, oi) if it has the higher score, or the same score at a
 // lower column.
@@ -59,7 +114,103 @@ __device__ __forceinline__ void take_better(float& s, int& i, float os, int oi) 
   }
 }
 
-__global__ void __launch_bounds__(kThreads) nms_rows_kernel(
+// The warp route: warp w of block b owns row 4 b + w; lane l holds columns
+// l + 32 j, j < J.
+template <int J>
+__global__ void __launch_bounds__(kThreads, 4) nms_rows_kernel(
+    const float* __restrict__ coords, const float* __restrict__ scores,
+    int rows, int k, int max_out, float t_ratio, float score_threshold,
+    float* __restrict__ out_scores, int* __restrict__ out_cols) {
+  extern __shared__ float4 s_boxes_all[];
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  float4* s_boxes = s_boxes_all + (threadIdx.x >> 5) * 32 * J;  // this warp's row
+  const size_t plane = static_cast<size_t>(rows) * k;
+  const float* x1_row = coords + static_cast<size_t>(row) * k;
+  const float* score_row = scores + static_cast<size_t>(row) * k;
+  float x1[J], y1[J], x2[J], y2[J], area_scaled[J], remaining[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = lane + 32 * j;
+    if (c < k) {
+      x1[j] = x1_row[c];
+      y1[j] = x1_row[plane + c];
+      x2[j] = x1_row[2 * plane + c];
+      y2[j] = x1_row[3 * plane + c];
+      s_boxes[c] = make_float4(x1[j], y1[j], x2[j], y2[j]);
+      const float area = __fmul_rn(fmaxf(__fsub_rn(x2[j], x1[j]), 0.0f),
+                                   fmaxf(__fsub_rn(y2[j], y1[j]), 0.0f));
+      area_scaled[j] = __fmul_rn(area, t_ratio);
+      remaining[j] = score_row[c];
+    } else {
+      x1[j] = y1[j] = x2[j] = y2[j] = 0.0f;
+      area_scaled[j] = CUDART_INF_F;
+      remaining[j] = -CUDART_INF_F;
+    }
+  }
+  __syncwarp();
+
+  float* out_s = out_scores + static_cast<size_t>(row) * max_out;
+  int* out_c = out_cols + static_cast<size_t>(row) * max_out;
+  const unsigned threshold_key = order_key(score_threshold);
+  int j = 0;
+  for (; j < max_out; ++j) {
+    // The lane's best (the first of equal scores), then the warp's: the
+    // largest key, and among the lanes that hold it the lowest column.
+    float best_s;
+    int best_j;
+    lane_argmax(remaining, best_s, best_j);
+    const unsigned key = order_key(best_s);
+    const unsigned top = __reduce_max_sync(0xffffffffu, key);
+    // Uniform across the warp: the winner's score is valid iff its key is
+    // above the threshold's.
+    if (!(top > threshold_key)) break;
+    const int w = static_cast<int>(__reduce_min_sync(
+        0xffffffffu, key == top ? static_cast<unsigned>(lane + 32 * best_j) : 0xffffffffu));
+    const int owner = w & 31;
+    if (lane == owner) {  // its own best is the winner: no lower column holds the top score
+      out_s[j] = best_s;
+      out_c[j] = w;
+    }
+    const float4 wbox = s_boxes[w];  // one broadcast read
+    float wx1 = wbox.x, wy1 = wbox.y, wx2 = wbox.z, wy2 = wbox.w;
+    // The reference's masked max with identity 0: max(x[w], 0) once the row
+    // has a second column.
+    if (k > 1) {
+      wx1 = fmaxf(wx1, 0.0f);
+      wy1 = fmaxf(wy1, 0.0f);
+      wx2 = fmaxf(wx2, 0.0f);
+      wy2 = fmaxf(wy2, 0.0f);
+    }
+    const float w_area = __fmul_rn(fmaxf(__fsub_rn(wx2, wx1), 0.0f),
+                                   fmaxf(__fsub_rn(wy2, wy1), 0.0f));
+    const float w_scaled = __fmul_rn(w_area, t_ratio);
+    const int mine = lane == owner ? best_j : -1;  // the winner's slot in this lane
+#pragma unroll
+    for (int jj = 0; jj < J; ++jj) {
+      const float iw = fmaxf(__fsub_rn(fminf(wx2, x2[jj]), fmaxf(wx1, x1[jj])), 0.0f);
+      const float ih = __fsub_rn(fminf(wy2, y2[jj]), fmaxf(wy1, y1[jj]));
+      const float inter = __fmul_rn(iw, ih);
+      // Both tests evaluated and one select: a short-circuit || compiles to a
+      // branch a column.
+      const bool hit = inter > __fadd_rn(area_scaled[jj], w_scaled);
+      remaining[jj] = (hit | (jj == mine)) ? 0.0f : remaining[jj];
+    }
+  }
+  for (int slot = j + lane; slot < max_out; slot += 32) {
+    out_s[slot] = 0.0f;
+    out_c[slot] = 0;
+  }
+}
+
+// The block route for rows wider than kWarpMaxK: one block of 128 threads a
+// row; thread t owns columns t, t + 128, ... . The row's four corner planes,
+// its remaining scores and the hoisted area * t stay in shared memory (24
+// bytes a column) for all steps. Each step reduces (score, column) pairs with
+// warp shuffles and then across the four warps, ties going to the lower
+// column, and reads the winner's corners straight from shared memory.
+__global__ void __launch_bounds__(kThreads) nms_rows_block_kernel(
     const float* __restrict__ coords, const float* __restrict__ scores,
     int rows, int k, int max_out, float t_ratio, float score_threshold,
     float* __restrict__ out_scores, int* __restrict__ out_cols) {
@@ -156,19 +307,42 @@ __global__ void __launch_bounds__(kThreads) nms_rows_kernel(
   }
 }
 
+template <int J>
+void launch_warp_route(const float* coords, const float* scores, int rows, int k, int max_out,
+                       float t_ratio, float score_threshold, float* out_scores, int* out_cols,
+                       cudaStream_t stream) {
+  nms_rows_kernel<J><<<(rows + kWarps - 1) / kWarps, kThreads,
+                       kWarps * 32 * J * sizeof(float4), stream>>>(
+      coords, scores, rows, k, max_out, t_ratio, score_threshold, out_scores, out_cols);
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int nms_rows(const float* coords, const float* scores, int rows, int k,
                         int max_out, float t_ratio, float score_threshold,
                         float* out_scores, int* out_cols, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= kWarpMaxK) {
+    // The fewest columns a lane that cover the row.
+    const auto launch = k <= 32    ? launch_warp_route<1>
+                        : k <= 64  ? launch_warp_route<2>
+                        : k <= 128 ? launch_warp_route<4>
+                        : k <= 256 ? launch_warp_route<8>
+                                   : launch_warp_route<16>;
+    launch(coords, scores, rows, k, max_out, t_ratio, score_threshold, out_scores, out_cols, st);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = 6 * static_cast<size_t>(k) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        nms_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        nms_rows_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  nms_rows_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  nms_rows_block_kernel<<<rows, kThreads, smem, st>>>(
       coords, scores, rows, k, max_out, t_ratio, score_threshold, out_scores, out_cols);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The widest row of the warp route.
+extern "C" int nms_rows_warp_max_k() { return kWarpMaxK; }

@@ -10,8 +10,9 @@ The port of ``object_detector_tpu/kernels/nms_pallas.py``'s serving path,
    candidates only;
 3. pad the candidates to a multiple of 128 and lay every (image, class)
    problem out as one of R = B * C rows;
-4. the suppression scan (`nms_rows`: the CUDA kernel on a card,
-   `nms_rows_reference` for tensors on the CPU);
+4. the suppression scan (`nms_rows`: the CUDA kernel on a card, one warp a
+   row for rows of up to `WARP_ROUTE_MAX_K` columns, `nms_rows_reference`
+   for tensors on the CPU);
 5. merge: the top ``max_detections`` of each image's C * n_out survivors.
 """
 
@@ -30,8 +31,11 @@ Tensor = torch.Tensor
 RowsFn = Callable[..., Tuple[Tensor, Tensor]]
 
 _LANE = 128
-# Shared memory holds 24 bytes a column; 8192 columns stay under the
-# 227 KB a block may use.
+# Rows of up to WARP_ROUTE_MAX_K columns take the kernel's warp route (one
+# warp a row, the row in registers, 16 columns a lane at most); wider rows
+# take its block route, the row in shared memory at 24 bytes a column, where
+# 8192 columns stay under the 227 KB a block may use.
+WARP_ROUTE_MAX_K = 512
 MAX_K = 8192
 
 
@@ -162,7 +166,14 @@ def _library() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        lib.nms_rows_warp_max_k.restype = ctypes.c_int
     return lib
+
+
+def warp_route_max_k() -> int:
+    """The widest row of the kernel's warp route, as the built library has it
+    (builds it)."""
+    return int(_library().nms_rows_warp_max_k())
 
 
 def _merge_survivors(

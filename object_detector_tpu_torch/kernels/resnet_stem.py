@@ -1,6 +1,7 @@
 """The ResNet stem in int8, fused: input quantize + 7x7/s2 pad-3 conv (3 ->
 64, BatchNorm folded) + bias + ReLU + requant + 3x3/s2 pad-1 max pool, as a
-hand-written CUDA kernel (``csrc/resnet_stem.cu``).
+hand-written CUDA kernel (``csrc/resnet_stem.cu``) whose conv runs on the
+int8 tensor cores.
 
 The port of ``object_detector_tpu/kernels/resnet_stem_pallas.py``'s
 ``_stem_kernel`` (entry ``resnet_stem_int8``). The TPU kernel reads a staged
@@ -26,6 +27,10 @@ the function, on NHWC tensors:
 The requant multiplies by the float32 reciprocal of ``out_scale``, as the TPU
 kernel does, where every other requant of the engine divides: against the
 unfused chain one code in about a million may differ by one.
+
+The kernel runs the conv in space-to-depth form (`s2d_matrix`): a 4x4/s1
+conv over the 12 channels of the image's 2x2 phases with the kernel
+zero-padded to 8x8, K = 192, the same integer sums as the 7x7/s2 conv.
 """
 
 from __future__ import annotations
@@ -35,15 +40,19 @@ from typing import Optional
 
 import torch
 
-from object_detector_tpu_torch.kernels import build
+from object_detector_tpu_torch.kernels import build, int8_pack
 from object_detector_tpu_torch.ops import int8 as int8_ops
 
 Tensor = torch.Tensor
 
 CHANNELS = 64
 KERNEL = 7
-# A kernel row is 7 taps x 3 channels = 21 bytes, padded to 6 words of 4.
-ROW_WORDS = 6
+# Rows of the space-to-depth matrix: 4 x 4 taps of the 12 phase channels.
+K_S2D = 192
+# Column n = 8 nt + 2 t + i of the packed matrix holds output channel
+# 16 t + 2 nt + i, so that a thread's accumulators (n-tiles nt < 8, columns
+# 2 t and 2 t + 1) are 16 consecutive channels.
+COLUMN_CHANNELS = tuple(16 * ((n % 8) // 2) + 2 * (n // 8) + n % 2 for n in range(CHANNELS))
 
 
 def resnet_stem_reference(
@@ -62,15 +71,23 @@ def resnet_stem_reference(
     return int8_ops.max_pool(q, 3, 2, explicit_pad=1)
 
 
+def s2d_matrix(w_q: Tensor) -> Tensor:
+    """(7, 7, 3, 64) HWIO int8 -> the (192, 64) space-to-depth matrix: row
+    48 dy + 12 dx + 6 py + 3 px + c holds kernel tap (2 dy + py, 2 dx + px)
+    of input channel c, zero where a tap index is 7. Against phase pixel
+    (Y, X)'s 12 bytes, input (2 Y + py - 3, 2 X + px - 3, c), the 4 x 4 taps
+    from conv pixel (oy, ox) give the 7x7/s2 pad-3 conv's sum."""
+    w8 = torch.nn.functional.pad(w_q, (0, 0, 0, 0, 0, 1, 0, 1))  # (8, 8, 3, 64)
+    w8 = w8.reshape(4, 2, 4, 2, 3, CHANNELS)  # [dy][py][dx][px][c][n]
+    return w8.permute(0, 2, 1, 3, 4, 5).reshape(K_S2D, CHANNELS)
+
+
 def pack_weights(w_q: Tensor) -> Tensor:
-    """(7, 7, 3, 64) HWIO int8 -> (7, 6, 64) int32 words, the operand layout
-    of the kernel's __dp4a: word [ky][j][cout] holds bytes 4j .. 4j+3 of the
-    kernel row ky for that output channel, a row being its 21 (kx, cin)
-    bytes and 3 zero bytes."""
-    rows = w_q.reshape(KERNEL, KERNEL * 3, CHANNELS)
-    rows = torch.nn.functional.pad(rows, (0, 0, 0, 4 * ROW_WORDS - KERNEL * 3))
-    return (rows.reshape(KERNEL, ROW_WORDS, 4, CHANNELS).permute(0, 1, 3, 2)
-            .contiguous().view(torch.int32).reshape(KERNEL, ROW_WORDS, CHANNELS))
+    """(7, 7, 3, 64) HWIO int8 -> the kernel's B operand: `s2d_matrix` with
+    its columns in `COLUMN_CHANNELS` order, in the packed layout of
+    `int8_pack.pack_b_operand`, (1, 6, 4, 32, 16) int8."""
+    order = torch.tensor(COLUMN_CHANNELS, device=w_q.device)
+    return int8_pack.pack_b_operand(s2d_matrix(w_q).index_select(1, order))
 
 
 def _check(images: Tensor, w_q: Tensor, deq: Tensor, bias: Tensor) -> None:
@@ -107,6 +124,9 @@ def resnet_stem(
         raise ValueError(f"resnet_stem runs on cuda or cpu tensors, got {images.device}")
     if not (images.is_contiguous() and deq.is_contiguous() and bias.is_contiguous()):
         raise ValueError("resnet_stem takes contiguous images, deq and bias")
+    if images.data_ptr() % 16:
+        raise ValueError("resnet_stem copies the images 16 bytes at a time: they must start "
+                         "on a 16-byte boundary")
     if packed is None:
         packed = pack_weights(w_q)
     b, h, w, _ = images.shape
@@ -138,4 +158,10 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        lib.resnet_stem_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+def smem_bytes() -> int:
+    """The dynamic shared memory a block of the kernel takes (builds it)."""
+    return int(_library().resnet_stem_smem_bytes())

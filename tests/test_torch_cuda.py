@@ -29,26 +29,38 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _rows(kind, seed):
+def _rows(kind, seed, rows=ROWS, k=K):
     rng = np.random.default_rng(seed)
-    xy = rng.uniform(0, 0.8, (2, ROWS, K))
-    coords = np.concatenate([xy, np.minimum(xy + rng.uniform(0.02, 0.3, (2, ROWS, K)), 1.0)])
-    scores = rng.uniform(0, 1, (ROWS, K))
+    xy = rng.uniform(0, 0.8, (2, rows, k))
+    coords = np.concatenate([xy, np.minimum(xy + rng.uniform(0.02, 0.3, (2, rows, k)), 1.0)])
+    scores = rng.uniform(0, 1, (rows, k))
     if kind == "sparse":  # about 1% of candidates above 0.01
-        scores = np.where(rng.uniform(0, 1, (ROWS, K)) < 0.01, scores, scores * 0.005)
+        scores = np.where(rng.uniform(0, 1, (rows, k)) < 0.01, scores, scores * 0.005)
     elif kind == "ties":
-        scores = rng.integers(0, 5, (ROWS, K)) / 4.0
+        scores = rng.integers(0, 5, (rows, k)) / 4.0
         coords[:, :, 1::2] = coords[:, :, 0::2]
     elif kind == "negative":
         coords -= 0.4
     return coords.astype(np.float32), scores.astype(np.float32)
 
 
+# (kind, rows, k): the four kinds at the SSD-300 bs=64 shape; the bs=1 paths'
+# 20 and 80 rows and SSD-512 bs=64's 5120; k = 1, a k that is not a multiple
+# of 32, the widest row of the warp route and one column either side of it
+# (511 and 512 in registers, 513 on the block route), and the widest row the
+# wrapper takes.
+NMS_CASES = [("dense", ROWS, K), ("sparse", ROWS, K), ("ties", ROWS, K), ("negative", ROWS, K),
+             ("dense", 20, K), ("dense", 80, K), ("dense", 5120, K),
+             ("dense", 64, 1), ("ties", 64, 100), ("dense", 64, nms_kernel.WARP_ROUTE_MAX_K - 1),
+             ("ties", 64, nms_kernel.WARP_ROUTE_MAX_K),
+             ("dense", 64, nms_kernel.WARP_ROUTE_MAX_K + 1), ("dense", 8, nms_kernel.MAX_K)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["dense", "sparse", "ties", "negative"])
-def test_nms_kernel_bit_equal_to_plain_version(cuda_device, kind):
-    coords, scores = (torch.from_numpy(a).to(cuda_device) for a in _rows(kind, seed=11))
-    kw = dict(max_out=MAX_OUT, iou_threshold=0.45, score_threshold=0.01)
+@pytest.mark.parametrize("kind,rows,k", NMS_CASES)
+def test_nms_kernel_bit_equal_to_plain_version(cuda_device, kind, rows, k):
+    coords, scores = (torch.from_numpy(a).to(cuda_device) for a in _rows(kind, 11, rows, k))
+    kw = dict(max_out=min(MAX_OUT, k), iou_threshold=0.45, score_threshold=0.01)
     before = nms_kernel.nms_rows.launches
     got = nms_kernel.nms_rows(coords, scores, **kw)
     torch.cuda.synchronize()
@@ -56,6 +68,7 @@ def test_nms_kernel_bit_equal_to_plain_version(cuda_device, kind):
     want = nms_kernel.nms_rows_reference(coords, scores, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert nms_kernel.warp_route_max_k() == nms_kernel.WARP_ROUTE_MAX_K
 
 
 @pytest.mark.cuda
@@ -271,26 +284,49 @@ def _resnet_stem_case(kind, device, seed=8):
     """images, w_q, deq, bias, in_scale, out_scale on ``device``. "edge":
     saturated inputs and extreme biases, which drive the clip and round
     boundaries and the padding rows into play; "ragged_tile": a pooled size
-    (10 x 13) that is not a multiple of the kernel's 8 x 8 tile."""
+    (10 x 13) that the kernel's 8 x 16 tile does not divide; "ties_input":
+    pixels at (n + 1/2) * in_scale and one ulp either side, where the
+    input quantize's product by the reciprocal alone would round wrongly;
+    "ties_requant": deq = out_scale / 2 and zero bias on codes and weights in
+    {-1, 0, 1}, so that y * (1 / out_scale) lies at or next to
+    half-integers; "bs1_full_width": one SSD-512 image."""
     rng = np.random.default_rng(seed)
     b, h, w = {"random": (2, 64, 64), "edge": (1, 32, 32), "ragged_tile": (3, 40, 52),
-               "full_width": (2, 512, 512)}[kind]
+               "full_width": (2, 512, 512), "ties_input": (2, 64, 72),
+               "ties_requant": (2, 48, 64), "bs1_full_width": (1, 512, 512)}[kind]
     if kind == "edge":
         images = rng.choice([-2.6, -0.02, 0.0, 0.02, 2.6], (b, h, w, 3))
         w_q = rng.choice([-127, -1, 0, 1, 127], (7, 7, 3, 64))
         w_scale, bias, scales = np.full(64, 0.01), rng.normal(0, 3.0, 64), (0.02, 0.05)
+    elif kind == "ties_input":
+        s_in = np.float32(0.0173)
+        half = (rng.integers(-135, 135, (b, h, w, 3)) + np.float32(0.5)) * s_in
+        images = np.choose(rng.integers(0, 3, half.shape),
+                           [half, np.nextafter(half, np.float32(-np.inf)),
+                            np.nextafter(half, np.float32(np.inf))])
+        w_q = rng.integers(-127, 128, (7, 7, 3, 64))
+        w_scale, bias, scales = rng.uniform(0.005, 0.02, 64), rng.normal(0, 0.5, 64), (0.0173, 0.4)
+    elif kind == "ties_requant":
+        images = rng.integers(-1, 2, (b, h, w, 3)) * 0.02
+        w_q = rng.integers(-1, 2, (7, 7, 3, 64))
+        scales = (0.02, 0.37)
+        w_scale = np.full(64, np.float32(scales[1]) / 2 / np.float32(scales[0]))
+        bias = np.zeros(64)
     else:
         images = rng.normal(0, 1.2, (b, h, w, 3))
         w_q = rng.integers(-127, 128, (7, 7, 3, 64))
         w_scale, bias, scales = rng.uniform(0.005, 0.02, 64), rng.normal(0, 0.5, 64), (0.02, 0.07)
     deq = np.float32(scales[0]) * w_scale.astype(np.float32)
+    if kind == "ties_requant":
+        deq = np.full(64, np.float32(scales[1]) / 2, np.float32)
     tensors = [torch.from_numpy(a).to(device) for a in (
         images.astype(np.float32), w_q.astype(np.int8), deq, bias.astype(np.float32))]
     return (*tensors, *scales)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "edge", "ragged_tile", "full_width"])
+@pytest.mark.parametrize("kind", ["random", "edge", "ragged_tile", "full_width", "ties_input",
+                                  "ties_requant", "bs1_full_width"])
 def test_resnet_stem_kernel_bit_equal_to_plain_version(cuda_device, kind):
     args = _resnet_stem_case(kind, cuda_device)
     before = resnet_stem.resnet_stem.launches
@@ -303,7 +339,9 @@ def test_resnet_stem_kernel_bit_equal_to_plain_version(cuda_device, kind):
     assert torch.equal(got, want), int((got != want).sum())
     assert torch.equal(resnet_stem.resnet_stem(
         *args, packed=resnet_stem.pack_weights(args[1])), want)
-    assert 0.05 < float((want > 0).float().mean()) and int(want.max()) == 127
+    assert 0.05 < float((want > 0).float().mean())
+    if kind != "ties_requant":  # its codes stay below 20
+        assert int(want.max()) == 127
 
 
 def _bottleneck_case(kind, device, seed=9):
@@ -385,3 +423,6 @@ def test_bottleneck_and_resnet_stem_reject_what_the_kernels_do_not_take(cuda_dev
     args = _resnet_stem_case("random", cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         resnet_stem.resnet_stem(args[0].transpose(1, 2), *args[1:])
+    shifted = torch.empty(args[0].numel() + 1, device=cuda_device)[1:].view(args[0].shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        resnet_stem.resnet_stem(shifted.copy_(args[0]), *args[1:])

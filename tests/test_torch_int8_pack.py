@@ -1,18 +1,21 @@
 """The operands of the int8 tensor-core kernels, checked on the CPU where
 they are made (the kernels themselves run only on the card).
 
-Each conv of the fused bottleneck (``csrc/bottleneck.cu``) and of VGG block 1
-(``csrc/stem_fp.cu``) is rebuilt from the packed weights the way the
-kernel's ``mma.sync.m16n8k32`` fragments read them (`kernel_b_matrix`; for
-conv1_1 also the A rows the kernel builds with ``__byte_perm``) and held
-equal to the int8 conv it stands for. Also: an edit to a header that a
-source includes changes the library's path, so both kernels rebuild."""
+Each conv of the fused bottleneck (``csrc/bottleneck.cu``), of VGG block 1
+(``csrc/stem_fp.cu``) and of the ResNet stem (``csrc/resnet_stem.cu``) is
+rebuilt from the packed weights the way the kernel's ``mma.sync.m16n8k32``
+fragments read them (`kernel_b_matrix`; for conv1_1 also the A rows the
+kernel builds with ``__byte_perm``, for the ResNet stem the A rows it reads
+from its phase patch) and held equal to the int8 conv it stands for. Also
+the ResNet stem's input quantize rule, and: an edit to a header that a
+source includes changes the library's path, so every kernel that includes
+it rebuilds."""
 
 import numpy as np
 import pytest
 import torch
 
-from object_detector_tpu_torch.kernels import bottleneck, build, int8_pack, stem_fp
+from object_detector_tpu_torch.kernels import bottleneck, build, int8_pack, resnet_stem, stem_fp
 from object_detector_tpu_torch.ops import int8 as int8_ops
 
 torch.set_num_threads(2)
@@ -123,6 +126,82 @@ def test_stem_fp_packed_operands_rebuild_the_convs(conv):
         np.testing.assert_array_equal(acc, _conv(q1, w2))
 
 
+def resnet_stem_conv_from_packed(x_q: np.ndarray, packed: torch.Tensor) -> np.ndarray:
+    """The ResNet stem's 7x7/s2 pad-3 conv as csrc/resnet_stem.cu computes it:
+    the phase image z (phase pixel (Y, X) holds input (2 Y + py - 3, 2 X + px
+    - 3, c) at byte 6 py + 3 px + c, zero codes outside the image), conv
+    pixel (oy, ox)'s 192-byte A row gathered as the kernel reads it (16-byte
+    chunk j at z's byte offset (oy * row + ox * 12) + (j // 3) * row + (j % 3)
+    * 16, row being a phase row's bytes), times the (192, 64) matrix that the
+    B fragments read. Column n is output channel `COLUMN_CHANNELS[n]`."""
+    b, h, w, _ = x_q.shape
+    ho, wo = h // 2, w // 2
+    xp = np.pad(x_q, ((0, 0), (3, 3), (3, 3), (0, 0)))
+    z = xp.reshape(b, ho + 3, 2, wo + 3, 2, 3).transpose(0, 1, 3, 2, 4, 5).reshape(b, -1)
+    row = 12 * (wo + 3)
+    oy, ox = np.meshgrid(np.arange(ho), np.arange(wo), indexing="ij")
+    base = (oy * row + ox * 12)[..., None]
+    offsets = np.array([(j // 3) * row + (j % 3) * 16 + e for j in range(12) for e in range(16)])
+    rows = z[:, base + offsets]  # (B, Ho, Wo, 192)
+    return rows.astype(np.int64) @ kernel_b_matrix(packed, resnet_stem.K_S2D, 64)
+
+
+@pytest.mark.parametrize("kind", ["random", "saturated"])
+@pytest.mark.parametrize("shape", [(1, 8, 8), (2, 12, 20), (1, 28, 16)])
+def test_resnet_stem_packed_operand_rebuilds_the_conv(kind, shape):
+    """The space-to-depth K order (4 x 4 taps of the 12 phase channels, the
+    kernel zero-padded to 8x8) against the phase-staged input gives the int8
+    7x7/s2 pad-3 conv, on random codes and on codes and weights at the ends
+    of their range."""
+    rng = np.random.default_rng(sum(shape))
+    if kind == "saturated":
+        x_q = rng.choice(np.array([-127, 127], np.int8), (*shape, 3))
+        w_q = rng.choice(np.array([-128, -127, 127], np.int8), (7, 7, 3, 64))
+    else:
+        x_q, w_q = _ints((*shape, 3), 11), _ints((7, 7, 3, 64), 12)
+    packed = resnet_stem.pack_weights(torch.from_numpy(w_q))
+    assert packed.dtype == torch.int8 and tuple(packed.shape) == (1, 6, 4, 32, 16)
+    m = kernel_b_matrix(packed, resnet_stem.K_S2D, 64)
+    assert sorted(resnet_stem.COLUMN_CHANNELS) == list(range(64))
+    assert np.abs(m).sum() == np.abs(w_q.astype(np.int64)).sum()  # every tap once, the rest 0
+    want = int8_ops.conv_int8(torch.from_numpy(x_q), torch.from_numpy(w_q), stride=2,
+                              padding=3).numpy()
+    got = resnet_stem_conv_from_packed(x_q, packed)
+    np.testing.assert_array_equal(got, want[..., list(resnet_stem.COLUMN_CHANNELS)])
+
+
+def quantize_by_reciprocal(x: torch.Tensor, s: float) -> torch.Tensor:
+    """csrc/resnet_stem.cu `quantize_code` in float32 operations: q = x *
+    RN(1 / s); where q lies within 2^-13 of a half-integer, q = x / s; then
+    the clip and the round half to even by the 1.5 * 2^23 trick."""
+    s32 = torch.tensor(s, dtype=torch.float32)
+    magic = torch.tensor(12582912.0)
+    q = x * torch.reciprocal(s32)
+    near = ((q - ((q + magic) - magic)).abs() > 0.5 - 2.0 ** -13)
+    q = torch.where(near, x / s32, q).clamp(-127.0, 127.0)
+    return ((q + magic) - magic).to(torch.int8)
+
+
+def test_resnet_stem_quantize_rule_equals_the_true_divide_on_ties():
+    """Inputs at (n + 1/2) * s and one ulp either side, for several scales
+    and every n that reaches the clip: the reciprocal rule gives the codes of
+    clip(round(x / s)), the true divide. The product by RN(1 / s) alone does
+    not, on some of them."""
+    naive_differs = 0
+    for s in (0.02, 0.0173, 1.0 / 3.0, 0.5, 3.7e-3, 0.0187):
+        n = np.arange(-140, 140, dtype=np.float32)
+        half = (n + np.float32(0.5)) * np.float32(s)
+        x = np.concatenate([half, np.nextafter(half, -np.inf), np.nextafter(half, np.inf),
+                            n * np.float32(s)]).astype(np.float32)
+        xt = torch.from_numpy(x)
+        want = int8_ops.quantize(xt.clone(), int8_ops.scale_tensor(s, torch.device("cpu")))
+        np.testing.assert_array_equal(quantize_by_reciprocal(xt, s).numpy(), want.numpy())
+        naive = (xt * torch.reciprocal(torch.tensor(s, dtype=torch.float32))).round().clamp(
+            -127, 127).to(torch.int8)
+        naive_differs += int((naive != want).sum())
+    assert naive_differs > 0
+
+
 def test_pack_b_operand_refuses_widths_off_the_layout():
     with pytest.raises(ValueError, match="multiple of 32"):
         int8_pack.pack_b_operand(torch.zeros((48, 64), dtype=torch.int8))
@@ -131,19 +210,19 @@ def test_pack_b_operand_refuses_widths_off_the_layout():
 
 
 def test_library_path_changes_with_an_included_header(tmp_path, monkeypatch):
-    """Both tensor-core sources include int8_mma.cuh: an edit to it (or to
-    a source) gives each a new library path, so both rebuild; a source that
-    does not include it keeps its path."""
-    for name in ("bottleneck.cu", "stem_fp.cu", "nms.cu", "int8_mma.cuh"):
+    """The three tensor-core sources include int8_mma.cuh: an edit to it (or
+    to a source) gives each a new library path, so all three rebuild; a
+    source that does not include it keeps its path."""
+    for name in ("bottleneck.cu", "stem_fp.cu", "resnet_stem.cu", "nms.cu", "int8_mma.cuh"):
         (tmp_path / name).write_bytes((build.CSRC_DIR / name).read_bytes())
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
-    names = ("bottleneck", "stem_fp", "nms")
+    names = ("bottleneck", "stem_fp", "resnet_stem", "nms")
     before = {n: build.library_path(n) for n in names}
-    assert len(set(before.values())) == 3
+    assert len(set(before.values())) == 4
     header = tmp_path / "int8_mma.cuh"
     header.write_bytes(header.read_bytes() + b"\n// an edit\n")
     after = {n: build.library_path(n) for n in names}
-    assert after["bottleneck"] != before["bottleneck"] and after["stem_fp"] != before["stem_fp"]
+    assert all(after[n] != before[n] for n in ("bottleneck", "stem_fp", "resnet_stem"))
     assert after["nms"] == before["nms"]
     src = tmp_path / "stem_fp.cu"
     src.write_bytes(src.read_bytes() + b"\n")

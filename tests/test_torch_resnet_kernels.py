@@ -185,10 +185,12 @@ def test_bottleneck_pads_the_3x3_with_zero_codes_of_mid1():
 def test_packed_weights_hold_four_input_channels_a_word():
     """The layouts the CUDA kernels read, checked where they are made: the
     bottleneck's three kernels as (K, N) matrices (w2 tap-major) in the
-    tensor cores' packed B layout (tests/test_torch_int8_pack.py rebuilds
-    the convs from them at ResNet-50's widths), and the ResNet stem's
-    kernel as __dp4a words of four input channels."""
-    from test_torch_int8_pack import kernel_b_matrix
+    tensor cores' packed B layout, and the ResNet stem's kernel as the
+    (192, 64) space-to-depth matrix in the same layout, from which the 7x7/s2
+    conv is rebuilt as the kernel's fragments read it
+    (tests/test_torch_int8_pack.py rebuilds the convs at more widths and
+    sizes)."""
+    from test_torch_int8_pack import kernel_b_matrix, resnet_stem_conv_from_packed
 
     rng = np.random.default_rng(1)
     w1 = _t(rng.integers(-127, 128, (128, 64)).astype(np.int8))
@@ -201,11 +203,14 @@ def test_packed_weights_hold_four_input_channels_a_word():
     np.testing.assert_array_equal(kernel_b_matrix(p1, 128, 64), w1.numpy())
     np.testing.assert_array_equal(kernel_b_matrix(p2, 576, 64), w2.reshape(576, 64).numpy())
     np.testing.assert_array_equal(kernel_b_matrix(p3, 64, 128), w3.numpy())
-    w_q = _t(rng.integers(-127, 128, (7, 7, 3, 64)).astype(np.int8))
-    packed = resnet_stem.pack_weights(w_q)
-    assert packed.dtype == torch.int32 and packed.shape == (7, 6, 64) and packed.is_contiguous()
-    rows = packed.view(torch.int8).reshape(7, 6, 64, 4).permute(0, 1, 3, 2).reshape(7, 24, 64)
-    assert torch.equal(rows[:, :21].reshape(7, 7, 3, 64), w_q) and not rows[:, 21:].any()
+    w_q = rng.integers(-127, 128, (7, 7, 3, 64)).astype(np.int8)
+    packed = resnet_stem.pack_weights(_t(w_q))
+    assert packed.dtype == torch.int8 and packed.shape == (1, 6, 4, 32, 16)
+    assert packed.is_contiguous()
+    x_q = rng.integers(-127, 128, (2, 16, 12, 3)).astype(np.int8)
+    want = int8_ops.conv_int8(_t(x_q), _t(w_q), stride=2, padding=3).numpy()
+    np.testing.assert_array_equal(resnet_stem_conv_from_packed(x_q, packed),
+                                  want[..., list(resnet_stem.COLUMN_CHANNELS)])
 
 
 def test_wrappers_reject_wrong_types_shapes_and_devices():
