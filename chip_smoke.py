@@ -8,16 +8,20 @@ Phases, each fatal on failure:
   2. build every CUDA kernel from csrc/ with nvcc, one process per source
      (a source built before, unchanged, is reused); print each kernel's
      registers and spills (ptxas), its SASS counts of the opcodes that show
-     its design (cuobjdump: B6 must hold IMMA and no IDP4A, the NMS scan's
-     warp route no block barrier) and the dynamic shared memory of B6 and
-     of the NMS scan's two routes;
+     its design (cuobjdump: B6 and B2 must hold IMMA and no IDP4A, the NMS
+     scan's warp route no block barrier) and the dynamic shared memory of
+     B6 and of the NMS scan's two routes;
   3. hold the NMS kernel against its plain PyTorch version, bit-equal: at
      the SSD-300 bs=64 shape (R=1280 rows, k=512, max_out=100) on dense,
      sparse, tie-heavy and negative-corner rows; at 20, 80 and 5120 rows;
      at k = 1, 100, the warp route's widest row (512), the block route's
      narrowest (513) and the widest the wrapper takes (8192); hold the stem
-     and L2Norm kernels against theirs on synthetic saturating,
-     all-negative-bias and all-zero inputs;
+     kernel (B2) against its plain version on saturating codes,
+     all-negative biases, sizes whose pooled tiles are partial, one
+     full-width image (bs=1) and quotients at or next to half-integers, and
+     the L2Norm (B3) on all-zero pixels, C = 16 and C = 2048, a pixel count
+     that leaves its persistent grid's last round partial, and values y at
+     (n + 1/2) * s and one ulp either side, signed and past the clip;
   4. serve the full-width ssd300_vgg16_voc float model through the Predictor
      at bs=1 (seeded random weights), check that the NMS kernel ran, hold it
      against its plain version on that path's own rows, time it there (20
@@ -43,7 +47,10 @@ Phases, each fatal on failure:
      detections bit-equal to the same QuantParams run with the plain
      versions, and time its p50 beside the float path's;
   9. profile both int8 paths and time the stem and L2Norm kernels
-     against their plain versions on the bs=64 path's own inputs;
+     against their plain versions and their bounds on the bs=64 and the
+     bs=1 path's own inputs (by CUDA-graph replay), the stem also beside
+     its GEMM yardstick (conv1_2 as one torch._int_mm over im2col rows
+     laid out beforehand);
  10. check the outputs against a reference on small inputs: the card against
      the CPU, float32 with TF32 off, for the tiny config's detections and the
      full-width model's logits; and on the same QuantParams, the int8 tap
@@ -126,8 +133,8 @@ Phases, each fatal on failure:
      the same QuantParams, B4, B3 and B1 bit-equal to their plain versions on
      the path's own inputs; img/s of both routes in turns and a profile; B4
      timed on the path's input codes beside its bound, its plain version,
-     the chain it replaces (which must give its codes) and its GEMM
-     yardstick;
+     the chain it replaces (which must give its codes), its GEMM yardstick
+     and B2 on the chain's conv1_1 codes (B2 runs B4's conv1_2 stage);
  25. serve one image through Predictor(int8=True) with B4 selected: the same
      launch counts and holds, the served detections equal to the B2 route's,
      the p50 of both routes in turns and a profile;
@@ -402,9 +409,12 @@ def sass_counts(library: str) -> dict:
             fn = kernel_name(m.group(1))
             counts[fn] = {op: 0 for op in SASS_OPS}
             continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if m and fn is not None and m.group(1) in SASS_OPS:
-            counts[fn][m.group(1)] += 1
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and fn is not None:
+            # The opcode without its modifiers; the dot product prints as IDP.4A.
+            op = "IDP4A" if m.group(1).startswith("IDP.4A") else m.group(1).split(".")[0]
+            if op in SASS_OPS:
+                counts[fn][op] += 1
     return counts
 
 
@@ -464,6 +474,35 @@ def pool_bwd_bound_ms(x, g):
     windows = g.numel()
     bytes_moved = (2 * x.numel() + g.numel()) * x.element_size()
     return bound(bytes_moved, POOL_BWD_OPS_PER_WINDOW * windows, F32_OPS_PER_S)
+
+
+def stem_timing(torch, stem, args, kw) -> dict:
+    """B2 on a path's own conv1_1 codes: its device time (a CUDA graph's
+    replay), its plain version's, the GEMM yardstick's (conv1_2 as one
+    torch._int_mm over im2col rows laid out beforehand, graph-replayed) and
+    the bound."""
+    q1 = args[0]
+    out = stem.stem_conv12_pool(*args, **kw)
+    bound_ms, bound_by = stem_bound_ms(q1, out)
+    del out
+    gemms = [(im2col3x3(torch, q1), col_major(args[1].reshape(576, 64)))]
+    yardstick = sum(graph_ms(torch, lambda a=a, b=b: torch._int_mm(a, b), 5) for a, b in gemms)
+    del gemms
+    iters = 10 if q1.shape[0] > 1 else 50
+    return {"input": list(q1.shape),
+            "ms": graph_ms(torch, lambda: stem.stem_conv12_pool(*args, **kw), iters),
+            "plain_ms": cuda_ms(torch, lambda: stem.stem_conv12_pool_reference(*args), 3),
+            "gemm_yardstick_ms": yardstick, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def l2norm_timing(torch, l2norm, args) -> dict:
+    """B3 on a path's own tap: its device time (a CUDA graph's replay), its
+    plain version's and the bound."""
+    bound_ms, bound_by = l2norm_bound_ms(args[0])
+    return {"input": list(args[0].shape),
+            "ms": graph_ms(torch, lambda: l2norm.l2norm_requant(*args), 50),
+            "plain_ms": cuda_ms(torch, lambda: l2norm.l2norm_requant_reference(*args), 10),
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def stem_fp_bound_ms(x_q, out):
@@ -660,14 +699,19 @@ def main() -> int:
                 print(f"ptxas[{name}]: " + kernel_name(line[entry:].split("'")[1]))
             elif "registers" in line or "smem" in line or "spill" in line:
                 print(f"ptxas[{name}]: {line.strip()}")
-    # What each kernel was built into: B6's products on the tensor cores and
-    # none on __dp4a; the NMS scan's warp route without a block barrier.
+    # What each kernel was built into: B6's and B2's products on the tensor
+    # cores and none on __dp4a; the NMS scan's warp route without a block
+    # barrier.
     sass = {name: sass_counts(str(build.library_path(name))) for name in build.SOURCES}
     for name, fns in sass.items():
         print(json.dumps({"phase": "sass", "library": name, "counts": fns}))
-    stem_sass = sass["resnet_stem"].get("resnet_stem_kernel", {})
-    check(stem_sass.get("IMMA", 0) > 0 and stem_sass.get("IDP4A", 1) == 0,
-          f"resnet_stem_kernel's SASS is not the tensor-core design: {stem_sass}")
+    for lib, fn in (("resnet_stem", "resnet_stem_kernel"), ("stem", "stem_conv12_pool_kernel")):
+        counts = sass[lib].get(fn, {})
+        check(counts.get("IMMA", 0) > 0 and counts.get("IDP4A", 1) == 0,
+              f"{fn}'s SASS is not the tensor-core design: {counts}")
+    # The counter sees __dp4a where a kernel has it: the L2Norm's sum of squares.
+    check(all(c["IDP4A"] > 0 for c in sass["l2norm"].values()),
+          f"no IDP4A counted in the L2Norm's SASS: {sass['l2norm']}")
     warp_routes = {fn: c for fn, c in sass["nms"].items() if fn.startswith("nms_rows_kernel<")}
     check(len(warp_routes) == 5 and all(c["BAR"] == 0 for c in warp_routes.values()),
           f"the NMS scan's warp route is not five barrier-free kernels: {warp_routes}")
@@ -704,37 +748,9 @@ def main() -> int:
                           "route": "warp" if k <= widest else "block", "bit_equal": True,
                           "emitted": int((got_s > 0).sum())}))
     del coords, scores, got_s, got_c, want_s, want_c
-    stem_err = l2norm_err = 0
     gen = torch.Generator(device="cuda").manual_seed(1)
-    w2 = torch.randint(-127, 128, (3, 3, 64, 64), generator=gen, device="cuda",
-                       dtype=torch.int8)
-    for case in ("saturating", "negative_bias"):
-        high = 128 if case == "saturating" else 1  # all codes <= 0 with negative biases
-        q1 = torch.randint(-127, high, (4, 300, 300, 64), generator=gen, device="cuda",
-                           dtype=torch.int8)
-        w = w2.abs() if case == "negative_bias" else w2
-        deq = torch.full((64,), 2e-3 if case == "saturating" else 1e-4, device="cuda")
-        bias = torch.full((64,), -1.0 if case == "negative_bias" else 0.1, device="cuda")
-        got = stem.stem_conv12_pool(q1, w, deq, bias, 0.021)
-        torch.cuda.synchronize()
-        want = stem.stem_conv12_pool_reference(q1, w, deq, bias, 0.021)
-        stem_err = max(stem_err, int((got.int() - want.int()).abs().max()))
-        check(torch.equal(got, want), f"stem kernel differs from its plain version ({case}): "
-                                      f"{int((got != want).sum())} codes differ")
-        share = float((want == (127 if case == "saturating" else 0)).float().mean())
-        print(json.dumps({"phase": "stem_kernel_vs_plain", "case": case, "bit_equal": True,
-                          "shape": list(q1.shape),
-                          ("share_at_127" if case == "saturating" else "share_zero"): share}))
-    q0 = torch.randint(-127, 128, (8, 38, 38, 512), generator=gen, device="cuda", dtype=torch.int8)
-    q0[:, ::3] = 0  # all-zero pixels
-    gamma = torch.rand(512, generator=gen, device="cuda") * 20.0
-    got = l2norm.l2norm_requant(q0, gamma, 0.137)
-    torch.cuda.synchronize()
-    want = l2norm.l2norm_requant_reference(q0, gamma, 0.137)
-    check(torch.equal(got, want) and not got[:, ::3].any(),
-          f"l2norm kernel differs from its plain version: {int((got != want).sum())} codes")
-    print(json.dumps({"phase": "l2norm_kernel_vs_plain", "case": "zero_pixels",
-                      "bit_equal": True, "shape": list(q0.shape)}))
+    stem_err = stem_kernel_cases(torch, stem, gen)
+    l2norm_err = l2norm_kernel_cases(torch, np, l2norm, gen)
 
     cfg1 = get_config("ssd300_vgg16_voc")
     cfg64 = get_config("ssd300_infer_bs64")
@@ -882,29 +898,25 @@ def main() -> int:
                       "stem_input": list(held1["stem_args"][0].shape),
                       "l2norm_input": list(held1["l2norm_args"][0].shape),
                       "p50_ms": p50_int8_bs1, "float_p50_ms": p50_bs1, **where}))
+    sa1, la1 = held1["stem_args"], held1["l2norm_args"]
+    skw1 = held1["stem_kw"]
     del held1, det1
 
     # 9. Profile of the int8 bs=64 path; the stem and L2Norm kernels against
-    # their plain versions on that path's own inputs (held bit-equal in 7).
+    # their plain versions on the bs=64 and the bs=1 path's own inputs (held
+    # bit-equal in 7 and 8), by CUDA-graph replay: a bs=1 launch is shorter
+    # than the host's enqueue.
     print(json.dumps({"phase": "profile_int8_bs64",
                       **profile_window(torch, lambda: predict8(images), 3), **where}))
     print(json.dumps({"phase": "profile_int8_bs1",
                       **profile_window(torch, lambda: predictor8._predict(canvas), 10), **where}))
-    sa, la = held["stem_args"], held["l2norm_args"]
-    stem_out = stem.stem_conv12_pool(*sa)
-    stem_ms = cuda_ms(torch, lambda: stem.stem_conv12_pool(*sa), 20)
-    stem_plain_ms = cuda_ms(torch, lambda: stem.stem_conv12_pool_reference(*sa), 3)
-    stem_bound, stem_bound_by = stem_bound_ms(sa[0], stem_out)
-    l2norm_ms = cuda_ms(torch, lambda: l2norm.l2norm_requant(*la), 50)
-    l2norm_plain_ms = cuda_ms(torch, lambda: l2norm.l2norm_requant_reference(*la), 10)
-    l2norm_bound, l2norm_bound_by = l2norm_bound_ms(la[0])
-    print(json.dumps({"phase": "int8_kernel_timing",
-                      "stem": {"input": list(sa[0].shape), "ms": stem_ms, "plain_ms": stem_plain_ms,
-                               "bound_ms": stem_bound, "bound_by": stem_bound_by},
-                      "l2norm": {"input": list(la[0].shape), "ms": l2norm_ms,
-                                 "plain_ms": l2norm_plain_ms, "bound_ms": l2norm_bound,
-                                 "bound_by": l2norm_bound_by}, **where}))
-    del predict8, held, sa, la, stem_out
+    stem64 = stem_timing(torch, stem, held["stem_args"], held["stem_kw"])
+    stem1 = stem_timing(torch, stem, sa1, skw1)
+    l2norm64 = l2norm_timing(torch, l2norm, held["l2norm_args"])
+    l2norm1 = l2norm_timing(torch, l2norm, la1)
+    print(json.dumps({"phase": "int8_kernel_timing", "stem": stem64, "stem_bs1": stem1,
+                      "l2norm": l2norm64, "l2norm_bs1": l2norm1, **where}))
+    del predict8, held, sa1, la1, skw1
 
     # 10. Against a reference on small inputs: the card vs the CPU.
     # TF32 off, so the card's float32 convs and matmuls are full float32.
@@ -1389,13 +1401,16 @@ def main() -> int:
 
     q1_chain = conv11()
     fp_out = stem_fp.stem_fused_producer(*sa, **skw)
-    check(torch.equal(stem.stem_conv12_pool(q1_chain, *sa[5:]), fp_out),
+    b2_kw = {"packed": skw["packed"][1]}  # B2 and B4 share conv1_2's packed operand
+    check(torch.equal(stem.stem_conv12_pool(q1_chain, *sa[5:], **b2_kw), fp_out),
           "B4 differs from the chain it replaces on the bs=64 path's codes")
-    stem_fp_ms = cuda_ms(torch, lambda: stem_fp.stem_fused_producer(*sa, **skw), 20)
+    # B4 and B2 (which runs B4's conv1_2 stage on conv1_1's codes from
+    # device memory) side by side, by CUDA-graph replay.
+    stem_fp_ms = graph_ms(torch, lambda: stem_fp.stem_fused_producer(*sa, **skw), 10)
     stem_fp_plain_ms = cuda_ms(torch, lambda: stem_fp.stem_fused_producer_reference(*sa), 3)
     conv11_ms = cuda_ms(torch, conv11, 5)
-    b2_on_path_ms = cuda_ms(torch, lambda: stem.stem_conv12_pool(q1_chain, *sa[5:]), 20)
-    chain_ms = cuda_ms(torch, lambda: stem.stem_conv12_pool(conv11(), *sa[5:]), 5)
+    b2_on_path_ms = graph_ms(torch, lambda: stem.stem_conv12_pool(q1_chain, *sa[5:], **b2_kw), 10)
+    chain_ms = cuda_ms(torch, lambda: stem.stem_conv12_pool(conv11(), *sa[5:], **b2_kw), 5)
     stem_fp_bound, stem_fp_bound_by = stem_fp_bound_ms(sa[0], fp_out)
     gemms = stem_fp_gemms(torch, sa[0], sa[1], sa[5])
     stem_fp_yardstick_ms = gemm_yardstick_ms(torch, gemms, 5)
@@ -1546,13 +1561,21 @@ def main() -> int:
             "replaces": "object_detector_tpu/kernels/stem_pallas.py:209",
             **counts("stem_conv12_pool"),
             "max_abs_err": stem_err,
-            "ms": stem_ms,
-            "plain_ms": stem_plain_ms,
-            "bound_ms": stem_bound,
-            "bound_by": stem_bound_by,
+            "ms": stem64["ms"],
+            "plain_ms": stem64["plain_ms"],
+            "bound_ms": stem64["bound_ms"],
+            "bound_by": stem64["bound_by"],
             "library_ms": None,
             "library_none_because": "no single PyTorch call computes an int8 conv with a "
                                     "requant epilogue and a max pool",
+            "gemm_yardstick_ms": stem64["gemm_yardstick_ms"],
+            "bs1": {k: stem1[k] for k in ("ms", "plain_ms", "gemm_yardstick_ms", "bound_ms",
+                                           "bound_by")},
+            "stem_fused_producer_ms": stem_fp_ms,
+            "times_are": "at the int8 SSD-300 bs=64 path's conv1_1 codes on the B2 route "
+                         "(bs1: the bs=1 path's); kernel and yardstick ms by CUDA graph "
+                         "replay; stem_fused_producer_ms: B4, which shares its conv1_2 stage, "
+                         "on the B4 route's bs=64 input codes",
         },
         {
             "name": "l2norm_requant",
@@ -1561,13 +1584,16 @@ def main() -> int:
             "replaces": "object_detector_tpu/kernels/l2norm_pallas.py:35",
             **counts("l2norm_requant"),
             "max_abs_err": l2norm_err,
-            "ms": l2norm_ms,
-            "plain_ms": l2norm_plain_ms,
-            "bound_ms": l2norm_bound,
-            "bound_by": l2norm_bound_by,
+            "ms": l2norm64["ms"],
+            "plain_ms": l2norm64["plain_ms"],
+            "bound_ms": l2norm64["bound_ms"],
+            "bound_by": l2norm64["bound_by"],
             "library_ms": None,
             "library_none_because": "no single PyTorch call computes an L2 norm over int8 codes "
                                     "with a scale and a requant",
+            "bs1": {k: l2norm1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "times_are": "at the int8 SSD-300 bs=64 path's tap (bs1: the bs=1 path's); kernel "
+                         "ms by CUDA graph replay",
         },
         {
             "name": "max_pool_bwd",
@@ -2070,6 +2096,87 @@ def resnet_kernel_cases(torch, resnet_stem, bottleneck):
                           "shape": list(x.shape), "cm": cm,
                           "share_positive": float((want > 0).float().mean())}))
     return stem_err, bott_err
+
+
+def stem_kernel_cases(torch, stem, gen):
+    """Holds B2 bit-equal to its plain version on synthetic cases:
+    saturating codes, all-negative biases, a size whose pooled tiles are
+    partial, one full-width image (bs=1), quotients y / s at or next to
+    half-integers (deq = s / 8). Returns the largest code difference (0)."""
+    w2 = torch.randint(-127, 128, (3, 3, 64, 64), generator=gen, device="cuda", dtype=torch.int8)
+    worst = 0
+    for case, shape in (("saturating", (4, 300, 300, 64)), ("negative_bias", (4, 300, 300, 64)),
+                        ("ragged_tile", (3, 22, 36, 64)), ("random", (3, 44, 60, 64)),
+                        ("bs1", (1, 300, 300, 64)), ("ties", (2, 300, 300, 64))):
+        low, high = {"negative_bias": (-127, 1), "ties": (-1, 2)}.get(case, (-127, 128))
+        q1 = torch.randint(low, high, shape, generator=gen, device="cuda", dtype=torch.int8)
+        w = {"negative_bias": w2.abs(), "ties": w2.clamp(-1, 1)}.get(case, w2)
+        deq = torch.full((64,), {"saturating": 2e-3, "negative_bias": 1e-4,
+                                 "ties": float(torch.tensor(0.021)) / 8}.get(case, 1e-5),
+                         device="cuda")
+        bias = torch.full((64,), {"negative_bias": -1.0, "ties": 0.0}.get(case, 0.1),
+                          device="cuda")
+        got = stem.stem_conv12_pool(q1, w, deq, bias, 0.021)
+        torch.cuda.synchronize()
+        want = stem.stem_conv12_pool_reference(q1, w, deq, bias, 0.021)
+        worst = max(worst, int((got.int() - want.int()).abs().max()))
+        check(torch.equal(got, want), f"stem kernel differs from its plain version ({case}): "
+                                      f"{int((got != want).sum())} codes differ")
+        print(json.dumps({"phase": "stem_kernel_vs_plain", "case": case, "bit_equal": True,
+                          "shape": list(q1.shape),
+                          "share_at_127": float((want == 127).float().mean()),
+                          "share_zero": float((want == 0).float().mean())}))
+    return worst
+
+
+def l2norm_ties(np, torch, s: float, c: int):
+    """(q0, gamma) pairs with C = c whose L2Norm values y sit at (n + 1/2) *
+    s for n from -140 to 139, one ulp either side, and at n * s (1120
+    targets, c at a time): pixel i holds +1, pixel c + i holds -1 at channel
+    i, so y = +-gamma exactly, then 16 zero pixels."""
+    n = np.arange(-140, 140, dtype=np.float32)
+    half = (n + np.float32(0.5)) * np.float32(s)
+    targets = np.concatenate([half, np.nextafter(half, -np.inf), np.nextafter(half, np.inf),
+                              n * np.float32(s)]).astype(np.float32)
+    q0 = np.zeros((2 * c + 16, c), np.int8)
+    q0[np.arange(c), np.arange(c)] = 1
+    q0[c + np.arange(c), np.arange(c)] = -1
+    q0 = torch.from_numpy(q0.reshape(1, 1, -1, c)).cuda()
+    gammas = np.resize(targets, (-(-targets.size // c), c)).astype(np.float32)
+    return [(q0, torch.from_numpy(g).cuda()) for g in gammas]
+
+
+def l2norm_kernel_cases(torch, np, l2norm, gen):
+    """Holds B3 bit-equal to its plain version on synthetic cases: zero
+    pixels at the SSD-300 width; C = 16 (one lane's chunk) and C = 2048 (four
+    a lane); a pixel count that leaves the persistent grid's last round
+    partial; quotients y / s at and next to half-integers, signed and past
+    the clip. Returns the largest code difference (0)."""
+    cases = []
+    q0 = torch.randint(-127, 128, (8, 38, 38, 512), generator=gen, device="cuda", dtype=torch.int8)
+    q0[:, ::3] = 0  # all-zero pixels
+    cases.append(("zero_pixels", q0, torch.rand(512, generator=gen, device="cuda") * 20.0, 0.137))
+    for c, shape in ((16, (4, 38, 38, 16)), (2048, (2, 19, 19, 2048)), (512, (3, 101, 97, 512))):
+        q0 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        q0[0, 0] = 0
+        cases.append((f"c{c}" if c != 512 else "off_the_grid", q0,
+                      torch.randn(c, generator=gen, device="cuda") * 10.0, 0.093))
+    for s in (0.02, 0.0173, 1.0 / 3.0, 3.7e-3):
+        cases += [("ties", q0, gamma, s) for q0, gamma in l2norm_ties(np, torch, s, 512)]
+    worst = 0
+    for case, q0, gamma, s in cases:
+        got = l2norm.l2norm_requant(q0, gamma, s)
+        torch.cuda.synchronize()
+        want = l2norm.l2norm_requant_reference(q0, gamma, s)
+        worst = max(worst, int((got.int() - want.int()).abs().max()))
+        zero = (q0 == 0).all(dim=-1)
+        check(torch.equal(got, want) and not got[zero].any(),
+              f"l2norm kernel differs from its plain version ({case}, C = {q0.shape[-1]}): "
+              f"{int((got != want).sum())} codes")
+        print(json.dumps({"phase": "l2norm_kernel_vs_plain", "case": case, "bit_equal": True,
+                          "shape": list(q0.shape), "out_scale": s,
+                          "share_at_127": float((want.abs() == 127).float().mean())}))
+    return worst
 
 
 def stem_fp_kernel_cases(torch, stem_fp):

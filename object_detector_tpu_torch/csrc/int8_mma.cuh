@@ -113,6 +113,19 @@ __device__ __forceinline__ int round_clip127(float q) {
 // The IEEE quotient, out of line: the rare path keeps the code small.
 __device__ __noinline__ float exact_quotient(float y, float s) { return __fdiv_rn(y, s); }
 
+// clip(rint(x / s), -127, 127) of a signed value, bit for bit, with the
+// divide only where the product by inv_s = RN(1 / s) could round to another
+// code: for |x / s| <= 128 the two quotients lie within 2.3e-5 of each
+// other, so beyond 2^-13 of a half-integer they round alike; above 128 both
+// clip. No ReLU: the L2Norm's codes and the ResNet stem's input codes are
+// signed (requant2 is the ReLU'd form).
+__device__ __forceinline__ int quantize_code(float x, float s, float inv_s) {
+  float q = __fmul_rn(x, inv_s);
+  const float k = __fsub_rn(__fadd_rn(q, 12582912.0f), 12582912.0f);
+  if (fabsf(__fsub_rn(q, k)) > 0.5f - 0x1p-13f) q = exact_quotient(x, s);
+  return round_clip127(q);
+}
+
 __device__ __forceinline__ float dequant(int acc, float deq, float bias) {
   return __fadd_rn(__fmul_rn(acc_to_float(acc), deq), bias);
 }

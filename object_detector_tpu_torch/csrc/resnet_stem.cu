@@ -37,8 +37,8 @@
 // Bit-exactness. |acc| <= 147 * 127 * 128 < 2^22, so acc -> float is exact
 // (by the 1.5 * 2^23 trick). The input quantize is a true divide, computed as
 // the multiply by RN(1 / in_scale) wherever that cannot round to another code
-// and as an IEEE divide within 2^-13 of a half-integer (`quantize_code`, the
-// argument of csrc/int8_mma.cuh `requant2`). The requant multiplies by the
+// and as an IEEE divide within 2^-13 of a half-integer (csrc/int8_mma.cuh
+// `quantize_code`, shared with the L2Norm). The requant multiplies by the
 // float32 reciprocal of out_scale, taken once (__frcp_rn, then __fmul_rn), as
 // the TPU kernel does; every other requant of the engine divides. Every
 // operation rounds on its own (_rn intrinsics; the build passes -fmad=false
@@ -118,17 +118,6 @@ static_assert(kZW * 12 <= kZStride, "a phase row must fit its stride");
 
 // Byte offset in the phase patch of 16-byte chunk j (< 12) of a pixel's A row.
 __host__ __device__ constexpr int chunk_offset(int j) { return (j / 3) * kZStride + (j % 3) * 16; }
-
-// clip(rint(x / s), -127, 127), bit for bit, with the divide only where the
-// product by inv_s = RN(1 / s) could round to another code: for |x / s| <= 128
-// the two quotients lie within 2.3e-5 of each other, so beyond 2^-13 of a
-// half-integer they round alike; above 128 both clip.
-__device__ __forceinline__ int quantize_code(float x, float s, float inv_s) {
-  float q = __fmul_rn(x, inv_s);
-  const float k = __fsub_rn(__fadd_rn(q, kMagic), kMagic);
-  if (fabsf(__fsub_rn(q, k)) > 0.5f - 0x1p-13f) q = exact_quotient(x, s);
-  return round_clip127(q);
-}
 
 // float(a) for |a| < 2^22, exactly.
 __device__ __forceinline__ float small_acc_to_float(int a) {

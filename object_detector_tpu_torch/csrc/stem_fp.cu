@@ -47,54 +47,29 @@
 //    A fragment in registers from the staged input words (each a pixel's 3
 //    codes and a zero byte) with __byte_perm, so no im2col buffer exists.
 //    Pixels outside the image get 0.
-//  - conv1_2 as an implicit GEMM over the staged conv1_1 codes, M = 256
-//    pre-pool pixels, N = 64, K = 9 * 64: warp w owns pooled row w, as two
-//    m16 tiles of two pre-pool rows by 8 columns, by all 8 n8 tiles. Row r
-//    of an m16 tile is pre-pool row r / 8, column r % 8, so accumulator
-//    registers c[0], c[2] of a thread are vertical neighbours (the vertical
-//    max stays in the thread) and lane ^ 4 holds the horizontal neighbour
-//    (one __shfl_xor_sync). The two lanes of a pair then requant one
-//    channel each into a shared-memory tile of pooled codes, which leaves
-//    in 16-byte stores.
+//  - conv1_2, the pool and the requant as an implicit GEMM over the staged
+//    conv1_1 codes, M = 256 pre-pool pixels, N = 64, K = 9 * 64: the stage
+//    of csrc/conv12_pool.cuh, which B2 (csrc/stem.cu) runs on codes it
+//    copies from device memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv12_pool.cuh"
 #include "int8_mma.cuh"
 
 namespace {
 
 using namespace int8mma;
+using namespace conv12;
 
-constexpr int kC = 64;                          // channels of conv1_1's output and conv1_2's
-constexpr int kTile = 8;                        // pooled rows and columns per tile
-constexpr int kMid = 2 * kTile + 2;             // conv1_1 rows and columns, with halo: 18
-constexpr int kMidPix = kMid * kMid;            // 324
 constexpr int kMidTiles = (kMidPix + 15) / 16;  // 21 m16 tiles
 constexpr int kInX = kMid + 2;                  // input rows and columns, with halo: 20
 constexpr int kXWords = kInX * kInX;            // 400
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;           // 8, one per pooled row
-constexpr int kMidStride = kC + 16;             // bytes per staged conv1_1 pixel
 constexpr int kW1Bytes = kStepBytes;            // (32, 64) packed: one k-step
-constexpr int kW2Bytes = 18 * kStepBytes;       // (576, 64) packed: 18 k-steps
-constexpr int kOutBytes = kTile * kTile * kC;   // 4,096
 constexpr int kXPerThread = (kXWords + kThreads - 1) / kThreads;  // 2
 constexpr size_t kSmemBytes = kW2Bytes + kW1Bytes + 4 * kC * sizeof(float) +
                               kMidPix * kMidStride + kOutBytes + kXWords * sizeof(int);
-
-struct Tile {
-  int b, pr0, pc0;
-};
-
-__device__ __forceinline__ Tile tile_of(int t, int tiles_x, int tiles_per_image) {
-  Tile r;
-  r.b = t / tiles_per_image;
-  const int i = t - r.b * tiles_per_image;
-  r.pr0 = (i / tiles_x) * kTile;
-  r.pc0 = (i % tiles_x) * kTile;
-  return r;
-}
 
 // Input pixel word k (< 400) of a tile: rows 2*pr0 - 2 .., columns 2*pc0 - 2
 // .., 3 codes and a zero byte, zero outside the image (conv1_1's padding).
@@ -237,81 +212,11 @@ __global__ void __launch_bounds__(kThreads, 2) stem_fp_kernel(
     }
     __syncthreads();
 
-    // conv1_2 + pool: warp w computes pre-pool rows 2w, 2w + 1 as m16 tiles
-    // j = 0, 1 (columns 8j .. 8j + 7), all 64 channels.
-    {
-      const int r = lane & 15;
-      unsigned base[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        base[j] = smem_addr(s_mid + ((2 * warp + (r >> 3)) * kMid + 8 * j + (r & 7)) * kMidStride) +
-                  16 * (lane >> 4);
-      }
-      int acc[2][8][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[j][nt][i] = 0;
-#pragma unroll 2
-      for (int s = 0; s < 18; ++s) {
-        const int tap = s >> 1;
-        const unsigned off = ((tap / 3) * kMid + tap % 3) * kMidStride + (s & 1) * kStepK;
-        unsigned a[2][4];
-        ldmatrix_x4(a[0], base[0] + off);
-        ldmatrix_x4(a[1], base[1] + off);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const uint4 b = load_pair(s_w2 + s * kStepBytes + q * kPairBytes, lane);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            mma_s8(acc[j][2 * q], a[j], b.x, b.y);
-            mma_s8(acc[j][2 * q + 1], a[j], b.z, b.w);
-          }
-        }
-      }
-      // Vertical max in the thread, horizontal with lane ^ 4; then the pair's
-      // even lane requants channel ch, the odd one ch + 1, of both m16 tiles
-      // (the ReLU floor is the requant's).
-      const int odd = gq & 1;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int ch = nt * 8 + 2 * tq;
-        const float d0 = s_vec[2 * kC + ch], d1 = s_vec[2 * kC + ch + 1];
-        const float b0 = s_vec[3 * kC + ch], b1 = s_vec[3 * kC + ch + 1];
-        float m[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int* c = acc[j][nt];
-          float v0 = fmaxf(dequant(c[0], d0, b0), dequant(c[2], d0, b0));
-          float v1 = fmaxf(dequant(c[1], d1, b1), dequant(c[3], d1, b1));
-          v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, 4));
-          v1 = fmaxf(v1, __shfl_xor_sync(0xffffffffu, v1, 4));
-          m[j] = odd ? v1 : v0;
-        }
-        const unsigned short codes = requant2(m[0], m[1], s2, inv2);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s_out[(warp * kTile + 4 * j + (gq >> 1)) * kC + ch + odd] =
-              static_cast<int8_t>(codes >> (8 * j));
-        }
-      }
-    }
+    // conv1_2 + pool + requant (csrc/conv12_pool.cuh), then the pooled
+    // tile to device memory.
+    conv_pool_tile(s_mid, s_w2, s_vec + 2 * kC, s_vec + 3 * kC, s2, inv2, s_out);
     __syncthreads();
-
-    // The pooled tile to device memory, 16 bytes a thread.
-    {
-      const int px = threadIdx.x >> 2;
-      const int part = threadIdx.x & 3;
-      const int pr = cur.pr0 + px / kTile;
-      const int pc = cur.pc0 + px % kTile;
-      if (pr < h2 && pc < w2) {
-        *reinterpret_cast<int4*>(out + ((static_cast<size_t>(cur.b) * h2 + pr) * w2 + pc) * kC +
-                                 16 * part) =
-            *reinterpret_cast<const int4*>(s_out + px * kC + 16 * part);
-      }
-    }
+    store_tile(s_out, out, cur, h2, w2);
   }
 }
 

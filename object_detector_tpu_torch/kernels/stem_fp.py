@@ -29,8 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from object_detector_tpu_torch.kernels import build, int8_pack
-from object_detector_tpu_torch.kernels.stem import stem_conv12_pool_reference
+from object_detector_tpu_torch.kernels import build, int8_pack, stem
 from object_detector_tpu_torch.ops import int8 as int8_ops
 
 Tensor = torch.Tensor
@@ -45,12 +44,12 @@ def stem_fused_producer_reference(
 ) -> Tensor:
     """Plain PyTorch version, the engine's unfused route on either device:
     conv1_1 through the int8 conv and the requant epilogue, then
-    `stem_conv12_pool_reference`. ``packed`` is the wrapper's argument,
+    `stem.stem_conv12_pool_reference`. ``packed`` is the wrapper's argument,
     unused here."""
     del packed
     acc = int8_ops.conv_int8(x_q, w1, 1, "SAME", 1)
     q1 = int8_ops.requant_epilogue(acc, deq1, bias1, int8_ops.scale_tensor(float(s1), x_q.device))
-    return stem_conv12_pool_reference(q1, w2, deq2, bias2, s2)
+    return stem.stem_conv12_pool_reference(q1, w2, deq2, bias2, s2)
 
 
 def pack_weights(w1: Tensor, w2: Tensor) -> Tuple[Tensor, Tensor]:
@@ -58,10 +57,10 @@ def pack_weights(w1: Tensor, w2: Tensor) -> Tuple[Tensor, Tensor]:
     `int8_pack.pack_b_operand`: w1 (3, 3, 3, 64) as the (32, 64) matrix of
     row k = 3 * tap + cin for k < 27 and zero rows 27..31 (the kernel's
     im2col row of a pixel is its 27 input codes and 5 zero bytes); w2 (3, 3,
-    64, 64) as the (576, 64) matrix of row 64 * tap + cin."""
+    64, 64) as B2's operand, `stem.pack_weights`: both kernels run the same
+    conv1_2 stage."""
     w1_kn = torch.nn.functional.pad(w1.reshape(27, CHANNELS), (0, 0, 0, 5))
-    return (int8_pack.pack_b_operand(w1_kn),
-            int8_pack.pack_b_operand(w2.reshape(9 * CHANNELS, CHANNELS)))
+    return int8_pack.pack_b_operand(w1_kn), stem.pack_weights(w2)
 
 
 def _check(x_q: Tensor, w1: Tensor, deq1: Tensor, bias1: Tensor,

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from object_detector_tpu_torch.core.config import DetectorConfig
 from object_detector_tpu_torch.kernels import bottleneck as bottleneck_kernel
 from object_detector_tpu_torch.kernels import resnet_stem as resnet_stem_kernel
+from object_detector_tpu_torch.kernels import stem as stem_kernel
 from object_detector_tpu_torch.kernels import stem_fp as stem_fp_kernel
 from object_detector_tpu_torch.kernels.bottleneck import fused_bottleneck
 from object_detector_tpu_torch.kernels.l2norm import l2norm_requant
@@ -649,9 +650,11 @@ def run_int8(
                                qp.bias[op.path1], s1, qp.w_int8[op.path2],
                                qp.deq(op.path2, s1, dev), qp.bias[op.path2], s2, packed=packed)
             else:
+                packed = qp.derived(("stem", op.path2), lambda: stem_kernel.pack_weights(
+                    qp.w_int8[op.path2]))
                 x = conv(x, ConvOp(op.path1), cur_scale)
                 x = stem_fn(x, qp.w_int8[op.path2], qp.deq(op.path2, s1, dev), qp.bias[op.path2],
-                            s2)
+                            s2, packed=packed)
             cur_scale = s2
         elif isinstance(op, SaveOp):
             regs[op.name] = (x, cur_scale)

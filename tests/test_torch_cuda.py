@@ -84,26 +84,38 @@ def test_nms_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "saturating", "negative_bias", "ragged_tile"])
+@pytest.mark.parametrize("kind", ["random", "saturating", "negative_bias", "ragged_tile",
+                                  "full_width_bs1", "ties"])
 def test_stem_kernel_bit_equal_to_plain_version(cuda_device, kind):
-    """The fused conv1_2 + pool against its plain version. "ragged_tile":
-    a pooled size that is not a multiple of the kernel's 8 x 8 tile."""
+    """The fused conv1_2 + pool against its plain version, with the packed
+    operand made by the wrapper and passed in. "ragged_tile": a pooled size
+    that is not a multiple of the kernel's 8 x 8 tile; "full_width_bs1":
+    one SSD-300 image's conv1_1 codes; "ties": deq = s / 8, so that many
+    quotients y / s lie at or within an ulp of a half-integer, where a
+    reciprocal multiply alone would round wrongly."""
     rng = np.random.default_rng(5)
-    h, w = (22, 36) if kind == "ragged_tile" else (32, 32)
-    lim = 128 if kind == "saturating" else 10
-    q1 = rng.integers(-lim + 1, lim, (3, h, w, 64), dtype=np.int8)
+    b, h, w = {"ragged_tile": (3, 22, 36), "full_width_bs1": (1, 300, 300)}.get(kind, (3, 32, 32))
+    lim = {"saturating": 128, "ties": 2}.get(kind, 10)
+    q1 = rng.integers(-lim + 1, lim, (b, h, w, 64), dtype=np.int8)
     w2 = rng.integers(-lim + 1, lim, (3, 3, 64, 64)).astype(np.int8)
     deq = ((rng.random(64) + 0.5) * (0.2 if kind == "saturating" else 1e-2)).astype(np.float32)
     bias = (rng.normal(size=64) * 0.1).astype(np.float32)
     if kind == "negative_bias":
         bias = -np.abs(bias) - 100.0
+    elif kind == "ties":
+        deq, bias = np.full(64, np.float32(0.021) / 8, np.float32), np.zeros(64, np.float32)
     args = [torch.from_numpy(a).to(cuda_device) for a in (q1, w2, deq, bias)]
     before = stem.stem_conv12_pool.launches
     got = stem.stem_conv12_pool(*args, 0.021)
     torch.cuda.synchronize()
     assert stem.stem_conv12_pool.launches == before + 1
     want = stem.stem_conv12_pool_reference(*args, 0.021)
-    assert got.shape == (3, h // 2, w // 2, 64) and torch.equal(got, want)
+    assert got.shape == (b, h // 2, w // 2, 64) and torch.equal(got, want), \
+        int((got != want).sum())
+    packed = stem.pack_weights(args[1])
+    assert torch.equal(stem.stem_conv12_pool(*args, 0.021, packed=packed), want)
+    if kind != "negative_bias":
+        assert 0.05 < float((want > 0).float().mean())
 
 
 def _stem_fp_case(kind, device, seed=12):
@@ -184,6 +196,71 @@ def test_l2norm_kernel_bit_equal_to_plain_version(cuda_device, batch):
     assert l2norm.l2norm_requant.launches == before + 1
     assert torch.equal(got, l2norm.l2norm_requant_reference(q0_t, gamma_t, 0.137))
     assert not got[0, :3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 528, 1040, 2048])
+def test_l2norm_kernel_at_every_chunk_count(cuda_device, c):
+    """C = 16 (lane 0 alone holds a chunk), and one to four 512-channel
+    chunks a lane, the last ones partial at 528 and 1040."""
+    rng = np.random.default_rng(c)
+    q0 = rng.integers(-127, 128, (2, 7, 9, c), dtype=np.int8)
+    q0[1, 3] = 0
+    gamma = (rng.normal(size=c) * 10.0).astype(np.float32)
+    q0_t, gamma_t = torch.from_numpy(q0).to(cuda_device), torch.from_numpy(gamma).to(cuda_device)
+    got = l2norm.l2norm_requant(q0_t, gamma_t, 0.093)
+    torch.cuda.synchronize()
+    assert torch.equal(got, l2norm.l2norm_requant_reference(q0_t, gamma_t, 0.093))
+    assert not got[1, 3].any() and got.any()
+
+
+@pytest.mark.cuda
+def test_l2norm_kernel_on_pixels_off_the_grid(cuda_device):
+    """29,391 pixels: several rounds of the persistent grid's warps, the
+    last one partial."""
+    rng = np.random.default_rng(9)
+    q0 = rng.integers(-127, 128, (3, 101, 97, 512), dtype=np.int8)
+    q0[2, -1, -5:] = 0
+    gamma = (rng.random(512) * 20.0).astype(np.float32)
+    q0_t, gamma_t = torch.from_numpy(q0).to(cuda_device), torch.from_numpy(gamma).to(cuda_device)
+    got = l2norm.l2norm_requant(q0_t, gamma_t, 0.137)
+    torch.cuda.synchronize()
+    assert torch.equal(got, l2norm.l2norm_requant_reference(q0_t, gamma_t, 0.137))
+    assert not got[2, -1, -5:].any()
+
+
+def _l2norm_ties(s, c, device):
+    """(q0, gamma) with C = c whose values y sit at (n + 1/2) * s for n from
+    -140 to 139, one ulp either side, and at n * s (1120 targets, taken c at
+    a time into the batch): pixel i holds +1, pixel c + i holds -1 at
+    channel i, so y = +-gamma exactly (1 / sqrt(1 + 1e-12) rounds to 1),
+    then 16 zero pixels."""
+    n = np.arange(-140, 140, dtype=np.float32)
+    half = (n + np.float32(0.5)) * np.float32(s)
+    targets = np.concatenate([half, np.nextafter(half, -np.inf), np.nextafter(half, np.inf),
+                              n * np.float32(s)]).astype(np.float32)
+    groups = -(-targets.size // c)
+    gamma = np.resize(targets, (groups, c)).astype(np.float32)
+    q0 = np.zeros((2 * c + 16, c), np.int8)
+    q0[np.arange(c), np.arange(c)] = 1
+    q0[c + np.arange(c), np.arange(c)] = -1
+    return ([torch.from_numpy(q0.reshape(1, 1, -1, c)).to(device)] * groups,
+            [torch.from_numpy(g).to(device) for g in gamma])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [512, 1120])
+def test_l2norm_kernel_on_ties(cuda_device, c):
+    """Quotients y / s at half-integers and one ulp either side, signed and
+    through the clip at +-127: the kernel's reciprocal-then-divide rule
+    gives the plain version's codes (a true divide)."""
+    for s in (0.02, 0.0173, 1.0 / 3.0, 0.5, 3.7e-3):
+        for q0, gamma in zip(*_l2norm_ties(s, c, cuda_device)):
+            got = l2norm.l2norm_requant(q0, gamma, s)
+            torch.cuda.synchronize()
+            want = l2norm.l2norm_requant_reference(q0, gamma, s)
+            assert torch.equal(got, want), (s, int((got != want).sum()))
+            assert not got[..., -16:, :].any()
 
 
 @pytest.mark.cuda

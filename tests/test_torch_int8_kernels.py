@@ -114,6 +114,23 @@ def test_stem_wrapper_rejects_what_the_kernel_does_not_take():
         stem.stem_conv12_pool(q1.float(), w2, deq, bias, s2)
 
 
+def test_stem_wrapper_rejects_a_packed_operand_off_the_layout():
+    """`packed` is checked before the wrapper dispatches on the device: a
+    wrong shape, a wrong dtype, a strided tensor or another device raises,
+    on the CPU too, where the kernel's plain version does not read it."""
+    q1, w2, deq, bias, s2 = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                             for a in _stem_case("random"))
+    packed = stem.pack_weights(w2)
+    want = stem.stem_conv12_pool_reference(q1, w2, deq, bias, s2)
+    assert torch.equal(stem.stem_conv12_pool(q1, w2, deq, bias, s2, packed=packed), want)
+    bad = {"shape": packed.reshape(18, 4, 32, 16), "dtype": packed.to(torch.int16),
+           "layout": packed.transpose(3, 4).contiguous().transpose(3, 4),
+           "device": packed.to("meta")}
+    for kind, p in bad.items():
+        with pytest.raises(ValueError):
+            stem.stem_conv12_pool(q1, w2, deq, bias, s2, packed=p)
+
+
 def _l2norm_case(seed=0):
     rng = np.random.default_rng(seed)
     q0 = rng.integers(-127, 128, (2, 9, 9, 512), dtype=np.int8)

@@ -6,16 +6,20 @@ Each conv of the fused bottleneck (``csrc/bottleneck.cu``), of VGG block 1
 rebuilt from the packed weights the way the kernel's ``mma.sync.m16n8k32``
 fragments read them (`kernel_b_matrix`; for conv1_1 also the A rows the
 kernel builds with ``__byte_perm``, for the ResNet stem the A rows it reads
-from its phase patch) and held equal to the int8 conv it stands for. Also
-the ResNet stem's input quantize rule, and: an edit to a header that a
-source includes changes the library's path, so every kernel that includes
-it rebuilds."""
+from its phase patch) and held equal to the int8 conv it stands for; B2's
+conv1_2 operand is B4's. Also the exact signed quantize rule
+(``csrc/int8_mma.cuh`` `quantize_code`, the ResNet stem's input quantize and
+the L2Norm's whole chain) on ties, and: an edit to a header that a source
+includes changes the library's path, so every kernel that includes it
+rebuilds."""
 
 import numpy as np
 import pytest
 import torch
 
-from object_detector_tpu_torch.kernels import bottleneck, build, int8_pack, resnet_stem, stem_fp
+from object_detector_tpu_torch.kernels import (
+    bottleneck, build, int8_pack, l2norm, resnet_stem, stem, stem_fp,
+)
 from object_detector_tpu_torch.ops import int8 as int8_ops
 
 torch.set_num_threads(2)
@@ -171,7 +175,7 @@ def test_resnet_stem_packed_operand_rebuilds_the_conv(kind, shape):
 
 
 def quantize_by_reciprocal(x: torch.Tensor, s: float) -> torch.Tensor:
-    """csrc/resnet_stem.cu `quantize_code` in float32 operations: q = x *
+    """csrc/int8_mma.cuh `quantize_code` in float32 operations: q = x *
     RN(1 / s); where q lies within 2^-13 of a half-integer, q = x / s; then
     the clip and the round half to even by the 1.5 * 2^23 trick."""
     s32 = torch.tensor(s, dtype=torch.float32)
@@ -202,6 +206,70 @@ def test_resnet_stem_quantize_rule_equals_the_true_divide_on_ties():
     assert naive_differs > 0
 
 
+TIE_SCALES = (0.02, 0.0173, 1.0 / 3.0, 0.5, 3.7e-3, 0.0187)
+
+
+def l2norm_tie_case(s: float):
+    """(q0, gamma) whose L2Norm values y land at (n + 1/2) * s for n from
+    -140 to 139 and one ulp either side (and at n * s): pixel i holds code
+    +1 (the first half of the pixels) or -1 at channel i % 1120 and zeros
+    elsewhere, so 1 / sqrt(1 + 1e-12) rounds to 1 and y = +-gamma exactly;
+    then 16 all-zero pixels. C = 1120, a multiple of 16."""
+    n = np.arange(-140, 140, dtype=np.float32)
+    half = (n + np.float32(0.5)) * np.float32(s)
+    gamma = np.concatenate([half, np.nextafter(half, -np.inf), np.nextafter(half, np.inf),
+                            n * np.float32(s)]).astype(np.float32)
+    c = gamma.size
+    q0 = np.zeros((2 * c + 16, c), np.int8)
+    q0[np.arange(c), np.arange(c)] = 1
+    q0[c + np.arange(c), np.arange(c)] = -1
+    return torch.from_numpy(q0.reshape(1, 1, -1, c)), torch.from_numpy(gamma)
+
+
+def l2norm_by_reciprocal(q0: torch.Tensor, gamma: torch.Tensor, s: float) -> torch.Tensor:
+    """csrc/l2norm.cu's chain in float32 operations: the exact sum of
+    squares, inv = 1 / sqrt(ss + 1e-12), y = (x * inv) * gamma, then
+    `quantize_code` (`quantize_by_reciprocal`)."""
+    x = q0.to(torch.float32)
+    ss = q0.to(torch.int32).square().sum(dim=-1, keepdim=True).to(torch.float32)
+    inv = torch.reciprocal(torch.sqrt(ss + torch.tensor(1e-12, dtype=torch.float32)))
+    return quantize_by_reciprocal((x * inv) * gamma, s)
+
+
+def test_l2norm_quantize_rule_equals_the_reference_on_ties():
+    """B3's whole chain with the shared quantize rule gives the plain
+    version's codes (a true divide by the scale) where y / s sits at a
+    half-integer or one ulp from it, for signed y and through the clip at
+    +-127; zero pixels give zero codes. The product by RN(1 / s) alone does
+    not, on some of them."""
+    naive_differs = 0
+    for s in TIE_SCALES:
+        q0, gamma = l2norm_tie_case(s)
+        want = l2norm.l2norm_requant_reference(q0, gamma, s)
+        got = l2norm_by_reciprocal(q0, gamma, s)
+        assert torch.equal(got, want)
+        assert not want[..., -16:, :].any()
+        assert int(want.max()) == 127 and int(want.min()) == -127
+        y = (q0.to(torch.float32) * gamma)
+        naive = (y * torch.reciprocal(torch.tensor(s, dtype=torch.float32))).round().clamp(
+            -127, 127).to(torch.int8)
+        naive_differs += int((naive != want).sum())
+    assert naive_differs > 0
+
+
+def test_stem_pack_weights_is_the_second_operand_of_stem_fp():
+    """B2 and B4 run one conv1_2 stage: B2's packed operand is, byte for
+    byte, the second tensor `stem_fp.pack_weights` returns, and it rebuilds
+    conv1_2 (`test_stem_fp_packed_operands_rebuild_the_convs`)."""
+    w1, w2 = _ints((3, 3, 3, 64), 13), _ints((3, 3, 64, 64), 14)
+    packed = stem.pack_weights(torch.from_numpy(w2))
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert tuple(packed.shape) == stem.PACKED_SHAPE
+    second = stem_fp.pack_weights(torch.from_numpy(w1), torch.from_numpy(w2))[1]
+    assert tuple(second.shape) == tuple(packed.shape)
+    assert second.numpy().tobytes() == packed.numpy().tobytes()
+
+
 def test_pack_b_operand_refuses_widths_off_the_layout():
     with pytest.raises(ValueError, match="multiple of 32"):
         int8_pack.pack_b_operand(torch.zeros((48, 64), dtype=torch.int8))
@@ -210,21 +278,29 @@ def test_pack_b_operand_refuses_widths_off_the_layout():
 
 
 def test_library_path_changes_with_an_included_header(tmp_path, monkeypatch):
-    """The three tensor-core sources include int8_mma.cuh: an edit to it (or
-    to a source) gives each a new library path, so all three rebuild; a
-    source that does not include it keeps its path."""
-    for name in ("bottleneck.cu", "stem_fp.cu", "resnet_stem.cu", "nms.cu", "int8_mma.cuh"):
-        (tmp_path / name).write_bytes((build.CSRC_DIR / name).read_bytes())
+    """Five sources include int8_mma.cuh: an edit to it (or to a source)
+    gives each a new library path, so all five rebuild; a source that does
+    not include it keeps its path. B2 and B4 include conv12_pool.cuh (which
+    includes int8_mma.cuh): an edit to it rebuilds those two only."""
+    tensor_core = ("bottleneck", "stem_fp", "resnet_stem", "stem", "l2norm")
+    for name in (*tensor_core, "nms"):
+        (tmp_path / build.SOURCES[name]).write_bytes((build.CSRC_DIR / build.SOURCES[name]).read_bytes())
+    for header in ("int8_mma.cuh", "conv12_pool.cuh"):
+        (tmp_path / header).write_bytes((build.CSRC_DIR / header).read_bytes())
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
-    names = ("bottleneck", "stem_fp", "resnet_stem", "nms")
+    names = (*tensor_core, "nms")
     before = {n: build.library_path(n) for n in names}
-    assert len(set(before.values())) == 4
+    assert len(set(before.values())) == len(names)
     header = tmp_path / "int8_mma.cuh"
     header.write_bytes(header.read_bytes() + b"\n// an edit\n")
     after = {n: build.library_path(n) for n in names}
-    assert all(after[n] != before[n] for n in ("bottleneck", "stem_fp", "resnet_stem"))
+    assert all(after[n] != before[n] for n in tensor_core)
     assert after["nms"] == before["nms"]
+    stage = tmp_path / "conv12_pool.cuh"
+    stage.write_bytes(stage.read_bytes() + b"\n")
+    again = {n: build.library_path(n) for n in names}
+    assert {n for n in names if again[n] != after[n]} == {"stem", "stem_fp"}
     src = tmp_path / "stem_fp.cu"
     src.write_bytes(src.read_bytes() + b"\n")
-    assert build.library_path("stem_fp") != after["stem_fp"]
-    assert build.library_path("bottleneck") == after["bottleneck"]
+    assert build.library_path("stem_fp") != again["stem_fp"]
+    assert build.library_path("bottleneck") == again["bottleneck"]

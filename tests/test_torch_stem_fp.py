@@ -16,7 +16,7 @@ from object_detector_tpu.models.ssd import SSDModel as RefSSDModel
 from object_detector_tpu.quant import engine as ref_engine
 from object_detector_tpu_torch.convert import flatten_tree, params_from_jax, quant_params_from_jax
 from object_detector_tpu_torch.core import config
-from object_detector_tpu_torch.kernels import stem_fp
+from object_detector_tpu_torch.kernels import stem, stem_fp
 from object_detector_tpu_torch.ops import int8 as int8_ops
 from object_detector_tpu_torch.quant import engine
 
@@ -207,6 +207,36 @@ def test_engine_route_bit_equal_to_b2_route_and_reference(tiny, monkeypatch):
     for a, b in zip(out["0"][1], out["1"][1]):
         assert torch.equal(a, b)
     assert ("stem_fp", "backbone/conv1_1") in qp._derived
+
+
+def test_engine_b2_route_packs_conv1_2_once_and_passes_it(tiny, monkeypatch):
+    """On the B2 route (``ODT_STEM_FP=0``) the engine lays out conv1_2's
+    packed operand once per QuantParams (`stem.pack_weights`, cached through
+    ``qp.derived``) and hands the same tensor to every ``stem_fn`` call,
+    where the wrapper used to re-lay out the kernel on every call."""
+    _, cfg, x, ref_qp = tiny
+    qp, spec = quant_params_from_jax(ref_qp), engine.build_spec(cfg)
+    monkeypatch.setenv("ODT_STEM_FP", "0")
+    packs, seen = [], []
+    real_pack = stem.pack_weights
+
+    def counting_pack(w2):
+        packs.append(w2)
+        return real_pack(w2)
+
+    def stem_fn(*args, **kwargs):
+        seen.append(kwargs["packed"])
+        return stem.stem_conv12_pool(*args, **kwargs)
+
+    monkeypatch.setattr(stem, "pack_weights", counting_pack)
+    first = engine.int8_forward(qp, spec, cfg, torch.from_numpy(x), stem_fn=stem_fn)
+    second = engine.int8_forward(qp, spec, cfg, torch.from_numpy(x), stem_fn=stem_fn)
+    assert len(packs) == 1 and len(seen) == 2 and seen[0] is seen[1]
+    w2 = qp.w_int8["backbone/conv1_2"]
+    assert packs[0] is w2 and torch.equal(seen[0], real_pack(w2))
+    assert qp._derived[("stem", "backbone/conv1_2")] is seen[0]
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_stem_fp_is_on_by_default_and_the_grammar_is_strict(monkeypatch):
