@@ -144,7 +144,32 @@ Phases, each fatal on failure:
      batches, the second overlapping the first): int8 with B4 (two B4
      launches, mAP above 0), int8 on the B2 route (the same mAP dict) and
      float (the same keys), each a voc07 dict of finite values; time each in
-     img/s, and the sweep alone on a built cache.
+     img/s, and the sweep alone on a built cache;
+ 27. serve full-width retinanet_fpn_coco (seeded random weights, seeded
+     non-trivial BatchNorm statistics; 49104 anchors) in float at bs=64
+     through make_predict_fn: the NMS kernel once and no other kernel, held
+     against its plain version on the path's 5120 rows and timed there
+     beside its bound; img/s; a profile of the call and of each stage
+     (normalize, trunk, FPN, heads, postprocess) on its own;
+ 28. serve it in int8 at bs=64 through make_int8_predict_fn (calibrated on 8
+     seeded images): B6 once, B7 twelve times and B1 once a forward; the
+     detections bit-equal to the same QuantParams run with the plain
+     versions, each kernel bit-equal to its plain version on the path's own
+     inputs (images, the twelve blocks' inputs, the 5120 rows); the
+     bottleneck-only spec bit-equal to the unfused spec at the three trunk
+     taps and every FPN and head requant point, the spec with both kernels
+     within stated mean code differences of it at the taps and P3 to P7;
+     img/s with the kernels and on the unfused spec; B6, B7 and B1 timed on
+     the path's inputs; a profile of the call and of each stage;
+ 29. serve one image through the Predictor in float and in int8 at bs=1:
+     the same launch counts, the kernels held on the path's inputs (B1 on its
+     80 rows), the served detections equal to the plain versions' run, the
+     p50 of both beside the device busy time of a profile window;
+ 30. tiny_retinanet_config (128 px) on the card against the CPU: float32
+     logits within 1e-3 with TF32 off; on the CPU's QuantParams the int8
+     taps, the codes at every FPN and head requant point and the logits
+     bit-equal and the detections equal; evaluate_dataset in float and int8
+     on the card, a COCO dict of finite values each, with their launches.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -163,6 +188,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 R, K, MAX_OUT = 1280, 512, 100
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, int8 tensor-core
@@ -223,6 +249,15 @@ RESNET_BLOCKS = ((256, 64, 128, 2), (512, 128, 64, 3), (1024, 256, 32, 5), (2048
 # Limits on the mean code difference at each of SSD-512's seven taps between
 # the spec with both kernels and the unfused spec on the same QuantParams.
 TAP_MEAN_CODE_DIFF_LIMITS = (0.01, 0.1, 0.2, 0.3, 0.3, 0.5, 0.5)
+# Limits on the mean code difference between the spec with both kernels and
+# the unfused spec on the same QuantParams, at RetinaNet's three trunk taps
+# and its five pyramid levels. A drift alarm: the guard is the
+# bottleneck-only spec, bit-equal to the unfused spec at every requant point.
+# An NVIDIA H100 80GB HBM3 (700 W) read 0.0017, 0.023, 0.049 of a code at C3
+# to C5 and 0.112, 0.117, 0.146, 0.162, 0.213 at P3 to P7 (at most 10 codes
+# anywhere); the limits are one and a half to three times those.
+RETINANET_MEAN_CODE_DIFF_LIMITS = {"C3": 0.005, "C4": 0.04, "C5": 0.1, "fpn/P3": 0.2,
+                                   "fpn/P4": 0.25, "fpn/P5": 0.3, "fpn/P6": 0.3, "fpn/P7": 0.35}
 
 
 def fail(msg: str) -> None:
@@ -650,6 +685,8 @@ def main() -> int:
             bottleneck, build, l2norm, pool_bwd, resnet_stem, stem, stem_fp,
         )
         from object_detector_tpu_torch.kernels import nms as nms_kernel
+        from object_detector_tpu_torch.anchors.priors import retinanet_anchors
+        from object_detector_tpu_torch.models.retinanet import build_model
         from object_detector_tpu_torch.models.ssd import SSDModel
         from object_detector_tpu_torch.ops import int8 as int8_ops
         from object_detector_tpu_torch.ops import pooling
@@ -882,15 +919,9 @@ def main() -> int:
     stem_err = max(stem_err, held1["stem_err"])
     l2norm_err = max(l2norm_err, held1["l2norm_err"])
     max_abs_err = max(max_abs_err, held1["nms_err"])
-    det1 = held1["detections"]
-    v1 = det1.valid[0]
     ih, iw = image.shape[:2]
-    served = torch.tensor([[d.score, d.class_id, *d.box] for d in dets8], dtype=torch.float32)
-    want = torch.cat([det1.scores[0][v1, None], det1.classes[0][v1, None].float(),
-                      det1.boxes[0][v1] * torch.tensor([iw, ih, iw, ih], dtype=torch.float32,
-                                                       device="cuda")], dim=1).cpu()
-    check(torch.equal(served, want), "int8 bs=1: the served detections differ from the "
-                                     "plain versions' run on the same canvas")
+    check(served_equal(torch, dets8, held1["detections"], iw, ih),
+          "int8 bs=1: the served detections differ from the plain versions' run on the same canvas")
     p50_int8_bs1 = statistics.median(host_ms(torch, lambda: predictor8._predict(canvas), 50))
     print(json.dumps({"phase": "int8_predictor_bs1", "detections": len(dets8),
                       "launches": launches["int8_bs1"], "kernels_vs_plain_bit_equal": True,
@@ -900,7 +931,7 @@ def main() -> int:
                       "p50_ms": p50_int8_bs1, "float_p50_ms": p50_bs1, **where}))
     sa1, la1 = held1["stem_args"], held1["l2norm_args"]
     skw1 = held1["stem_kw"]
-    del held1, det1
+    del held1
 
     # 9. Profile of the int8 bs=64 path; the stem and L2Norm kernels against
     # their plain versions on the bs=64 and the bs=1 path's own inputs (held
@@ -1306,14 +1337,9 @@ def main() -> int:
     # inputs, summed.
     bott_bs1 = [cuda_ms(torch, lambda a=a, k=k: bottleneck.fused_bottleneck(*a, **k), 20)
                 for a, k in held512_1["block_args"]]
-    det1 = held512_1["detections"]
-    v1 = det1.valid[0]
-    served = torch.tensor([[d.score, d.class_id, *d.box] for d in dets512_8], dtype=torch.float32)
-    want = torch.cat([det1.scores[0][v1, None], det1.classes[0][v1, None].float(),
-                      det1.boxes[0][v1] * torch.tensor([iw, ih, iw, ih], dtype=torch.float32,
-                                                       device="cuda")], dim=1).cpu()
-    check(torch.equal(served, want), "SSD-512 int8 bs=1: the served detections differ from the "
-                                     "plain versions' run on the same canvas")
+    check(served_equal(torch, dets512_8, held512_1["detections"], iw, ih),
+          "SSD-512 int8 bs=1: the served detections differ from the plain versions' run on the "
+          "same canvas")
     canvas_512 = rng.integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)
     p50_512 = statistics.median(host_ms(torch, lambda: predictor512._predict(canvas_512), 50))
     p50_512_8 = statistics.median(host_ms(torch, lambda: predictor512_8._predict(canvas_512), 50))
@@ -1334,7 +1360,7 @@ def main() -> int:
         torch, lambda: predictor512._predict(canvas_512), 10), **where}))
     print(json.dumps({"phase": "profile_ssd512_int8_bs1", **profile_window(
         torch, lambda: predictor512_8._predict(canvas_512), 10), **where}))
-    del held512_1, rows512_1, det1, predictor512, predictor512_8, model512, predict512
+    del held512_1, rows512_1, predictor512, predictor512_8, model512, predict512
     torch.cuda.empty_cache()
 
     # 22. A small ResNet-50 config on the card against the CPU.
@@ -1532,6 +1558,19 @@ def main() -> int:
     del os.environ["ODT_STEM_FP"], trained
     work.cleanup()
 
+    # 27 to 30. RetinaNet/FPN (retinanet_fpn_coco) in float and int8.
+    rn_mods = types.SimpleNamespace(
+        engine=engine, nms_kernel=nms_kernel, resnet_stem=resnet_stem, bottleneck=bottleneck,
+        normalize=normalize, postprocess=postprocess, Predictor=Predictor,
+        make_predict_fn=make_predict_fn, make_int8_predict_fn=make_int8_predict_fn,
+        evaluate_dataset=evaluate_dataset, init_params=init_params, get_config=get_config,
+        build_model=build_model, retinanet_anchors=retinanet_anchors, port_config=port_config,
+        make_synthetic_dataset=make_synthetic_dataset)
+    rn = retinanet_phases(torch, np, rn_mods, counted, wrappers, launches, gen, rng, image, where)
+    rstem_err = max(rstem_err, rn["stem_err"])
+    bott_err = max(bott_err, rn["bottleneck_err"])
+    max_abs_err = max(max_abs_err, rn["nms_err"])
+
     def counts(name: str) -> dict:
         return {"launches": sum(c[name] for c in launches.values()),
                 "launches_by_path": {path: c[name] for path, c in launches.items()}}
@@ -1551,8 +1590,11 @@ def main() -> int:
             "library_ms": None,
             "library_none_because": "no single PyTorch call computes a greedy NMS scan",
             "times_are": "at the SSD-300 bs=64 path's 1280 rows; at_rows: each serving "
-                         "shape's own rows; kernel ms by CUDA graph replay",
-            "at_rows": {"20": nms20, "80": nms80, "1280": nms1280, "5120": nms512},
+                         "shape's own rows (retinanet_*: RetinaNet's float bs=64 and bs=1 "
+                         "rows and its int8 bs=64 rows); kernel ms by CUDA graph replay",
+            "at_rows": {"20": nms20, "80": nms80, "1280": nms1280, "5120": nms512,
+                        "retinanet_5120": rn["nms_5120"], "retinanet_5120_int8": rn["nms_5120_int8"],
+                        "retinanet_80": rn["nms_80"]},
         },
         {
             "name": "stem_conv12_pool",
@@ -1627,8 +1669,10 @@ def main() -> int:
             "gemm_yardstick_ms": rstem64["gemm_yardstick_ms"],
             "bs1": {k: rstem1[k] for k in ("ms", "plain_ms", "unfused_chain_ms",
                                            "gemm_yardstick_ms", "bound_ms", "bound_by")},
-            "times_are": "at the int8 SSD-512 bs=64 path's images (bs1: the bs=1 path's image); "
-                         "kernel and yardstick ms by CUDA graph replay",
+            "retinanet_bs64": rn["resnet_stem"],
+            "times_are": "at the int8 SSD-512 bs=64 path's images (bs1: the bs=1 path's image; "
+                         "retinanet_bs64: the int8 RetinaNet bs=64 path's); kernel and yardstick "
+                         "ms by CUDA graph replay",
         },
         {
             "name": "fused_bottleneck",
@@ -1650,8 +1694,11 @@ def main() -> int:
             "ms_by_shape": {k: v["ms"] for k, v in by_shape.items()},
             "launches_by_shape": {k: v["launches"] for k, v in by_shape.items()},
             "bs1_ms": sum(bott_bs1),
+            "retinanet_bs64": rn["bottleneck"],
             "times_are": "sums over the twelve launches of one bs=64 int8 SSD-512 forward "
-                         "(ms_by_shape: a launch; bs1_ms: the twelve of a bs=1 forward)",
+                         "(ms_by_shape: a launch; bs1_ms: the twelve of a bs=1 forward; "
+                         "retinanet_bs64: the twelve of a bs=64 int8 RetinaNet forward, by "
+                         "CUDA events)",
         },
         {
             "name": "stem_fused_producer",
@@ -2255,16 +2302,16 @@ def unfused_block(int8_ops, qp, op, x, in_scale):
 
 def hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess, normalize,
                           predict8, images, anchors_np, cfg):
-    """Runs the int8 SSD-512 path of ``predict8`` (a `make_int8_predict_fn`
-    result) on ``images`` (uint8, on the card) with its QuantParams,
+    """Runs the int8 ResNet-50 path (SSD-512 or RetinaNet) of ``predict8`` (a
+    `make_int8_predict_fn` result) on ``images`` (uint8, on the card) with its QuantParams,
     capturing what the stem and the twelve bottleneck launches were given.
     Holds the detections through the kernels equal to those of the same
     QuantParams with the plain versions of both kernels, each kernel
     bit-equal to its plain version on the captured inputs, and the NMS
     kernel bit-equal to its plain version on the rows the int8 logits give
     it. Returns the captured inputs, the largest code differences, the
-    detections through the kernels, the NMS rows' shape and how far the stem
-    is from the engine's unfused chain."""
+    detections through the kernels, the NMS rows (captured, and their shape)
+    and how far the stem is from the engine's unfused chain."""
     from object_detector_tpu_torch.kernels import nms as nms_kernel
     from object_detector_tpu_torch.ops import int8 as int8_ops
 
@@ -2279,13 +2326,15 @@ def hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess, n
         return bottleneck.fused_bottleneck(*args, **kw)
 
     qp, spec = predict8.qp, predict8.spec
+    forward = engine.retinanet_int8_forward if cfg.model.family == "retinanet" else \
+        engine.int8_forward
     anchors = torch.from_numpy(anchors_np).cuda()
     with torch.inference_mode():
         x = normalize(images.float() / 255.0)
-        head_k = engine.int8_forward(qp, spec, cfg, x, resnet_stem_fn=stem_capture,
-                                     bottleneck_fn=block_capture)
+        head_k = forward(qp, spec, cfg, x, resnet_stem_fn=stem_capture,
+                         bottleneck_fn=block_capture)
         det_k = postprocess(*head_k, anchors, cfg)
-        det_p = postprocess(*engine.int8_forward(
+        det_p = postprocess(*forward(
             qp, spec, cfg, x, resnet_stem_fn=resnet_stem.resnet_stem_reference,
             bottleneck_fn=bottleneck.fused_bottleneck_reference), anchors, cfg)
         b, s = images.shape[0], cfg.model.image_size
@@ -2316,18 +2365,18 @@ def hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess, n
                   f"{int((k_out != p_out).sum())} codes")
             del k_out, p_out
     torch.cuda.synchronize()
-    check(_same_detections(torch, det_k, det_p), f"int8 bs={b}: SSD-512 detections through the "
-                                                 "kernels differ from the plain versions'")
+    check(_same_detections(torch, det_k, det_p), f"int8 bs={b}: {cfg.name} detections through "
+                                                 "the kernels differ from the plain versions'")
     # The NMS kernel against its plain version on the rows this path's logits gave it.
     nms_rows, det_n = hold_nms(torch, nms_kernel, head_k[0], head_k[1].float(), anchors_np, cfg,
                                f"int8 bs={b}")
     check(tuple(nms_rows["scores"].shape) == (b * cfg.model.num_classes, 512),
-          f"int8 bs={b}: SSD-512 NMS rows {tuple(nms_rows['scores'].shape)}")
+          f"int8 bs={b}: {cfg.name} NMS rows {tuple(nms_rows['scores'].shape)}")
     check(_same_detections(torch, det_n, det_k),
           f"int8 bs={b}: postprocess() and decode_nms() disagree on the int8 logits")
     return {"stem_args": stem_args, "stem_kw": stem_kw, "block_args": captured["blocks"],
             "detections": det_k, "stem_err": int((stem_k.int() - stem_p.int()).abs().max()),
-            "bottleneck_err": bott_err, "stem_vs_chain": stem_vs_chain,
+            "bottleneck_err": bott_err, "stem_vs_chain": stem_vs_chain, "nms_held": nms_rows,
             "nms_rows": list(nms_rows["scores"].shape), "nms_err": nms_rows["max_abs_err"]}
 
 
@@ -2403,6 +2452,362 @@ def resnet_reference_check(torch, np, port_config, engine, postprocess, normaliz
             "logits_max_abs": max(t.abs().max().item() for t in logits["cpu"]),
             "int8_taps_equal": len(taps["cpu"]), "int8_logits_equal": True,
             "int8_valid": int(gv.sum())}
+
+
+def stage_profile(torch, stages: dict, iters: int) -> dict:
+    """The device time of each stage of a call, each stage profiled on its
+    own (``profile_window``) on the inputs the stage before gave it, under
+    inference mode: busy ms and ms by kernel group per call."""
+    out = {}
+    for name, fn in stages.items():
+        def run(fn=fn):
+            with torch.inference_mode():
+                return fn()
+        prof = profile_window(torch, run, iters)
+        out[name] = {"device_busy_ms": prof.get("device_busy_ms_per_call", "not measured"),
+                     "by_group": prof.get("device_ms_per_call_by_group", "not measured")}
+    return out
+
+
+def served_equal(torch, dets, det1, iw: int, ih: int) -> bool:
+    """The Predictor's detections (pixel boxes of an iw x ih image) against
+    row 0 of batch-stacked detections on the card (normalized boxes)."""
+    v = det1.valid[0]
+    served = torch.tensor([[d.score, d.class_id, *d.box] for d in dets], dtype=torch.float32)
+    want = torch.cat([det1.scores[0][v, None], det1.classes[0][v, None].float(),
+                      det1.boxes[0][v] * torch.tensor([iw, ih, iw, ih], dtype=torch.float32,
+                                                      device=det1.boxes.device)], dim=1).cpu()
+    return torch.equal(served, want)
+
+
+def retinanet_codes(engine, qp, spec, cfg, x) -> dict:
+    """The int8 codes of RetinaNet's three trunk taps (C3, C4, C5) and of
+    every requant point of its FPN and heads, on one spec."""
+    taps = engine.run_int8(qp, spec, x, dequantize_taps=False)
+    codes = {f"C{i + 3}": q for i, (q, _) in enumerate(taps)}
+    engine.run_int8_fpn_heads(qp, cfg, taps, codes=codes)
+    return codes
+
+
+def retinanet_phases(torch, np, m, counted, wrappers, launches, gen, rng, image, where) -> dict:
+    """Phases 27 to 30: full-width retinanet_fpn_coco (seeded random weights,
+    seeded non-trivial BatchNorm statistics) in float and int8 at bs=64 and
+    bs=1, then tiny_retinanet_config on the card against the CPU. Returns
+    the kernels' largest differences and the timings the kernels line takes."""
+    from PIL import Image
+
+    engine, nms_kernel, normalize, postprocess = m.engine, m.nms_kernel, m.normalize, m.postprocess
+    resnet_stem, bottleneck = m.resnet_stem, m.bottleneck
+    cfg = m.get_config("retinanet_fpn_coco")
+    check(cfg.model.family == "retinanet" and cfg.model.compute_dtype == "bfloat16"
+          and cfg.eval.int8_logits_bf16 and not cfg.eval.nms_exact_prefilter
+          and (cfg.model.fpn_channels, cfg.model.head_depth) == (256, 4),
+          "the RetinaNet preset is not the reference's")
+    params = m.init_params(m.build_model(cfg), seed=0, random_batch_stats=True).state_dict()
+    anchors_np = m.retinanet_anchors(cfg.model.image_size)
+    check(anchors_np.shape == (49104, 4), f"RetinaNet anchors {anchors_np.shape}")
+    anchors = torch.from_numpy(anchors_np).cuda()
+    out = {"stem_err": 0, "bottleneck_err": 0, "nms_err": 0.0}
+
+    # 27. Float at bs=64 through make_predict_fn.
+    model = m.build_model(cfg)
+    model.load_state_dict(params)
+    predict = m.make_predict_fn(cfg, model, anchors_np, device="cuda")
+    images = torch.randint(0, 256, (64, 512, 512, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    predict(images)
+    det, launches["retinanet_float_bs64"] = counted(lambda: predict(images))
+    check(launches["retinanet_float_bs64"] == {**{k: 0 for k in wrappers}, "nms_rows": 1},
+          f"RetinaNet float bs=64 launches {launches['retinanet_float_bs64']}")
+    check(det.boxes.shape == (64, cfg.eval.max_detections, 4)
+          and bool(torch.isfinite(det.boxes).all()) and bool(torch.isfinite(det.scores).all())
+          and bool(det.valid.any()), "RetinaNet float bs=64 detections are not finite or empty")
+    rows, _ = hold_path(torch, nms_kernel, normalize, model, images, anchors_np, cfg)
+    check(tuple(rows["scores"].shape) == (64 * 80, 512),
+          f"RetinaNet float bs=64 NMS rows {tuple(rows['scores'].shape)}")
+    out["nms_err"] = max(out["nms_err"], rows["max_abs_err"])
+    out["nms_5120"] = nms_timing(torch, nms_kernel, rows, 2)
+    del rows
+    float_ms = host_ms(torch, lambda: predict(images), 10)
+    float_img_per_s = 64 / (statistics.median(float_ms) / 1e3)
+    print(json.dumps({"phase": "retinanet_predict_bs64", "valid_detections": int(det.valid.sum()),
+                      "launches": launches["retinanet_float_bs64"],
+                      "nms_timing": out["nms_5120"], "median_ms": statistics.median(float_ms),
+                      "img_per_s": float_img_per_s, **where}))
+    with torch.inference_mode():
+        x = normalize(images.float() / 255.0)
+        xc = x.permute(0, 3, 1, 2).to(model.compute_dtype)
+        feats = model.backbone(xc)
+        pyramid = model.fpn(feats)
+
+        def heads():
+            return (torch.cat([model.cls_head(p).float() for p in pyramid], dim=1),
+                    torch.cat([model.box_head(p).float() for p in pyramid], dim=1))
+
+        cls, box = heads()
+    float_split = stage_profile(torch, {
+        "normalize": lambda: normalize(images.float() / 255.0),
+        "trunk": lambda: model.backbone(xc), "fpn": lambda: model.fpn(feats), "heads": heads,
+        "postprocess": lambda: postprocess(cls, box, anchors, cfg)}, 3)
+    print(json.dumps({"phase": "profile_retinanet_bs64",
+                      **profile_window(torch, lambda: predict(images), 3),
+                      "by_stage": float_split, **where}))
+    del det, x, xc, feats, pyramid, cls, box
+
+    # 28. Int8 at bs=64 through make_int8_predict_fn (calibrated on 8 seeded images).
+    calib = rng.integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    predict8 = m.make_int8_predict_fn(cfg, params, anchors_np, calib, device="cuda")
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    qp, spec = predict8.qp, predict8.spec
+    check("fpn/lateral3" in qp.w_int8 and "cls_head/conv3@P7" in qp.act_scale,
+          "the RetinaNet QuantParams hold no int8 FPN and heads")
+    predict8(images)
+    det8, launches["retinanet_int8_bs64"] = counted(lambda: predict8(images))
+    check(launches["retinanet_int8_bs64"] == RESNET_INT8_LAUNCHES,
+          f"RetinaNet int8 bs=64 launches {launches['retinanet_int8_bs64']}, "
+          f"expected {RESNET_INT8_LAUNCHES}")
+    check(det8.boxes.shape == (64, cfg.eval.max_detections, 4)
+          and bool(torch.isfinite(det8.boxes).all()) and bool(torch.isfinite(det8.scores).all())
+          and bool(det8.valid.any()), "RetinaNet int8 bs=64 detections are not finite or empty")
+    held = hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess, normalize,
+                                 predict8, images, anchors_np, cfg)
+    check(_same_detections(torch, held["detections"], det8),
+          "RetinaNet int8 bs=64: the served detections differ from the same QuantParams' rerun")
+    out["stem_err"] = max(out["stem_err"], held["stem_err"])
+    out["bottleneck_err"] = max(out["bottleneck_err"], held["bottleneck_err"])
+    out["nms_err"] = max(out["nms_err"], held["nms_err"])
+    out["nms_5120_int8"] = nms_timing(torch, nms_kernel, held["nms_held"], 2)
+    int8_ms = host_ms(torch, lambda: predict8(images), 10)
+    int8_img_per_s = 64 / (statistics.median(int8_ms) / 1e3)
+    # B6 and the twelve B7 launches on this path's inputs, beside their bounds.
+    stem_args, stem_kw = held["stem_args"], held["stem_kw"]
+    stem_out = resnet_stem.resnet_stem(*stem_args, **stem_kw)
+    b_ms, b_by = resnet_stem_bound_ms(stem_args[0], stem_out)
+    out["resnet_stem"] = {"ms": graph_ms(torch, lambda: resnet_stem.resnet_stem(
+        *stem_args, **stem_kw), 20), "bound_ms": b_ms, "bound_by": b_by}
+    del stem_out
+    out["bottleneck"] = {
+        "ms": sum(cuda_ms(torch, lambda a=a, k=k: bottleneck.fused_bottleneck(*a, **k), 5)
+                  for a, k in held["block_args"]),
+        "bound_ms": sum(bottleneck_bound_ms(a[0], a[1].shape[1])[0] for a, _ in held["block_args"])}
+    # The same QuantParams on the unfused spec and on the bottleneck-only spec.
+    os.environ["ODT_STEM_KERNEL"] = "0"  # unset before: the path above launched the stem kernel
+    try:
+        spec_bottleneck_only = engine.build_resnet_trunk_spec(fused_bottleneck=True)
+        spec_unfused = engine.build_resnet_trunk_spec(fused_bottleneck=False)
+    finally:
+        del os.environ["ODT_STEM_KERNEL"]
+
+    @torch.inference_mode()
+    def predict_unfused(images_u8):
+        x = normalize(images_u8.float() / 255.0)
+        return postprocess(*engine.retinanet_int8_forward(qp, spec_unfused, cfg, x), anchors, cfg)
+
+    with torch.inference_mode():
+        x8 = normalize(images[:8].float() / 255.0)
+        codes = {name: retinanet_codes(engine, qp, s, cfg, x8) for name, s in (
+            ("unfused", spec_unfused), ("bottleneck", spec_bottleneck_only), ("both", spec))}
+    check(len(codes["unfused"]) == 3 + 8 + 2 * 4 * 5,
+          f"RetinaNet requant points: {len(codes['unfused'])}")
+    mean_diff, max_diff = {}, {}
+    for key, u in codes["unfused"].items():
+        check(torch.equal(u, codes["bottleneck"][key]),
+              f"RetinaNet: the bottleneck kernel's spec differs from the unfused spec at {key}: "
+              f"{int((u != codes['bottleneck'][key]).sum())} codes")
+        diff = (codes["both"][key].int() - u.int()).abs()
+        mean_diff[key], max_diff[key] = float(diff.float().mean()), int(diff.max())
+    alarm = {k: mean_diff[k] for k in RETINANET_MEAN_CODE_DIFF_LIMITS}
+    check(all(alarm[k] <= lim for k, lim in RETINANET_MEAN_CODE_DIFF_LIMITS.items()),
+          f"RetinaNet: the kernel spec is {alarm} codes from the unfused spec on average, over "
+          f"the limits {RETINANET_MEAN_CODE_DIFF_LIMITS}")
+    del codes
+    det_unfused, launches_unfused = counted(lambda: predict_unfused(images))
+    check(launches_unfused == {**{k: 0 for k in wrappers}, "nms_rows": 1},
+          f"the RetinaNet unfused spec launched {launches_unfused}")
+    unfused_ms = host_ms(torch, lambda: predict_unfused(images), 10)
+    print(json.dumps({"phase": "retinanet_int8_predict_bs64", "quantize_s": quantize_s,
+                      "valid_detections": int(det8.valid.sum()),
+                      "launches": launches["retinanet_int8_bs64"],
+                      "kernels_vs_plain_bit_equal": True, "nms_rows": held["nms_rows"],
+                      "nms_timing": out["nms_5120_int8"],
+                      "stem_input": list(stem_args[0].shape),
+                      "bottleneck_inputs": [list(a[0].shape) for a, _ in held["block_args"]],
+                      "resnet_stem_timing": out["resnet_stem"],
+                      "bottleneck_timing_per_forward": out["bottleneck"],
+                      "bottleneck_spec_vs_unfused_spec_bit_equal_at": len(mean_diff),
+                      "kernel_spec_vs_unfused_spec": {
+                          "mean_abs_code_diff": mean_diff, "max_abs_code_diff": max_diff,
+                          "limits": RETINANET_MEAN_CODE_DIFF_LIMITS},
+                      "stem_vs_unfused_chain": held["stem_vs_chain"],
+                      "median_ms": statistics.median(int8_ms), "img_per_s": int8_img_per_s,
+                      "unfused_spec_median_ms": statistics.median(unfused_ms),
+                      "unfused_spec_img_per_s": 64 / (statistics.median(unfused_ms) / 1e3),
+                      "unfused_spec_valid_detections": int(det_unfused.valid.sum()),
+                      "float_img_per_s": float_img_per_s, **where}))
+    del held, det8, det_unfused, stem_args, stem_kw
+    with torch.inference_mode():
+        x = normalize(images.float() / 255.0)
+        taps_q = engine.run_int8(qp, spec, x, dequantize_taps=False)
+        pyr_q = engine.run_int8_fpn(qp, taps_q)
+        cls8, box8 = engine.run_int8_heads(qp, cfg, pyr_q, torch.bfloat16)
+    int8_split = stage_profile(torch, {
+        "normalize": lambda: normalize(images.float() / 255.0),
+        "trunk": lambda: engine.run_int8(qp, spec, x, dequantize_taps=False),
+        "fpn": lambda: engine.run_int8_fpn(qp, taps_q),
+        "heads": lambda: engine.run_int8_heads(qp, cfg, pyr_q, torch.bfloat16),
+        "postprocess": lambda: postprocess(cls8, box8, anchors, cfg)}, 3)
+    print(json.dumps({"phase": "profile_retinanet_int8_bs64",
+                      **profile_window(torch, lambda: predict8(images), 3),
+                      "by_stage": int8_split, **where}))
+    print(json.dumps({"phase": "profile_retinanet_int8_bs64_unfused_spec",
+                      **profile_window(torch, lambda: predict_unfused(images), 3), **where}))
+    del taps_q, pyr_q, cls8, box8, predict8, predict_unfused, x, x8, images, predict, model
+    torch.cuda.empty_cache()
+
+    # 29. One image through the Predictor at bs=1, float and int8.
+    class_names = [f"class_{i}" for i in range(cfg.model.num_classes)]
+    ih, iw = image.shape[:2]
+    canvas = torch.from_numpy(np.array(
+        Image.fromarray(image).resize((512, 512), Image.BILINEAR), np.uint8)[None]).cuda()
+    predictor = m.Predictor(cfg, params, class_names, device="cuda")
+    dets_f, launches["retinanet_float_bs1"] = counted(
+        lambda: predictor.predict_array(image, score_threshold=0.0))
+    check(launches["retinanet_float_bs1"] == {**{k: 0 for k in wrappers}, "nms_rows": 1},
+          f"RetinaNet float bs=1 launches {launches['retinanet_float_bs1']}")
+    check(len(dets_f) > 0 and all(np.all(np.isfinite(d.box)) and 0 < d.score <= 1 for d in dets_f),
+          "the RetinaNet float bs=1 Predictor returned no or bad detections")
+    rows1, det_f1 = hold_path(torch, nms_kernel, normalize, predictor.model, canvas, anchors_np,
+                              cfg)
+    check(tuple(rows1["scores"].shape) == (cfg.model.num_classes, 512),
+          f"RetinaNet float bs=1 NMS rows {tuple(rows1['scores'].shape)}")
+    check(served_equal(torch, dets_f, det_f1, iw, ih),
+          "RetinaNet float bs=1: the served detections differ from the plain version's run")
+    out["nms_err"] = max(out["nms_err"], rows1["max_abs_err"])
+    out["nms_80"] = nms_timing(torch, nms_kernel, rows1, 3)
+    predictor8 = m.Predictor(cfg, params, class_names, device="cuda", int8=True)
+    dets8, launches["retinanet_int8_bs1"] = counted(
+        lambda: predictor8.predict_array(image, score_threshold=0.0))
+    check(launches["retinanet_int8_bs1"] == RESNET_INT8_LAUNCHES,
+          f"RetinaNet int8 bs=1 launches {launches['retinanet_int8_bs1']}, "
+          f"expected {RESNET_INT8_LAUNCHES}")
+    check(len(dets8) > 0 and all(np.all(np.isfinite(d.box)) and 0 < d.score <= 1 for d in dets8),
+          "the RetinaNet int8 bs=1 Predictor returned no or bad detections")
+    held1 = hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess, normalize,
+                                  predictor8._predict, canvas, anchors_np, cfg)
+    check(served_equal(torch, dets8, held1["detections"], iw, ih),
+          "RetinaNet int8 bs=1: the served detections differ from the plain versions' run")
+    out["stem_err"] = max(out["stem_err"], held1["stem_err"])
+    out["bottleneck_err"] = max(out["bottleneck_err"], held1["bottleneck_err"])
+    out["nms_err"] = max(out["nms_err"], held1["nms_err"])
+    one = rng.integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)
+    p50 = {"float": statistics.median(host_ms(torch, lambda: predictor._predict(one), 50)),
+           "int8": statistics.median(host_ms(torch, lambda: predictor8._predict(one), 50))}
+    prof1 = {"float": profile_window(torch, lambda: predictor._predict(one), 10),
+             "int8": profile_window(torch, lambda: predictor8._predict(one), 10)}
+    print(json.dumps({"phase": "retinanet_predictor_bs1", "float_detections": len(dets_f),
+                      "int8_detections": len(dets8),
+                      "launches": {"float": launches["retinanet_float_bs1"],
+                                   "int8": launches["retinanet_int8_bs1"]},
+                      "kernels_vs_plain_bit_equal": True, "served_equal_plain_run": True,
+                      "nms_rows": {"float": list(rows1["scores"].shape),
+                                   "int8": held1["nms_rows"]},
+                      "nms_timing_float_rows": out["nms_80"],
+                      "float_p50_ms": p50["float"], "int8_p50_ms": p50["int8"],
+                      "float_device_busy_ms": prof1["float"].get("device_busy_ms_per_call"),
+                      "int8_device_busy_ms": prof1["int8"].get("device_busy_ms_per_call"),
+                      **where}))
+    print(json.dumps({"phase": "profile_retinanet_bs1", **prof1["float"], **where}))
+    print(json.dumps({"phase": "profile_retinanet_int8_bs1", **prof1["int8"], **where}))
+    del held1, rows1, det_f1, predictor, predictor8
+    torch.cuda.empty_cache()
+
+    # 30. tiny_retinanet_config on the card against the CPU.
+    print(json.dumps({"phase": "retinanet_reference_check",
+                      **retinanet_reference_check(torch, np, m, counted, wrappers, launches)}))
+    return out
+
+
+def retinanet_reference_check(torch, np, m, counted, wrappers, launches) -> dict:
+    """tiny_retinanet_config (ResNet-50's depth and widths at 128 px, FPN and
+    heads of 32 channels; seeded weights and BatchNorm statistics) on the
+    card against the CPU: float32 logits with TF32 off within 1e-3; on the
+    CPU's QuantParams the int8 trunk taps, the codes at every FPN and head
+    requant point and the logits equal (the card runs the two ResNet kernels,
+    the CPU their plain versions) and the detections equal in valid and
+    classes, scores and boxes within 1e-5; then `evaluate_dataset` in float
+    and int8 on the card over 12 synthetic images: a COCO dict of finite
+    values."""
+    engine, normalize, postprocess = m.engine, m.normalize, m.postprocess
+    cfg = m.port_config.tiny_retinanet_config().override(
+        {"eval.map_style": "coco", "eval.use_pallas_nms": True})
+    params = m.init_params(m.build_model(cfg), seed=3, random_batch_stats=True).state_dict()
+    anchors = m.retinanet_anchors(cfg.model.image_size)
+    images = np.random.default_rng(30).integers(0, 256, (4, 128, 128, 3), dtype=np.uint8)
+    x = normalize(torch.from_numpy(images).float() / 255.0)
+    logits = {}
+    was = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cuda", "cpu"):
+            model = m.build_model(cfg)
+            model.load_state_dict(params)
+            with torch.inference_mode():
+                logits[device] = [t.cpu() for t in model.to(device).eval()(x.to(device))]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = was
+    err_f32 = max((a - b).abs().max().item() for a, b in zip(logits["cuda"], logits["cpu"]))
+    check(err_f32 <= 1e-3, f"tiny RetinaNet float32 logits on the card differ from the CPU by "
+                           f"{err_f32}")
+    predict_cpu = m.make_int8_predict_fn(cfg, params, anchors, images, device="cpu")
+    qp_cpu, spec = predict_cpu.qp, predict_cpu.spec
+    check(isinstance(spec[0], engine.StemPoolPallasOp)
+          and sum(isinstance(op, engine.BottleneckOp) for op in spec) == 12,
+          "the tiny RetinaNet spec does not select both kernels")
+    qp_gpu = qp_cpu.to("cuda")
+    codes, heads, dets = {}, {}, {}
+    with torch.inference_mode():
+        for dev, qp in (("cuda", qp_gpu), ("cpu", qp_cpu)):
+            codes[dev] = retinanet_codes(engine, qp, spec, cfg, x.to(dev))
+            heads[dev] = engine.retinanet_int8_forward(qp, spec, cfg, x.to(dev))
+            dets[dev] = postprocess(*heads[dev], torch.from_numpy(anchors).to(dev), cfg)
+    check(list(codes["cuda"]) == list(codes["cpu"]) and len(codes["cpu"]) == 3 + 8 + 2 * 5,
+          f"tiny RetinaNet requant points {list(codes['cpu'])}")
+    for key, c in codes["cpu"].items():
+        check(torch.equal(codes["cuda"][key].cpu(), c),
+              f"tiny RetinaNet int8 codes at {key} on the card differ from the CPU: "
+              f"{int((codes['cuda'][key].cpu() != c).sum())} codes")
+    for g, c in zip(heads["cuda"], heads["cpu"]):
+        check(torch.equal(g.cpu(), c), "tiny RetinaNet int8 logits on the card differ from the CPU")
+    g, c = dets["cuda"], dets["cpu"]
+    gv, cv = g.valid.cpu(), c.valid
+    check(bool(gv.any()) and torch.equal(gv, cv) and torch.equal(g.classes.cpu()[gv], c.classes[cv])
+          and torch.allclose(g.scores.cpu()[gv], c.scores[cv], rtol=0, atol=1e-5)
+          and torch.allclose(g.boxes.cpu()[gv], c.boxes[cv], rtol=0, atol=1e-5),
+          "tiny RetinaNet int8 detections on the card differ from the CPU")
+    dataset = m.make_synthetic_dataset(num_images=12, image_size=128, seed=5)
+    results = {}
+    for name, int8 in (("evaluate_retinanet_float", False), ("evaluate_retinanet_int8", True)):
+        results[name], launches[name] = counted(
+            lambda: m.evaluate_dataset(cfg, params, dataset, int8=int8, device="cuda"))
+        result = results[name]
+        check({"mAP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100"} <= set(result)
+              and all(np.isfinite(v) for v in result.values()),
+              f"{name}: not a COCO dict of finite values: {result}")
+    check(set(results["evaluate_retinanet_float"]) == set(results["evaluate_retinanet_int8"]),
+          "the float and int8 RetinaNet evaluate dicts have different keys")
+    batches = 2  # 12 images at eval.batch_size=8, the second batch overlapping the first
+    check(launches["evaluate_retinanet_float"] == {**{k: 0 for k in wrappers}, "nms_rows": batches}
+          and launches["evaluate_retinanet_int8"] == {
+              **{k: 0 for k in wrappers}, "nms_rows": batches, "resnet_stem": batches,
+              "fused_bottleneck": 12 * batches},
+          f"RetinaNet evaluate launched {launches['evaluate_retinanet_float']} (float), "
+          f"{launches['evaluate_retinanet_int8']} (int8)")
+    return {"f32_logits_max_abs_err": err_f32,
+            "logits_max_abs": max(t.abs().max().item() for t in logits["cpu"]),
+            "int8_codes_equal_at": len(codes["cpu"]), "int8_logits_equal": True,
+            "int8_valid": int(gv.sum()), "evaluate": results}
 
 
 def _same_detections(torch, a, b) -> bool:

@@ -1,8 +1,9 @@
 """Prior-box (anchor) generation, numpy.
 
-The port's copy of ``object_detector_tpu/anchors/priors.py`` for the SSD
-family: center form (cx, cy, w, h), normalized to [0, 1], level-major in the
-order the heads flatten their outputs.
+The port's copy of ``object_detector_tpu/anchors/priors.py``: center form
+(cx, cy, w, h), normalized to [0, 1], level-major in the order the heads
+flatten their outputs. `ssd_anchors` follows the SSD paper's scheme,
+`retinanet_anchors` puts 3 octave scales x 3 aspect ratios on FPN P3..P7.
 """
 
 from __future__ import annotations
@@ -55,7 +56,29 @@ def ssd_anchors(cfg: AnchorConfig, image_size: int) -> np.ndarray:
     return anchors.astype(np.float32)
 
 
+def retinanet_anchors(
+    image_size: int,
+    strides: Sequence[int] = (8, 16, 32, 64, 128),
+    anchor_scale: float = 4.0,
+    octave_scales: Sequence[float] = (2 ** 0, 2 ** (1 / 3), 2 ** (2 / 3)),
+    aspect_ratios: Sequence[float] = (0.5, 1.0, 2.0),
+) -> np.ndarray:
+    """RetinaNet anchors on P3..P7 -> (N, 4) center form, 9 per location
+    (49104 at 512 px)."""
+    out: List[np.ndarray] = []
+    for stride in strides:
+        f = max(1, image_size // stride)
+        base = anchor_scale * stride / image_size
+        shapes = []
+        for octave in octave_scales:
+            for r in aspect_ratios:
+                rt = float(np.sqrt(r))
+                shapes.append((base * octave * rt, base * octave / rt))
+        out.append(_tile_anchors(f, np.asarray(shapes, dtype=np.float32)))
+    return np.concatenate(out, axis=0).astype(np.float32)
+
+
 def anchors_for_model(model_family: str, cfg: AnchorConfig, image_size: int) -> np.ndarray:
     if model_family == "retinanet":
-        raise NotImplementedError("RetinaNet anchors are not ported yet")
+        return retinanet_anchors(image_size)
     return ssd_anchors(cfg, image_size)

@@ -5,8 +5,9 @@
     python -m object_detector_tpu_torch evaluate --preset ssd300_vgg16_voc --checkpoint ckpt/ --data-root /data/VOCdevkit [--int8]
 
 ``train`` trains SSD/VGG16 on one device (ResNet-50 training is not ported
-yet). ``predict`` serves the float model of any SSD preset
-(``ssd512_resnet50_coco`` too), or with ``--int8`` the int8 engine
+yet). ``predict`` serves the float model of any preset
+(``ssd512_resnet50_coco`` and ``retinanet_fpn_coco`` too), or with
+``--int8`` the int8 engine
 (calibrated on 8 random images from a seed), with the weights of
 ``--checkpoint`` (a directory ``train`` wrote; the EMA weights if it holds
 them) or random weights from a seed (smoke mode). ``evaluate`` sweeps a
@@ -67,7 +68,16 @@ def _load_dataset(cfg: DetectorConfig, split: str):
 
 def _restore_variables(cfg: DetectorConfig, checkpoint_dir: str) -> Dict[str, torch.Tensor]:
     """The weights to serve from a directory `train` wrote: the EMA weights
-    if the checkpoint holds them, else the parameters."""
+    if the checkpoint holds them, else the parameters. A checkpoint holds
+    parameters only, so a model with BatchNorm running statistics (a
+    ResNet-50 backbone: SSD-512 and RetinaNet) is refused rather than served
+    with fresh statistics."""
+    if cfg.model.backbone == "resnet50" or cfg.model.family == "retinanet":
+        raise SystemExit(
+            f"--checkpoint: {cfg.name} has BatchNorm running statistics, which the port's "
+            "checkpoints do not carry yet (training with batch statistics is not ported); "
+            "serve it without --checkpoint (seeded weights) or from a state_dict"
+        )
     from object_detector_tpu_torch.train.checkpoint import CheckpointManager
     from object_detector_tpu_torch.train.loop import init_model_state
 
@@ -102,12 +112,12 @@ def cmd_predict(args: argparse.Namespace) -> int:
     cfg = _load_config(args)
     from object_detector_tpu_torch.cli.predictor import Predictor
     from object_detector_tpu_torch.convert import init_params
-    from object_detector_tpu_torch.models.ssd import SSDModel
+    from object_detector_tpu_torch.models.retinanet import build_model
 
     if args.checkpoint:
         params = _restore_variables(cfg, args.checkpoint)
     else:  # random weights: smoke mode
-        params = init_params(SSDModel(cfg), seed=0).state_dict()
+        params = init_params(build_model(cfg), seed=0).state_dict()
     class_names = None
     if cfg.data.dataset == "voc":
         from object_detector_tpu_torch.data.voc import VOC_CLASSES

@@ -17,7 +17,7 @@ import torch
 from object_detector_tpu_torch.anchors.priors import anchors_for_model
 from object_detector_tpu_torch.core.config import DetectorConfig
 from object_detector_tpu_torch.eval.evaluator import make_int8_predict_fn, make_predict_fn
-from object_detector_tpu_torch.models.ssd import SSDModel
+from object_detector_tpu_torch.models.retinanet import build_model
 
 
 @dataclasses.dataclass
@@ -64,7 +64,7 @@ class Predictor:
                 cfg, params, anchors, calibration_images_u8, use_pallas, device
             )
         else:
-            self.model = SSDModel(cfg)
+            self.model = build_model(cfg)
             self.model.load_state_dict(params)
             self._predict = make_predict_fn(cfg, self.model, anchors, use_pallas, device)
 

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from object_detector_tpu_torch.models.resnet import BatchNorm
+from object_detector_tpu_torch.models.retinanet import RetinaNetHead
 from object_detector_tpu_torch.models.ssd import CLASS_BIAS_INIT, PredictionHead
 from object_detector_tpu_torch.models.vgg import Conv, L2Norm
 from object_detector_tpu_torch.quant.engine import QuantParams
@@ -160,7 +161,8 @@ def quant_params_from_jax(qp: Any) -> QuantParams:
 @torch.no_grad()
 def init_params(model: nn.Module, seed: int = 0, random_batch_stats: bool = False) -> nn.Module:
     """Seeded init in place: lecun-normal conv kernels, zero biases, the class
-    bias -log(99) on every head, L2Norm scale at its init value, BatchNorm at
+    bias -log(99) on every SSD head's cls conv and on the out conv of
+    RetinaNet's classification subnet (its box subnet's stays 0), L2Norm scale at its init value, BatchNorm at
     the identity (weight 1, bias 0, mean 0, var 1).
 
     ``random_batch_stats`` draws every BatchNorm from the seed instead:
@@ -193,4 +195,6 @@ def init_params(model: nn.Module, seed: int = 0, random_batch_stats: bool = Fals
     for module in model.modules():
         if isinstance(module, PredictionHead):
             module.cls.bias.fill_(CLASS_BIAS_INIT)
+        elif isinstance(module, RetinaNetHead) and module.use_class_bias:
+            module.out.bias.fill_(CLASS_BIAS_INIT)
     return model

@@ -310,6 +310,27 @@ def tiny_test_config(num_classes: int = 3) -> DetectorConfig:
     )
 
 
+def tiny_retinanet_config(num_classes: int = 3) -> DetectorConfig:
+    """Small RetinaNet/FPN config (128 px, the smallest size where P7 is
+    1x1) for CPU tests."""
+    size = 128
+    return DetectorConfig(
+        name="tiny_retinanet",
+        model=ModelConfig(
+            family="retinanet", backbone="resnet50", image_size=size,
+            num_classes=num_classes, fpn_channels=32, head_depth=1,
+            compute_dtype="float32",
+        ),
+        anchors=retinanet_anchor_config(size),
+        data=DataConfig(dataset="synthetic", max_boxes=4),
+        train=TrainConfig(batch_size=8, num_steps=10, warmup_steps=0,
+                          base_lr=1e-2, optimizer="sgd",
+                          checkpoint_every=10**9, log_every=10),
+        eval=EvalConfig(batch_size=8, pre_nms_top_k=64, max_detections=16,
+                        use_pallas_nms=False),
+    )
+
+
 def list_presets() -> Tuple[str, ...]:
     return tuple(_PRESETS)
 

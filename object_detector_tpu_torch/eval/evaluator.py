@@ -2,8 +2,8 @@
 
 The port of ``object_detector_tpu/eval/evaluator.py``: ``make_predict_fn``
 (:19, the float serving path), ``make_int8_predict_fn`` (:33, the int8 PTQ
-serving path, SSD family: VGG16 and ResNet-50) and ``evaluate_dataset``
-(:79, the val sweep into `MeanAPEvaluator`).
+serving path: SSD on VGG16 or ResNet-50, and RetinaNet/FPN) and
+``evaluate_dataset`` (:79, the val sweep into `MeanAPEvaluator`).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from object_detector_tpu_torch.core.device import resolve_device
 from object_detector_tpu_torch.data.pipeline import DecodedCache
 from object_detector_tpu_torch.data.types import Dataset
 from object_detector_tpu_torch.eval.map import MeanAPEvaluator
+from object_detector_tpu_torch.models.retinanet import build_model
 from object_detector_tpu_torch.ops.augment import normalize
 from object_detector_tpu_torch.ops.nms import Detections
 from object_detector_tpu_torch.ops.postprocess import postprocess
@@ -69,8 +70,8 @@ def make_int8_predict_fn(
     device: str | torch.device = "cuda",
 ) -> Callable[..., Detections]:
     """Quantize once (PTQ) and return predict(images_u8) -> batch-stacked
-    Detections on ``device``: int8 trunk, int8 heads, then the same
-    postprocess as the float path.
+    Detections on ``device``: int8 trunk, int8 heads (RetinaNet: int8 FPN
+    and heads), then the same postprocess as the float path.
 
     ``params`` is the model's state_dict (for a ResNet-50 backbone with its
     BatchNorm running statistics, which are folded into the convs);
@@ -78,21 +79,24 @@ def make_int8_predict_fn(
     small representative (B, H, W, 3) uint8 batch. The returned function
     carries the quantized weights and the op list as ``predict.qp`` and
     ``predict.spec``."""
-    if cfg.model.family != "ssd":
-        raise NotImplementedError(f"the int8 engine for {cfg.model.family!r} is not ported yet")
     dev = resolve_device(device)
     pallas = cfg.eval.use_pallas_nms if use_pallas is None else use_pallas
     if cfg.eval.per_level_heads and pallas:
         raise NotImplementedError("per_level_heads is not ported yet")
     device_params = {k: v.to(dev) for k, v in params.items()}
     calib = _normalized(calibration_images_u8, dev)
-    qp, spec = engine.quantize_ssd(cfg, device_params, [calib])
+    if cfg.model.family == "retinanet":
+        qp, spec = engine.quantize_retinanet(cfg, device_params, [calib])
+        forward = engine.retinanet_int8_forward
+    else:
+        qp, spec = engine.quantize_ssd(cfg, device_params, [calib])
+        forward = engine.int8_forward
     qp = qp.to(dev)
     anchors = torch.as_tensor(np.asarray(anchors_center, np.float32), device=dev)
 
     @torch.inference_mode()
     def predict(images_u8) -> Detections:
-        cls_logits, box_offsets = engine.int8_forward(qp, spec, cfg, _normalized(images_u8, dev))
+        cls_logits, box_offsets = forward(qp, spec, cfg, _normalized(images_u8, dev))
         return postprocess(cls_logits, box_offsets, anchors, cfg, use_pallas)
 
     predict.qp, predict.spec = qp, spec
@@ -112,8 +116,6 @@ def evaluate_dataset(
     ``cfg.eval.map_style``. ``params`` is the model's state_dict; with
     ``int8`` the engine is calibrated on the first ``min(len(cache),
     eval.batch_size)`` cached images."""
-    from object_detector_tpu_torch.models.ssd import SSDModel
-
     dev = resolve_device(device)
     if cache is None:
         cache = DecodedCache(
@@ -127,7 +129,7 @@ def evaluate_dataset(
         predict = make_int8_predict_fn(cfg, params, anchors, cache.images[:n_calib], use_pallas,
                                        device=dev)
     else:
-        model = SSDModel(cfg)
+        model = build_model(cfg)
         model.load_state_dict(params)
         predict = make_predict_fn(cfg, model, anchors, use_pallas, device=dev)
     evaluator = MeanAPEvaluator(dataset.num_classes, cfg.eval.map_style)

@@ -1,7 +1,7 @@
-"""Int8 post-training-quantization inference engine, SSD-300/VGG16 and
-SSD-512/ResNet-50.
+"""Int8 post-training-quantization inference engine, SSD-300/VGG16,
+SSD-512/ResNet-50 and RetinaNet/FPN.
 
-The port of ``object_detector_tpu/quant/engine.py`` for the SSD family.
+The port of ``object_detector_tpu/quant/engine.py``.
 The conv trunk is an op list built from the config (`build_spec`) and run
 by two interpreters that share it:
 
@@ -30,7 +30,12 @@ op-by-op form: multiply, add, divide by the scale, round half to even.
 Two of the reference's TPU layout devices, image-pair packing and the
 space-to-depth stem, are accepted as options and computed in the direct
 form. Its packed conv+pool (``PackedConvPoolOp``) is not ported: a spec that
-holds one raises. RetinaNet's int8 path is not ported yet.
+holds one raises.
+
+RetinaNet runs the ResNet trunk, then its FPN and shared heads in int8
+(`run_int8_fpn_heads`; `quantize_retinanet`, `retinanet_int8_forward`),
+calibrated by `run_float_fpn_heads`, which records the absmax at each of
+their requant points.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from object_detector_tpu_torch.kernels.l2norm import l2norm_requant
 from object_detector_tpu_torch.kernels.resnet_stem import resnet_stem
 from object_detector_tpu_torch.kernels.stem import stem_conv12_pool
 from object_detector_tpu_torch.kernels.stem_fp import stem_fused_producer
+from object_detector_tpu_torch.models.retinanet import ANCHORS_PER_LOCATION, RetinaNetModel
 from object_detector_tpu_torch.ops import int8 as int8_ops
 
 Tensor = torch.Tensor
@@ -166,9 +172,9 @@ def stem_fp_on() -> bool:
     (`kernels.stem_fp`): ``ODT_STEM_FP``, read at each `run_int8` call as
     the reference reads it; unset or "auto" is on, "1" on, "0" off (conv1_1
     through the int8 conv, then `kernels.stem`). The reference leaves it off;
-    on an NVIDIA H100 80GB HBM3 at 700 W the one kernel took 5.41 ms where
-    the other route took 12.66 ms, at SSD-300 bs=64 (PERF.md). Both routes
-    give the same codes."""
+    on an NVIDIA H100 80GB HBM3 at 700 W int8 SSD-300 at bs=64 served 1939
+    img/s with it and 1562 on the other route (PERF.md). Both routes give
+    the same codes."""
     return _env_tristate("ODT_STEM_FP", auto=True)
 
 
@@ -496,16 +502,19 @@ class QuantParams:
 
 def calibrate_scales(
     params: Mapping[str, Tensor], spec: Spec, batches: Sequence[Tensor],
-    use_l2norm: bool = True,
+    use_l2norm: bool = True, fpn_cfg: Optional[DetectorConfig] = None,
 ) -> Dict[str, float]:
     """Per-tensor activation scales (absmax / 127) over calibration batches,
     computed in float32 (TF32 off on the card). With ``use_l2norm`` (VGG)
     also records ``"__l2norm__"``, the absmax of the L2Norm'd tap 0 that
-    feeds head 0."""
+    feeds head 0; with ``fpn_cfg`` (RetinaNet) every requant point of the
+    FPN and heads over the trunk's taps (`run_float_fpn_heads`)."""
     agg: Dict[str, float] = {}
     with _full_float32(), torch.inference_mode():
         for images in batches:
             taps, absmax = run_float(params, spec, images)
+            if fpn_cfg is not None:
+                absmax.update(run_float_fpn_heads(params, fpn_cfg, taps)[2])
             if use_l2norm:
                 t0 = taps[0]
                 sq = (t0 * t0).sum(dim=-1, keepdim=True)
@@ -534,11 +543,16 @@ def _flax_conv(params: Mapping[str, Tensor], path: str) -> Dict[str, np.ndarray]
 
 def quantize_params(
     params: Mapping[str, Tensor], spec: Spec, act_scale: Dict[str, float],
+    head_paths: Optional[Sequence[str]] = None,
 ) -> QuantParams:
     """Per-output-channel int8 weights of every trunk conv (fused ops
-    expanded to their convs) and of the SSD heads."""
+    expanded to their convs) and of ``head_paths``: by default the SSD
+    heads of every tap (RetinaNet passes its FPN and heads)."""
     paths = [op.path for op in _expand_spec(spec) if isinstance(op, ConvOp)]
-    paths += [f"head{level}/{kind}" for level in range(_num_taps(spec)) for kind in ("cls", "box")]
+    if head_paths is None:
+        head_paths = [f"head{level}/{kind}" for level in range(_num_taps(spec))
+                      for kind in ("cls", "box")]
+    paths += list(head_paths)
     w_int8: Dict[str, Tensor] = {}
     w_scale: Dict[str, Tensor] = {}
     bias: Dict[str, Tensor] = {}
@@ -775,3 +789,234 @@ def int8_forward(
         return apply_heads_int8(qp, taps_q, cfg, logits_dtype=logits_dtype, l2norm_fn=l2norm_fn)
     taps = run_int8(qp, spec, images, **fns)
     return apply_heads(qp.float_params, taps, cfg)
+
+
+# --------------------------------------------------------------------------
+# RetinaNet: int8 ResNet trunk + int8 FPN + int8 shared heads
+# --------------------------------------------------------------------------
+#
+# The int8 dataflow (the reference's quant/engine.py:1397-1411):
+#
+#   laterals (1x1, int8, float32 out) -> float32 upsample-adds -> requant ->
+#   smooths (3x3, int8) -> requant -> P3..P5; P6, a stride-2 int8 conv on
+#   C5, requant; ReLU on P6's codes (the requant is monotone and keeps the
+#   sign) feeds P7's stride-2 conv; heads: shared int8 weights, per-level
+#   activation scales at every intermediate, the out conv emits float32
+#   logits (no requant).
+#
+# The float calibration runner mirrors this dataflow node for node, so the
+# absmax is recorded at exactly the tensors the int8 path requants.
+
+FPN_LEVELS = ("P3", "P4", "P5", "P6", "P7")
+
+
+def fpn_upsample2x(x: Tensor) -> Tensor:
+    """Nearest-neighbour 2x upsample of an NHWC tensor (broadcast, reshape)."""
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+
+
+def fpn_head_conv_paths(cfg: DetectorConfig) -> List[str]:
+    """Every conv path of the FPN and the shared heads (their weights are
+    quantized)."""
+    paths = [f"fpn/lateral{i}" for i in (3, 4, 5)]
+    paths += [f"fpn/smooth{i}" for i in (3, 4, 5)]
+    paths += ["fpn/p6", "fpn/p7"]
+    for head in ("cls_head", "box_head"):
+        paths += [f"{head}/conv{i}" for i in range(cfg.model.head_depth)]
+        paths.append(f"{head}/out")
+    return paths
+
+
+def _head_width(cfg: DetectorConfig, head: str) -> int:
+    return cfg.model.num_classes if head == "cls_head" else 4
+
+
+def run_float_fpn_heads(
+    params: Mapping[str, Tensor], cfg: DetectorConfig, taps: List[Tensor],
+) -> Tuple[Tensor, Tensor, Dict[str, Tensor]]:
+    """Float32 FPN + heads over the trunk's float taps (NHWC), mirroring the
+    int8 dataflow; returns (cls_logits, box_offsets, absmax at every requant
+    point): ``fpn/pre3..5`` (the lateral sums), ``fpn/P3..P7`` and
+    ``{head}/conv{i}@P{3..7}``. ``params`` is the (folded) state_dict; the
+    FPN and head entries are the model's own."""
+    absmax: Dict[str, Tensor] = {}
+
+    def conv(x: Tensor, path: str, stride: int = 1) -> Tensor:
+        w = params[_key(path) + ".weight"].to(torch.float32)
+        y = _conv_float(x, w, ConvOp(path, kernel=w.shape[-1], stride=stride))
+        return y + params[_key(path) + ".bias"].to(torch.float32)
+
+    c3, c4, c5 = (t.to(torch.float32) for t in taps)
+    pre5 = conv(c5, "fpn/lateral5")
+    pre4 = conv(c4, "fpn/lateral4") + fpn_upsample2x(pre5)
+    pre3 = conv(c3, "fpn/lateral3") + fpn_upsample2x(pre4)
+    pyramid: Dict[str, Tensor] = {}
+    for lvl, pre in (("P3", pre3), ("P4", pre4), ("P5", pre5)):
+        absmax[f"fpn/pre{lvl[1]}"] = pre.abs().max()
+        pyramid[lvl] = conv(pre, f"fpn/smooth{lvl[1]}")
+    pyramid["P6"] = conv(c5, "fpn/p6", stride=2)
+    pyramid["P7"] = conv(torch.clamp_min(pyramid["P6"], 0.0), "fpn/p7", stride=2)
+    for lvl in FPN_LEVELS:
+        absmax[f"fpn/{lvl}"] = pyramid[lvl].abs().max()
+
+    outs: Dict[str, List[Tensor]] = {"cls_head": [], "box_head": []}
+    for head in outs:
+        for lvl in FPN_LEVELS:
+            x = pyramid[lvl]
+            for i in range(cfg.model.head_depth):
+                x = torch.clamp_min(conv(x, f"{head}/conv{i}"), 0.0)
+                absmax[f"{head}/conv{i}@{lvl}"] = x.abs().max()
+            y = conv(x, f"{head}/out")
+            b, h, w, _ = y.shape
+            outs[head].append(y.reshape(b, h * w * ANCHORS_PER_LOCATION, _head_width(cfg, head)))
+    return torch.cat(outs["cls_head"], dim=1), torch.cat(outs["box_head"], dim=1), absmax
+
+
+def _conv_f32(qp: QuantParams, x_q: Tensor, s_in: float, path: str, stride: int = 1) -> Tensor:
+    """Int8 conv, then ``acc.f32 * (s_in * w_scale) + bias`` in the
+    reference's op order."""
+    acc = int8_ops.conv_int8(x_q, qp.w_int8[path], stride, "SAME", 1,
+                             operand=qp.gemm_operand(path))
+    return torch.mul(acc, qp.deq(path, s_in, x_q.device)).add_(qp.bias[path])
+
+
+def _requant(qp: QuantParams, y: Tensor, key: str, codes: Optional[Dict[str, Tensor]],
+             relu: bool = False) -> Tuple[Tensor, float]:
+    """``y`` divided by the 0-dim device scale of ``key``, rounded half to
+    even, clipped (at 0 with ``relu``: the requant keeps the sign). The
+    codes go into ``codes`` where it is given."""
+    s = qp.act_scale[key]
+    q = int8_ops.quantize(y, qp.scale(s, y.device), 0.0 if relu else -127.0)
+    if codes is not None:
+        codes[key] = q
+    return q, s
+
+
+def run_int8_fpn(
+    qp: QuantParams, taps_q: List[Tuple[Tensor, float]],
+    codes: Optional[Dict[str, Tensor]] = None,
+) -> Dict[str, Tuple[Tensor, float]]:
+    """The int8 FPN over the trunk's taps (C3, C4, C5 codes and their
+    scales) -> {"P3".."P7": (codes, scale)}. The lateral sums are float32
+    and requanted before the smooth convs; ReLU runs on P6's codes."""
+    (q3, s3), (q4, s4), (q5, s5) = taps_q
+    pre5 = _conv_f32(qp, q5, s5, "fpn/lateral5")
+    pre4 = _conv_f32(qp, q4, s4, "fpn/lateral4") + fpn_upsample2x(pre5)
+    pre3 = _conv_f32(qp, q3, s3, "fpn/lateral3") + fpn_upsample2x(pre4)
+    pyramid: Dict[str, Tuple[Tensor, float]] = {}
+    for lvl, pre in (("P3", pre3), ("P4", pre4), ("P5", pre5)):
+        q_pre, s_pre = _requant(qp, pre, f"fpn/pre{lvl[1]}", codes)
+        pyramid[lvl] = _requant(qp, _conv_f32(qp, q_pre, s_pre, f"fpn/smooth{lvl[1]}"),
+                                f"fpn/{lvl}", codes)
+    q_p6, s_p6 = pyramid["P6"] = _requant(qp, _conv_f32(qp, q5, s5, "fpn/p6", stride=2),
+                                          "fpn/P6", codes)
+    pyramid["P7"] = _requant(qp, _conv_f32(qp, torch.clamp_min(q_p6, 0), s_p6, "fpn/p7",
+                                           stride=2), "fpn/P7", codes)
+    return pyramid
+
+
+def run_int8_heads(
+    qp: QuantParams, cfg: DetectorConfig, pyramid: Mapping[str, Tuple[Tensor, float]],
+    logits_dtype: torch.dtype = torch.float32,
+    codes: Optional[Dict[str, Tensor]] = None,
+) -> Tuple[Tensor, Tensor]:
+    """The shared int8 heads over the FPN's levels -> (cls_logits in
+    ``logits_dtype``, box_offsets float32), concatenated over levels. Each
+    level requants with its own scales; the out conv emits float32."""
+    outs: Dict[str, List[Tensor]] = {"cls_head": [], "box_head": []}
+    for head in outs:
+        for lvl in FPN_LEVELS:
+            x_q, s_x = pyramid[lvl]
+            for i in range(cfg.model.head_depth):
+                x_q, s_x = _requant(qp, _conv_f32(qp, x_q, s_x, f"{head}/conv{i}"),
+                                    f"{head}/conv{i}@{lvl}", codes, relu=True)
+            y = _conv_f32(qp, x_q, s_x, f"{head}/out")
+            if head == "cls_head":
+                y = y.to(logits_dtype)
+            b, h, w, _ = y.shape
+            outs[head].append(y.reshape(b, h * w * ANCHORS_PER_LOCATION, _head_width(cfg, head)))
+    return torch.cat(outs["cls_head"], dim=1), torch.cat(outs["box_head"], dim=1)
+
+
+def run_int8_fpn_heads(
+    qp: QuantParams, cfg: DetectorConfig, taps_q: List[Tuple[Tensor, float]],
+    logits_dtype: torch.dtype = torch.float32,
+    concat: bool = True,
+    codes: Optional[Dict[str, Tensor]] = None,
+) -> Tuple[Tensor, Tensor]:
+    """Int8 FPN + shared heads over the int8 trunk taps (`run_int8_fpn`, then
+    `run_int8_heads`). ``codes``, where given, receives the int8 codes at
+    every requant point, keyed as their scales are, in the reference's
+    order of requants."""
+    if not concat:
+        raise NotImplementedError("per-level head outputs (concat=False) are not ported yet")
+    pyramid = run_int8_fpn(qp, taps_q, codes)
+    return run_int8_heads(qp, cfg, pyramid, logits_dtype, codes)
+
+
+def quantize_retinanet(
+    cfg: DetectorConfig,
+    params: Mapping[str, Tensor],
+    calibration_batches: Sequence[Tensor],
+    quantize_fpn_heads: bool = True,
+    spec: Optional[Spec] = None,
+) -> Tuple[QuantParams, Spec]:
+    """PTQ for RetinaNet: fold the backbone's BatchNorm, calibrate the trunk
+    and (``quantize_fpn_heads``) the FPN and heads on the same batches (the
+    maximum absmax over batches, then ``max(v, 1e-6) / 127``), and quantize
+    the trunk without SSD heads plus every path of `fpn_head_conv_paths`.
+    ``params`` is the model's state_dict with the running statistics;
+    ``spec`` overrides `build_resnet_trunk_spec`'s op list."""
+    if spec is None:
+        spec = build_resnet_trunk_spec()
+    folded = fold_resnet50(params)
+    scales = calibrate_scales(folded, spec, calibration_batches, use_l2norm=False,
+                              fpn_cfg=cfg if quantize_fpn_heads else None)
+    heads = fpn_head_conv_paths(cfg) if quantize_fpn_heads else ()
+    return quantize_params(folded, spec, scales, head_paths=heads), spec
+
+
+def _float_fpn_heads(qp: QuantParams, cfg: DetectorConfig, device: torch.device):
+    """The model's FPN and heads on ``qp.float_params``, on ``device``, made
+    once per QuantParams."""
+    def make():
+        model = RetinaNetModel(cfg)
+        parts = (model.fpn, model.cls_head, model.box_head)
+        for name, part in zip(("fpn", "cls_head", "box_head"), parts):
+            part.load_state_dict({k[len(name) + 1:]: v for k, v in qp.float_params.items()
+                                  if k.startswith(name + ".")})
+            part.requires_grad_(False).to(device).eval()
+        return parts
+
+    return qp.derived(("float_fpn_heads", device), make)
+
+
+def retinanet_int8_forward(
+    qp: QuantParams,
+    spec: Spec,
+    cfg: DetectorConfig,
+    images: Tensor,
+    dtype: torch.dtype = torch.bfloat16,
+    concat_heads: bool = True,
+    resnet_stem_fn: KernelFn = resnet_stem,
+    bottleneck_fn: KernelFn = fused_bottleneck,
+) -> Tuple[Tensor, Tensor]:
+    """Normalized float images (B, S, S, 3) -> (cls_logits, box_offsets),
+    int8 trunk. With the FPN's weights in ``qp`` (`quantize_retinanet`'s
+    default) the FPN and heads run int8 (`run_int8_fpn_heads`); otherwise
+    the model's float FPN and heads run in ``dtype`` over the dequantized
+    taps. The two kernel functions as in `run_int8`."""
+    if not concat_heads:
+        raise NotImplementedError("per-level head outputs (concat_heads=False) are not ported yet")
+    fns = dict(resnet_stem_fn=resnet_stem_fn, bottleneck_fn=bottleneck_fn)
+    if "fpn/lateral3" in qp.w_int8:
+        taps_q = run_int8(qp, spec, images, dequantize_taps=False, **fns)
+        logits_dtype = torch.bfloat16 if cfg.eval.int8_logits_bf16 else torch.float32
+        return run_int8_fpn_heads(qp, cfg, taps_q, logits_dtype=logits_dtype)
+    taps = run_int8(qp, spec, images, **fns)
+    fpn, cls_head, box_head = _float_fpn_heads(qp, cfg, images.device)
+    pyramid = fpn([t.to(dtype).permute(0, 3, 1, 2) for t in taps])
+    cls = [cls_head(p).float() for p in pyramid]
+    box = [box_head(p).float() for p in pyramid]
+    return torch.cat(cls, dim=1), torch.cat(box, dim=1)

@@ -24,7 +24,7 @@ from object_detector_tpu_torch.data.pipeline import (
     make_place,
 )
 from object_detector_tpu_torch.data.types import Dataset
-from object_detector_tpu_torch.models.ssd import SSDModel
+from object_detector_tpu_torch.models.retinanet import build_model
 from object_detector_tpu_torch.train.checkpoint import CheckpointManager
 from object_detector_tpu_torch.train.state import TrainState, create_train_state
 from object_detector_tpu_torch.train.step import check_trainable, make_train_step
@@ -37,7 +37,7 @@ def init_model_state(
     """The model with weights from ``seed`` on ``device``, and a fresh train
     state around copies of them."""
     dev = resolve_device(device)
-    model = init_params(SSDModel(cfg), seed=seed).to(dev)
+    model = init_params(build_model(cfg), seed=seed).to(dev)
     return model, create_train_state(cfg.train, dict(model.named_parameters()))
 
 

@@ -43,7 +43,8 @@ def test_override_matches_reference():
         config.get_config("tiny_test").override({"eval.no_such_field": 1})
 
 
-@pytest.mark.parametrize("name", ["tiny_test", "ssd300_vgg16_voc", "ssd512_resnet50_coco"])
+@pytest.mark.parametrize("name", ["tiny_test", "ssd300_vgg16_voc", "ssd512_resnet50_coco",
+                                  "retinanet_fpn_coco"])
 def test_anchors_match_reference(name):
     cfg = config.get_config(name)
     got = priors.anchors_for_model(cfg.model.family, cfg.anchors, cfg.model.image_size)
@@ -54,6 +55,16 @@ def test_anchors_match_reference(name):
     np.testing.assert_array_equal(got, want)
     if name == "ssd300_vgg16_voc":
         assert got.shape == (8732, 4)
+    if name == "retinanet_fpn_coco":
+        assert got.shape == (49104, 4) == (cfg.anchors.num_anchors, 4)
+
+
+def test_tiny_retinanet_config_matches_reference():
+    ported, ref = config.tiny_retinanet_config(), ref_config.tiny_retinanet_config()
+    assert dataclasses.asdict(ported) == dataclasses.asdict(ref)
+    assert ported.anchors.num_anchors == ref.anchors.num_anchors == 3069
+    assert dataclasses.asdict(config.tiny_retinanet_config(5)) == dataclasses.asdict(
+        ref_config.tiny_retinanet_config(5))
 
 
 def _corner_boxes(rng, n):
@@ -214,6 +225,7 @@ import importlib, pkgutil, sys
 import object_detector_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 names.remove("object_detector_tpu_torch.__main__")
+assert "object_detector_tpu_torch.models.retinanet" in names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -229,7 +241,7 @@ def test_port_imports_no_jax_and_no_reference():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 43  # the training and the ResNet modules are among them
+    assert int(out.stdout.strip()) >= 44  # the training, ResNet and RetinaNet modules among them
 
 
 def test_entry_points_default_to_cuda():

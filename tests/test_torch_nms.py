@@ -150,6 +150,40 @@ def test_decode_nms_takes_bf16_logits_as_the_reference_does(pre_nms_top_k):
     assert torch.equal(same.scores, got.scores) and torch.equal(same.boxes, got.boxes)
 
 
+def test_decode_nms_at_retinanet_s_prefilter_regime():
+    """retinanet_fpn_coco's postprocess: exact_prefilter=False, bf16 class
+    logits on a coarse grid (the class-agnostic maxima tie across many of the
+    3069 anchors of 128 px), 2 * pre_nms_top_k = 128 candidates of them. The
+    plain scan through decode_nms against pallas_decode_nms in interpret mode
+    (lax.top_k, ties to the lower anchor): the same candidates, scores and
+    classes bit for bit, the boxes within 1e-6 (decode's exp may round an
+    ulp apart between XLA:CPU and torch, as in the tests above)."""
+    from object_detector_tpu_torch.anchors.priors import retinanet_anchors
+
+    anchors = retinanet_anchors(128)
+    rng = np.random.default_rng(17)
+    cls = (rng.integers(-48, 8, (2, anchors.shape[0], 3)) / 8.0).astype(np.float32)
+    box = rng.normal(0, 0.5, (2, anchors.shape[0], 4)).astype(np.float32)
+    cls16 = torch.from_numpy(cls).to(torch.bfloat16)
+    assert torch.equal(cls16.float(), torch.from_numpy(cls))  # the grid is exact in bf16
+    top = cls.max(axis=-1)
+    assert (top == top.max(axis=-1, keepdims=True)).sum(axis=-1).min() > 128  # ties past M
+    kw = dict(
+        score_threshold=0.01, iou_threshold=0.5, pre_nms_top_k=64, max_detections=32,
+        max_per_class=100, center_variance=0.1, size_variance=0.2, exact_prefilter=False,
+    )
+    want = nms_pallas.pallas_decode_nms(
+        jnp.asarray(cls).astype(jnp.bfloat16), jnp.asarray(box), jnp.asarray(anchors),
+        interpret=True, **kw
+    )
+    got = nms_kernel.decode_nms(cls16, torch.from_numpy(box), torch.from_numpy(anchors),
+                                rows_fn=nms_kernel.nms_rows_reference, **kw)
+    assert got.valid.all()
+    for name in ("valid", "classes", "scores"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
+    np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes), rtol=0, atol=1e-6)
+
+
 def test_per_class_nms_matches_reference():
     rng = np.random.default_rng(5)
     batch, num_anchors, num_classes = 2, 300, 4
