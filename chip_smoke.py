@@ -169,7 +169,32 @@ Phases, each fatal on failure:
      logits within 1e-3 with TF32 off; on the CPU's QuantParams the int8
      taps, the codes at every FPN and head requant point and the logits
      bit-equal and the detections equal; evaluate_dataset in float and int8
-     on the card, a COCO dict of finite values each, with their launches.
+     on the card, a COCO dict of finite values each, with their launches;
+ 31. train full-width ssd512_resnet50_coco (512 px, 80 classes, 24564
+     anchors, bfloat16, BatchNorm with batch statistics) at bs=32 through
+     train() on the synthetic set for 6 steps with a checkpoint: every
+     metric finite with a positive anchor, all 106 running statistics moved
+     from their init, finite, variances >= 0, no kernel launched; then the
+     step on one augmented batch: median ms of 10 after warm-up, img/s,
+     peak memory, a profile window, and its BatchNorm passes and its loss
+     each profiled alone;
+ 32. the same for retinanet_fpn_coco (49104 anchors, mesh.data_parallel=1);
+ 33. serve each trained checkpoint through the CLI's main in-process:
+     `predict --checkpoint` in float and --int8, each equal to a Predictor
+     on the restored state_dict (the EMA or the params, with the running
+     statistics), with one forward's launches (int8: B6 once, B7 twelve
+     times, B1 once), the int8 kernels held bit-equal to their plain
+     versions on the trained model's own inputs and the served detections
+     equal to the plain versions' run; `evaluate --checkpoint` in float and
+     int8 over the 64-image synthetic set, COCO dicts of finite values;
+ 34. one training step of the 64 px SSD/ResNet-50 config and of
+     tiny_retinanet_config on the card against the CPU, in float64 compute
+     and in float32 with TF32 off: loss, every gradient, the updated params
+     and EMA and the running statistics, within the bounds
+     `resnet_train_card_vs_cpu` states;
+ 35. tiny_test trained 60 steps at 5e-3 on 16 synthetic images (crop and
+     expand off) on the card: the int8 engine's mAP within 0.08 of the
+     float model's and above 0.3 (reference tests/test_e2e.py:76).
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -256,6 +281,13 @@ TAP_MEAN_CODE_DIFF_LIMITS = (0.01, 0.1, 0.2, 0.3, 0.3, 0.5, 0.5)
 # An NVIDIA H100 80GB HBM3 (700 W) read 0.0017, 0.023, 0.049 of a code at C3
 # to C5 and 0.112, 0.117, 0.146, 0.162, 0.213 at P3 to P7 (at most 10 codes
 # anywhere); the limits are one and a half to three times those.
+# Steps train() takes on each ResNet-50 family at full width (phases 31 and
+# 32), and the steps timed after warm-up on one batch.
+RESNET_TRAIN_STEPS, RESNET_TIMED_STEPS = 6, 10
+# Phase 35, the reference's tests/test_e2e.py setup and bounds: tiny_test
+# trained E2E_STEPS steps at E2E_LR on E2E_IMAGES synthetic images, then
+# |float mAP - int8 mAP| < E2E_MAX_GAP and int8 mAP > E2E_MIN_INT8.
+E2E_STEPS, E2E_LR, E2E_IMAGES, E2E_MAX_GAP, E2E_MIN_INT8 = 60, 5e-3, 16, 0.08, 0.3
 RETINANET_MEAN_CODE_DIFF_LIMITS = {"C3": 0.005, "C4": 0.04, "C5": 0.1, "fpn/P3": 0.2,
                                    "fpn/P4": 0.25, "fpn/P5": 0.3, "fpn/P6": 0.3, "fpn/P7": 0.35}
 
@@ -685,7 +717,7 @@ def main() -> int:
             bottleneck, build, l2norm, pool_bwd, resnet_stem, stem, stem_fp,
         )
         from object_detector_tpu_torch.kernels import nms as nms_kernel
-        from object_detector_tpu_torch.anchors.priors import retinanet_anchors
+        from object_detector_tpu_torch.anchors.priors import anchors_for_model, retinanet_anchors
         from object_detector_tpu_torch.models.retinanet import build_model
         from object_detector_tpu_torch.models.ssd import SSDModel
         from object_detector_tpu_torch.ops import int8 as int8_ops
@@ -1571,6 +1603,24 @@ def main() -> int:
     bott_err = max(bott_err, rn["bottleneck_err"])
     max_abs_err = max(max_abs_err, rn["nms_err"])
 
+    # 31 to 35. Training both ResNet-50 families, serving what was trained.
+    from object_detector_tpu_torch.cli.main import _load_config, _restore_variables, build_parser
+    from object_detector_tpu_torch.losses.detection import detection_loss
+    from object_detector_tpu_torch.models.resnet import BatchNorm
+    from object_detector_tpu_torch.train.state import create_train_state
+    from object_detector_tpu_torch.train.step import encode_batch_targets
+
+    rn_mods.__dict__.update(
+        train=train, init_model_state=init_model_state, make_train_step=make_train_step,
+        create_train_state=create_train_state, DecodedCache=DecodedCache, make_place=make_place,
+        anchors_for_model=anchors_for_model, cli_main=cli_main, load_config=_load_config,
+        restore_variables=_restore_variables, build_parser=build_parser, BatchNorm=BatchNorm,
+        detection_loss=detection_loss, encode_batch_targets=encode_batch_targets)
+    rt = resnet_train_phases(torch, np, rn_mods, counted, wrappers, launches, where)
+    rstem_err = max(rstem_err, rt["stem_err"])
+    bott_err = max(bott_err, rt["bottleneck_err"])
+    max_abs_err = max(max_abs_err, rt["nms_err"])
+
     def counts(name: str) -> dict:
         return {"launches": sum(c[name] for c in launches.values()),
                 "launches_by_path": {path: c[name] for path, c in launches.items()}}
@@ -1962,7 +2012,7 @@ def hold_train_path(torch, pool_bwd, pooling, init_model_state, make_train_step,
     def grads(backward):
         pooling.max_pool_bwd = backward
         try:
-            total, _ = step_fn.loss_fn(state.params, batch, 12345)
+            total, _, _ = step_fn.loss_fn(state.params, state.batch_stats, batch, 12345)
             return torch.autograd.grad(total, list(state.params.values()))
         finally:
             pooling.max_pool_bwd = pool_bwd.max_pool_bwd
@@ -2029,7 +2079,7 @@ def train_step_reference_check(torch, np, init_model_state, make_train_step, Dec
             model, state = init_model_state(cfg, seed=1, device=device)
             fn = make_train_step(cfg, model, tiny_anchors, device=device, augment=False)
             on_device = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-            total, _ = fn.loss_fn(state.params, on_device, 0)
+            total, _, _ = fn.loss_fn(state.params, state.batch_stats, on_device, 0)
             grads = torch.autograd.grad(total, list(state.params.values()))
             out[device] = (float(total.detach()), dict(zip(state.params, (g.cpu() for g in grads))))
     finally:
@@ -2380,6 +2430,21 @@ def hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess, n
             "nms_rows": list(nms_rows["scores"].shape), "nms_err": nms_rows["max_abs_err"]}
 
 
+def ssd64_resnet_config(port_config):
+    """SSD/ResNet-50 at 64 px: ResNet-50's depth and widths, taps of 8, 4 and
+    2 cells, float32 (tests/test_torch_resnet.py's small config)."""
+    return port_config.DetectorConfig(
+        name="ssd64_resnet_smoke",
+        model=port_config.ModelConfig(family="ssd", backbone="resnet50", image_size=64,
+                                      num_classes=4, compute_dtype="float32"),
+        anchors=port_config.AnchorConfig(
+            feature_sizes=(8, 4, 2, 1, 1),
+            sizes=((8., 16.), (16., 28.), (28., 40.), (40., 52.), (52., 62.)),
+            aspect_ratios=((2.0,),) * 5),
+        eval=port_config.EvalConfig(pre_nms_top_k=64, max_detections=16),
+    )
+
+
 def resnet_reference_check(torch, np, port_config, engine, postprocess, normalize,
                            make_int8_predict_fn, SSDModel, init_params, ssd_anchors):
     """A small SSD/ResNet-50 (ResNet-50's depth and widths at 64 px, seeded
@@ -2390,16 +2455,7 @@ def resnet_reference_check(torch, np, port_config, engine, postprocess, normaliz
     and boxes within 1e-5. Reports how far bfloat16 on the card is from the
     CPU's float32."""
     size = 64
-    cfg = port_config.DetectorConfig(
-        name="ssd64_resnet_smoke",
-        model=port_config.ModelConfig(family="ssd", backbone="resnet50", image_size=size,
-                                      num_classes=4, compute_dtype="float32"),
-        anchors=port_config.AnchorConfig(
-            feature_sizes=(8, 4, 2, 1, 1),
-            sizes=((8., 16.), (16., 28.), (28., 40.), (40., 52.), (52., 62.)),
-            aspect_ratios=((2.0,),) * 5),
-        eval=port_config.EvalConfig(pre_nms_top_k=64, max_detections=16),
-    )
+    cfg = ssd64_resnet_config(port_config)
     params = init_params(SSDModel(cfg), seed=3, random_batch_stats=True).state_dict()
     anchors = ssd_anchors(cfg.anchors, size)
     rng = np.random.default_rng(22)
@@ -2808,6 +2864,390 @@ def retinanet_reference_check(torch, np, m, counted, wrappers, launches) -> dict
             "logits_max_abs": max(t.abs().max().item() for t in logits["cpu"]),
             "int8_codes_equal_at": len(codes["cpu"]), "int8_logits_equal": True,
             "int8_valid": int(gv.sum()), "evaluate": results}
+
+
+def resnet_train_phases(torch, np, m, counted, wrappers, launches, where) -> dict:
+    """Phases 31 to 35: train both ResNet-50 families at full width through
+    train(), serve each checkpoint through the CLI's main in float and
+    int8 (the int8 kernels held on the trained model's own inputs), one step
+    of each on the card against the CPU, and the int8-against-float mAP of
+    a trained tiny_test. Returns the kernels' largest differences."""
+    out = {"stem_err": 0, "bottleneck_err": 0, "nms_err": 0.0}
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_")
+    try:
+        # 31, 32. Train each family through train(), then time its step.
+        checkpoints = {preset: train_resnet_family(torch, np, m, counted, wrappers, launches,
+                                                   preset, f"{work.name}/{preset}", where)
+                       for preset in ("ssd512_resnet50_coco", "retinanet_fpn_coco")}
+        # 33. Serve each trained checkpoint through the CLI's main.
+        for preset, ck in checkpoints.items():
+            serve_trained(torch, np, m, counted, wrappers, launches, preset, ck, work.name, out,
+                          where)
+        # 34. One step of each family on the card against the CPU.
+        print(json.dumps({"phase": "resnet_train_card_vs_cpu",
+                          **resnet_train_card_vs_cpu(torch, np, m)}))
+        # 35. The int8 engine's mAP against the float model's on a trained tiny_test.
+        print(json.dumps({"phase": "int8_map_parity",
+                          **int8_map_parity(torch, np, m, counted, launches, work.name), **where}))
+    finally:
+        work.cleanup()
+    return out
+
+
+def resnet_train_cfg(m, preset: str):
+    """The preset at full width on the synthetic set, bs=32, logging every
+    step; RetinaNet's data-parallel 16 cut to the one card."""
+    extra = {"mesh.data_parallel": 1} if preset == "retinanet_fpn_coco" else {}
+    return m.get_config(preset).override({"data.dataset": "synthetic",
+                                          "train.batch_size": TRAIN_BATCH,
+                                          "train.log_every": 1, **extra})
+
+
+def train_resnet_family(torch, np, m, counted, wrappers, launches, preset: str, ck: str,
+                        where) -> str:
+    """Phase 31 (SSD-512) or 32 (RetinaNet): RESNET_TRAIN_STEPS steps of
+    train() at full width in bfloat16 with a checkpoint; every metric finite
+    with a positive anchor, every running statistic moved from its init,
+    finite, variances >= 0, no kernel launched. Then the step on one batch
+    with augmentation: median ms over RESNET_TIMED_STEPS after warm-up,
+    img/s, peak memory, a profile window, and its BatchNorm passes and loss
+    each profiled alone. Returns the checkpoint directory."""
+    cfg = resnet_train_cfg(m, preset)
+    family = cfg.model.family
+    anchors = m.anchors_for_model(family, cfg.anchors, cfg.model.image_size)
+    check(cfg.model.compute_dtype == "bfloat16" and cfg.model.image_size == 512
+          and cfg.model.num_classes == 80
+          and anchors.shape == ({"ssd": 24564, "retinanet": 49104}[family], 4),
+          f"{preset} is not at the reference's full width: {cfg.model}, {anchors.shape}")
+    dataset = m.make_synthetic_dataset(num_images=64, image_size=cfg.model.image_size)
+    name = f"train_{preset}"
+    t0 = time.perf_counter()
+    state, launches[name] = counted(lambda: m.train(
+        cfg, dataset, num_steps=RESNET_TRAIN_STEPS, metrics_path=f"{ck}.jsonl",
+        checkpoint_dir=ck, device="cuda"))
+    train_s = time.perf_counter() - t0
+    with open(f"{ck}.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    check(state.step == RESNET_TRAIN_STEPS
+          and [r["step"] for r in rows] == list(range(1, RESNET_TRAIN_STEPS + 1)),
+          f"{preset}: train() logged steps {[r['step'] for r in rows]}")
+    for r in rows:
+        check(all(np.isfinite(r[k]) for k in ("loss", "cls_loss", "box_loss", "grad_norm"))
+              and r["num_positives"] >= 1, f"{preset}: bad training metrics {r}")
+    check(launches[name] == {k: 0 for k in wrappers},
+          f"{preset}: training launched {launches[name]}; its path holds no kernel")
+    stats = state.batch_stats
+    check(len(stats) == 106, f"{preset}: {len(stats)} running statistics, expected 106")
+    for k, v in stats.items():
+        init = 1.0 if k.endswith("running_var") else 0.0
+        check(bool(torch.isfinite(v).all()) and bool((v != init).all())
+              and (init == 0.0 or bool((v >= 0).all())),
+              f"{preset}: running statistic {k} did not move from {init} or is not finite")
+    check(all(bool(torch.isfinite(p).all()) for p in state.params.values()),
+          f"{preset}: parameters are not finite after training")
+    check(sorted(os.listdir(ck)) == [f"step_{RESNET_TRAIN_STEPS}.pt"],
+          f"{preset}: train() left checkpoints {sorted(os.listdir(ck))}")
+    del state
+
+    model, st = m.init_model_state(cfg, seed=0, device="cuda")
+    step_fn = m.make_train_step(cfg, model, anchors, device="cuda", augment=True)
+    cache = m.DecodedCache(dataset, cfg.model.image_size, cfg.data.max_boxes, 4)
+    batch = m.make_place(torch.device("cuda"))(cache.gather(np.arange(TRAIN_BATCH)))
+    torch.cuda.current_stream().wait_event(batch.pop("_ready"))
+    gen = torch.Generator().manual_seed(0)
+
+    def one_step():
+        step_fn(st, batch, gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = host_ms(torch, one_step, RESNET_TIMED_STEPS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    prof = profile_window(torch, one_step, 3)
+    parts = resnet_step_parts(torch, m, cfg, model, st, batch, anchors)
+    print(json.dumps({"phase": name, "steps": RESNET_TRAIN_STEPS, "seconds": train_s,
+                      "batch": TRAIN_BATCH, "launches": launches[name],
+                      "losses": [r["loss"] for r in rows],
+                      "num_positives": [r["num_positives"] for r in rows],
+                      "grad_norms": [r["grad_norm"] for r in rows],
+                      "running_statistics_moved": len(stats),
+                      "median_ms": statistics.median(step_ms), "min_ms": min(step_ms),
+                      "max_ms": max(step_ms),
+                      "img_per_s": TRAIN_BATCH / (statistics.median(step_ms) / 1e3),
+                      "peak_memory_gib": peak_gib, "profile": prof, "parts": parts, **where}))
+    del model, st, step_fn, batch, cache
+    torch.cuda.empty_cache()
+    return ck
+
+
+def resnet_step_parts(torch, m, cfg, model, state, batch, anchors) -> dict:
+    """Device ms of two parts of a step, each profiled alone on the step's
+    own tensors: every BatchNorm's training forward and backward (batch
+    statistics, normalization, running update) on the input the forward
+    gave it, with that input as the cotangent; and the loss's forward and
+    backward on the logits and targets of the (unaugmented) batch."""
+    captured = []
+    hooks = [bn.register_forward_pre_hook(lambda mod, args: captured.append((mod, args[0].detach())))
+             for bn in model.modules() if isinstance(bn, m.BatchNorm)]
+    images = m.normalize(batch["image"].float() / 255.0)
+    params = {k: v.detach() for k, v in state.params.items()}
+    stats = {k: v.clone() for k, v in state.batch_stats.items()}
+    was = model.training
+    try:
+        model.train()
+        with torch.no_grad():
+            cls, box = torch.func.functional_call(model, {**params, **stats}, (images,))
+    finally:
+        model.train(was)
+        for h in hooks:
+            h.remove()
+    model.train()
+    inputs = [(bn, x.requires_grad_(True)) for bn, x in captured]
+
+    def batchnorm_passes():
+        for bn, x in inputs:
+            torch.autograd.grad(bn(x), (x, bn.weight, bn.bias), x)
+
+    targets = m.encode_batch_targets(batch["boxes"], batch["labels"], batch["valid"],
+                                     torch.as_tensor(anchors, device="cuda"), cfg)
+    cls, box = cls.detach().requires_grad_(True), box.detach().requires_grad_(True)
+    t = cfg.train
+
+    def loss_pass():
+        total, _ = m.detection_loss(
+            cls, box, targets.cls, targets.box, use_focal=t.use_focal,
+            focal_alpha=t.focal_alpha, focal_gamma=t.focal_gamma,
+            smooth_l1_beta=t.smooth_l1_beta, box_loss_weight=t.box_loss_weight,
+            negatives_per_positive=t.negatives_per_positive)
+        torch.autograd.grad(total, (cls, box))
+
+    bn_prof = profile_window(torch, batchnorm_passes, 2)
+    loss_prof = profile_window(torch, loss_pass, 3)
+    model.train(was)
+    return {"batchnorm_layers": len(inputs),
+            "batchnorm_passes_device_ms": bn_prof.get("device_busy_ms_per_call"),
+            "batchnorm_passes_device_ops": bn_prof.get("device_ops_per_call"),
+            "loss_device_ms": loss_prof.get("device_busy_ms_per_call"),
+            "loss_device_ops": loss_prof.get("device_ops_per_call"),
+            "logits": list(cls.shape)}
+
+
+def serve_trained(torch, np, m, counted, wrappers, launches, preset: str, ck: str, work_dir: str,
+                  out: dict, where) -> None:
+    """Phase 33 for one family: `predict --checkpoint` through the CLI's
+    main, in-process, in float and with --int8, each giving the detections
+    of a Predictor on the restored state_dict (EMA or params, with the
+    running statistics) and the launch counts of one forward (int8: B6
+    once, B7 twelve times, B1 once); the int8 path's kernels held bit-equal
+    to their plain versions on its own inputs (trained weights and
+    statistics) and the served detections equal to the plain versions' run
+    on the same QuantParams; then `evaluate --checkpoint` in float and
+    int8 over the 64-image synthetic set: COCO dicts of finite values."""
+    from PIL import Image
+
+    flags = ["--preset", preset, "--set", "data.dataset=synthetic", "--checkpoint", ck]
+    if preset == "retinanet_fpn_coco":
+        flags += ["--set", "mesh.data_parallel=1"]
+    cfg = m.load_config(m.build_parser().parse_args(["evaluate", *flags]))
+    served = m.restore_variables(cfg, ck)
+    anchors = m.anchors_for_model(cfg.model.family, cfg.anchors, cfg.model.image_size)
+    image = np.random.default_rng(33).integers(0, 80, (375, 500, 3), dtype=np.uint8)
+    image[100:300, 150:400] = (200, 60, 40)
+    path = f"{work_dir}/{preset}.png"
+    Image.fromarray(image).save(path)
+    ih, iw = image.shape[:2]
+    s = cfg.model.image_size
+    canvas = torch.from_numpy(np.array(
+        Image.fromarray(image).resize((s, s), Image.BILINEAR), np.uint8)[None]).cuda()
+    report = {}
+    for int8 in (False, True):
+        kind = "int8" if int8 else "float"
+        name = f"predict_checkpoint_{preset}_{kind}"
+        buf = io.StringIO()
+        argv = ["predict", *flags, "--image", path, "--score-threshold", "0.0"]
+        with contextlib.redirect_stdout(buf):
+            rc, launches[name] = counted(lambda: m.cli_main(argv + (["--int8"] if int8 else [])))
+        check(rc == 0, f"{name}: main returned {rc}")
+        want = RESNET_INT8_LAUNCHES if int8 else {**{k: 0 for k in wrappers}, "nms_rows": 1}
+        check(launches[name] == want, f"{name} launched {launches[name]}, expected {want}")
+        lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+        predictor = m.Predictor(cfg, served, device="cuda", int8=int8)
+        dets = predictor.predict_array(image, score_threshold=0.0)
+        check(len(lines) == len(dets) > 0
+              and [d["score"] for d in lines] == [round(d.score, 4) for d in dets]
+              and [d["class"] for d in lines] == [d.class_name for d in dets],
+              f"{name}: the command's detections differ from a Predictor's on the restored "
+              f"state_dict ({len(lines)} against {len(dets)})")
+        if int8:
+            held = hold_resnet_int8_path(torch, m.engine, m.resnet_stem, m.bottleneck,
+                                         m.postprocess, m.normalize, predictor._predict, canvas,
+                                         anchors, cfg)
+            det1 = held["detections"]
+            out["stem_err"] = max(out["stem_err"], held["stem_err"])
+            out["bottleneck_err"] = max(out["bottleneck_err"], held["bottleneck_err"])
+            out["nms_err"] = max(out["nms_err"], held["nms_err"])
+            nms_rows = held["nms_rows"]
+            del held
+        else:
+            rows, det1 = hold_path(torch, m.nms_kernel, m.normalize, predictor.model, canvas,
+                                   anchors, cfg)
+            out["nms_err"] = max(out["nms_err"], rows["max_abs_err"])
+            nms_rows = list(rows["scores"].shape)
+            del rows
+        check(served_equal(torch, dets, det1, iw, ih),
+              f"{name}: the served detections differ from the plain versions' run")
+        report[name] = {"detections": len(dets), "launches": launches[name],
+                        "nms_rows": nms_rows, "kernels_vs_plain_bit_equal": True,
+                        "served_equal_plain_run": True, "top_score": dets[0].score}
+        del predictor
+    batches = -(-64 // cfg.eval.batch_size)
+    for int8 in (False, True):
+        name = f"evaluate_checkpoint_{preset}_{'int8' if int8 else 'float'}"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc, launches[name] = counted(lambda: m.cli_main(
+                ["evaluate", *flags] + (["--int8"] if int8 else [])))
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"{name}: main returned {rc}")
+        result = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check({"mAP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100"} <= set(result)
+              and all(np.isfinite(v) for v in result.values()),
+              f"{name}: not a COCO dict of finite values: {result}")
+        per_batch = RESNET_INT8_LAUNCHES if int8 else {**{k: 0 for k in wrappers}, "nms_rows": 1}
+        want = {k: v * batches for k, v in per_batch.items()}
+        check(launches[name] == want, f"{name} launched {launches[name]}, expected {want}")
+        report[name] = {"result": result, "launches": launches[name], "seconds": seconds}
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": f"serve_trained_{preset}", "checkpoint_steps": RESNET_TRAIN_STEPS,
+                      **report, **where}))
+
+
+def resnet_train_card_vs_cpu(torch, np, m) -> dict:
+    """One step (sgd, momentum, weight decay, clipping, the EMA at 0.9, lr
+    1e-2, no warmup) of the 64 px SSD/ResNet-50 config and of
+    tiny_retinanet_config on the card against the CPU: the same seeded
+    weights and BatchNorm statistics, two images of seeded noise under the
+    synthetic set's boxes (from the pixel values whose normalization the
+    two devices round alike, below). In float64 compute (float32 parameters and loss):
+    the loss within 1e-5 relative, every gradient within rtol 1e-4 and atol
+    1e-4, the updated params and EMA within rtol 1e-5 and atol 2e-6, the
+    running statistics within 1e-4 (the CPU tests' bounds against the
+    reference). In float32 with TF32 off, where fifty training-mode
+    BatchNorms amplify the rounding of two devices' sums: the loss within
+    1e-4 relative, every gradient within 5e-2 of the model's largest
+    gradient (the CPU's own float32 stem gradient is 1e-2 of it from its
+    float64 one), the params and EMA within 1e-4 and the statistics within
+    1e-3, relative and absolute."""
+    # The card divides the uint8 images by 255 as a multiply by the float32
+    # reciprocal (a scalar divisor), the CPU divides: one ulp apart on 126
+    # of the 256 values. These steps amplify an ulp of their input (it moves
+    # the logits by about 6e-5 and some gradients by 10%: at 64 and 128 px,
+    # C5's BatchNorms see 8 and 32 values a channel), so the pixels are
+    # drawn from the 130 values on which both give the same input.
+    v = np.arange(256, dtype=np.float32)
+    exact_pixels = np.flatnonzero(v / np.float32(255) == v * (np.float32(1) / np.float32(255)))
+    was = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    report = {"pixel_values": len(exact_pixels)}
+    try:
+        for family, base in (("ssd64_resnet", ssd64_resnet_config(m.port_config)),
+                             ("tiny_retinanet", m.port_config.tiny_retinanet_config())):
+            base = base.override({"train.warmup_steps": 0, "train.base_lr": 1e-2,
+                                  "train.ema_decay": 0.9, "train.optimizer": "sgd"})
+            s = base.model.image_size
+            weights = m.init_params(m.build_model(base), seed=3,
+                                    random_batch_stats=True).state_dict()
+            cache = m.DecodedCache(m.make_synthetic_dataset(num_images=2, image_size=s), s,
+                                   base.data.max_boxes, 1)
+            batch = cache.gather(np.arange(2))
+            batch["image"] = np.random.default_rng(0).choice(
+                exact_pixels, batch["image"].shape).astype(np.uint8)
+            anchors = m.anchors_for_model(base.model.family, base.anchors, s)
+            for dtype in ("float64", "float32"):
+                cfg = base.override({"model.compute_dtype": dtype})
+                got = {dev: train_step_on(torch, m, cfg, weights, batch, anchors, dev)
+                       for dev in ("cuda", "cpu")}
+                report[f"{family}_{dtype}"] = compare_steps(torch, got["cuda"], got["cpu"], dtype,
+                                                            f"{family} {dtype}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = was
+    return report
+
+
+def train_step_on(torch, m, cfg, weights, batch, anchors, device) -> dict:
+    """One step of the port on ``device``: loss, gradients (from loss_fn),
+    updated params, EMA and running statistics, on the CPU."""
+    st = m.create_train_state(cfg.train, {k: v.to(device) for k, v in weights.items()})
+    fn = m.make_train_step(cfg, m.build_model(cfg), anchors, device=device, augment=False)
+    on_device = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    total, _, _ = fn.loss_fn(st.params, st.batch_stats, on_device, 0)
+    grads = torch.autograd.grad(total, list(st.params.values()))
+    st, _ = fn(st, on_device, torch.Generator().manual_seed(0))
+    cpu = lambda tree: {k: v.detach().cpu() for k, v in tree.items()}  # noqa: E731
+    return {"loss": float(total.detach()), "grads": dict(zip(st.params, (g.cpu() for g in grads))),
+            "params": cpu(st.params), "ema": cpu(st.ema_params), "stats": cpu(st.batch_stats)}
+
+
+def compare_steps(torch, card, cpu, dtype: str, label: str) -> dict:
+    """Holds one step on the card against the CPU's with the bounds of
+    `resnet_train_card_vs_cpu`; returns the largest differences."""
+    f64 = dtype == "float64"
+    check(abs(card["loss"] - cpu["loss"]) <= (1e-5 if f64 else 1e-4) * abs(cpu["loss"]),
+          f"{label}: the step's loss on the card {card['loss']} differs from the CPU's "
+          f"{cpu['loss']}")
+    scale = max(float(g.abs().max()) for g in cpu["grads"].values())
+    worst = {}
+    for part, (rtol, atol) in (("grads", (1e-4, 1e-4) if f64 else (0.0, 5e-2 * scale)),
+                               ("params", (1e-5, 2e-6) if f64 else (1e-4, 1e-4)),
+                               ("ema", (1e-5, 2e-6) if f64 else (1e-4, 1e-4)),
+                               ("stats", (1e-4, 1e-4) if f64 else (1e-3, 1e-3))):
+        check(set(card[part]) == set(cpu[part]) and len(cpu[part]) > 0,
+              f"{label}: the card's {part} leaves differ from the CPU's")
+        worst[part] = 0.0
+        for k, want in cpu[part].items():
+            got = card[part][k]
+            worst[part] = max(worst[part], float((got - want).abs().max()))
+            check(torch.allclose(got, want, rtol=rtol, atol=atol),
+                  f"{label}: {part} {k} on the card differs from the CPU's by "
+                  f"{float((got - want).abs().max())}")
+    return {"loss_card": card["loss"], "loss_cpu": cpu["loss"], "largest_gradient": scale,
+            "leaves": len(cpu["grads"]), "statistics": len(cpu["stats"]),
+            "max_abs_diff": worst}
+
+
+def int8_map_parity(torch, np, m, counted, launches, work_dir: str) -> dict:
+    """Phase 35, the counterpart of tests/test_e2e.py:76: tiny_test trained
+    E2E_STEPS steps at E2E_LR on E2E_IMAGES synthetic images (crop and
+    expand off) through train() on the card, then evaluate_dataset on the
+    card over the same images: |float mAP - int8 mAP| < E2E_MAX_GAP and
+    int8 mAP > E2E_MIN_INT8, the reference's bounds."""
+    cfg = m.get_config("tiny_test").override({
+        "train.num_steps": E2E_STEPS, "train.base_lr": E2E_LR, "train.checkpoint_every": 30,
+        "data.augment.crop_prob": 0.0, "data.augment.expand_prob": 0.0})
+    dataset = m.make_synthetic_dataset(num_images=E2E_IMAGES, image_size=cfg.model.image_size)
+    t0 = time.perf_counter()
+    state = m.train(cfg, dataset, metrics_path=f"{work_dir}/e2e.jsonl",
+                    checkpoint_dir=f"{work_dir}/e2e", device="cuda")
+    train_s = time.perf_counter() - t0
+    with open(f"{work_dir}/e2e.jsonl") as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    check(state.step == E2E_STEPS and losses[-1] < losses[0],
+          f"tiny_test: {state.step} steps, losses {losses}")
+    params = {k: v.detach() for k, v in state.params.items()}
+    del state
+    maps = {}
+    for kind, int8 in (("float", False), ("int8", True)):
+        result, launches[f"e2e_evaluate_{kind}"] = counted(
+            lambda: m.evaluate_dataset(cfg, params, dataset, int8=int8, device="cuda"))
+        maps[kind] = result["mAP"]
+    gap = abs(maps["float"] - maps["int8"])
+    check(np.isfinite(maps["float"]) and np.isfinite(maps["int8"]) and gap < E2E_MAX_GAP
+          and maps["int8"] > E2E_MIN_INT8,
+          f"tiny_test trained {E2E_STEPS} steps: float mAP {maps['float']}, int8 mAP "
+          f"{maps['int8']}; the bounds are |gap| < {E2E_MAX_GAP} and int8 > {E2E_MIN_INT8}")
+    return {"steps": E2E_STEPS, "train_seconds": train_s, "losses_first_last": [losses[0],
+            losses[-1]], "float_mAP": maps["float"], "int8_mAP": maps["int8"], "gap": gap,
+            "launches": {k: launches[f"e2e_evaluate_{k}"] for k in maps}}
 
 
 def _same_detections(torch, a, b) -> bool:

@@ -4,13 +4,13 @@
     python -m object_detector_tpu_torch predict  --preset ssd300_vgg16_voc --checkpoint ckpt/ --image dog.jpg --output out.jpg
     python -m object_detector_tpu_torch evaluate --preset ssd300_vgg16_voc --checkpoint ckpt/ --data-root /data/VOCdevkit [--int8]
 
-``train`` trains SSD/VGG16 on one device (ResNet-50 training is not ported
-yet). ``predict`` serves the float model of any preset
-(``ssd512_resnet50_coco`` and ``retinanet_fpn_coco`` too), or with
-``--int8`` the int8 engine
-(calibrated on 8 random images from a seed), with the weights of
-``--checkpoint`` (a directory ``train`` wrote; the EMA weights if it holds
-them) or random weights from a seed (smoke mode). ``evaluate`` sweeps a
+``train`` trains any preset's model on one device (SSD-300/VGG16,
+SSD-512/ResNet-50 and RetinaNet/FPN, the last two with BatchNorm batch
+statistics). ``predict`` serves the float model of any preset, or with
+``--int8`` the int8 engine (calibrated on 8 random images from a seed),
+with the weights of ``--checkpoint`` (a directory ``train`` wrote; the EMA
+weights if it holds them, with the running statistics) or random weights
+from a seed (smoke mode). ``evaluate`` sweeps a
 split (``--split``, default ``data.val_split``) through the float model or,
 with ``--int8``, the int8 engine, and prints the mAP dict of
 ``eval.map_style``. ``train`` and ``evaluate`` read ``data.dataset``: VOC,
@@ -67,17 +67,9 @@ def _load_dataset(cfg: DetectorConfig, split: str):
 
 
 def _restore_variables(cfg: DetectorConfig, checkpoint_dir: str) -> Dict[str, torch.Tensor]:
-    """The weights to serve from a directory `train` wrote: the EMA weights
-    if the checkpoint holds them, else the parameters. A checkpoint holds
-    parameters only, so a model with BatchNorm running statistics (a
-    ResNet-50 backbone: SSD-512 and RetinaNet) is refused rather than served
-    with fresh statistics."""
-    if cfg.model.backbone == "resnet50" or cfg.model.family == "retinanet":
-        raise SystemExit(
-            f"--checkpoint: {cfg.name} has BatchNorm running statistics, which the port's "
-            "checkpoints do not carry yet (training with batch statistics is not ported); "
-            "serve it without --checkpoint (seeded weights) or from a state_dict"
-        )
+    """The state_dict to serve from a directory `train` wrote: the EMA
+    weights if the checkpoint holds them, else the parameters, with the
+    BatchNorm running statistics (which have no EMA)."""
     from object_detector_tpu_torch.train.checkpoint import CheckpointManager
     from object_detector_tpu_torch.train.loop import init_model_state
 
@@ -87,7 +79,7 @@ def _restore_variables(cfg: DetectorConfig, checkpoint_dir: str) -> Dict[str, to
         raise SystemExit(f"no checkpoint found in {checkpoint_dir}")
     state = restored[0]
     params = state.ema_params if state.ema_params is not None else state.params
-    return {k: v.detach() for k, v in params.items()}
+    return {k: v.detach() for k, v in {**params, **state.batch_stats}.items()}
 
 
 def cmd_train(args: argparse.Namespace) -> int:

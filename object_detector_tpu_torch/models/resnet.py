@@ -8,9 +8,10 @@ names follow the flax trees (``backbone/stage1_block1/bn1/scale`` is
 module), so `object_detector_tpu_torch.convert.variables_from_jax` maps one
 onto the other.
 
-BatchNorm runs on its running statistics only: training with batch
-statistics is not ported yet. As in flax, it is computed in float32 on
-float32 parameters and rounded once to the activation's dtype.
+BatchNorm follows flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``: in
+eval mode on its running statistics, in training mode on the batch's (and
+then it moves its running statistics, in place). Either way it is computed
+in float32 on float32 parameters and rounded once to the activation's dtype.
 """
 
 from __future__ import annotations
@@ -27,11 +28,20 @@ Tensor = torch.Tensor
 
 STAGE_SIZES = (3, 4, 6, 3)
 STAGE_WIDTHS = (64, 128, 256, 512)
+# flax's BatchNorm momentum: running = MOMENTUM * running + (1 - MOMENTUM) * batch.
+MOMENTUM = 0.9
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the channel axis of an NCHW tensor:
-    ``(x - mean) * weight / sqrt(var + eps) + bias``, eps 1e-5."""
+    """BatchNorm over the channel axis of an NCHW tensor:
+    ``(x - mean) * weight / sqrt(var + eps) + bias``, eps 1e-5.
+
+    In eval mode mean and var are the running statistics. In training mode
+    they are the batch's, over N, H and W in float32 (float64 for a float64
+    input), as flax computes them (``use_fast_variance``): ``mean = E[x]``, ``var = max(E[x^2] - mean^2,
+    0)``, the biased variance, differentiated through; and the running
+    statistics move in place by `MOMENTUM`. ``torch.nn.BatchNorm2d`` would
+    keep the unbiased variance."""
 
     def __init__(self, channels: int, epsilon: float = 1e-5):
         super().__init__()
@@ -42,8 +52,19 @@ class BatchNorm(nn.Module):
         self.epsilon = epsilon
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=False, eps=self.epsilon)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                training=False, eps=self.epsilon)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean((0, 2, 3))
+        var = torch.clamp_min(xf.square().mean((0, 2, 3)) - mean.square(), 0.0)
+        with torch.no_grad():
+            for running, batch in ((self.running_mean, mean), (self.running_var, var)):
+                running.mul_(MOMENTUM).add_(batch, alpha=1.0 - MOMENTUM)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class BottleneckBlock(nn.Module):

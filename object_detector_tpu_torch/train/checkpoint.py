@@ -1,12 +1,14 @@
 """Checkpoint and resume, in the port's own format.
 
 The port of ``object_detector_tpu/train/checkpoint.py``: the same contents
-(params, optimizer state, EMA, step, the generator's state, the dataset
-cursor), keep-last-k retention and a save interval, so a resumed run
-continues step for step. One ``torch.save`` file per kept step,
-``step_<n>.pt``, written synchronously to a temporary name and renamed (so
-there is nothing to wait for or close). The reference's orbax checkpoints
-are not read.
+(params, BatchNorm running statistics, optimizer state, EMA, step, the
+generator's state, the dataset cursor), keep-last-k retention and a save
+interval, so a resumed run continues step for step. One ``torch.save`` file
+per kept step, ``step_<n>.pt``, written synchronously to a temporary name
+and renamed (so there is nothing to wait for or close). A checkpoint
+written before the statistics were kept holds none: it restores a model
+without BatchNorm (SSD-300/VGG16) and is refused for one with. The
+reference's orbax checkpoints are not read.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ class CheckpointManager:
         payload = {
             "step": state.step,
             "params": cpu(state.params),
+            "batch_stats": cpu(state.batch_stats),
             "opt_state": {k: cpu(v) for k, v in state.opt_state.items()},
             "ema_params": None if state.ema_params is None else cpu(state.ema_params),
             "generator_state": generator.get_state(),
@@ -95,6 +98,13 @@ class CheckpointManager:
 
         state = template_state
         fill(state.params, payload["params"], "params")
+        if "batch_stats" in payload:
+            fill(state.batch_stats, payload["batch_stats"], "BatchNorm statistics")
+        elif state.batch_stats:
+            raise ValueError(
+                f"checkpoint {self._path(step)} holds no BatchNorm running statistics, which "
+                "the model has: it was written before checkpoints carried them"
+            )
         if set(state.opt_state) != set(payload["opt_state"]):
             raise ValueError(
                 f"checkpoint {self._path(step)} holds optimizer state "

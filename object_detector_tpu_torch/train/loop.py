@@ -27,7 +27,7 @@ from object_detector_tpu_torch.data.types import Dataset
 from object_detector_tpu_torch.models.retinanet import build_model
 from object_detector_tpu_torch.train.checkpoint import CheckpointManager
 from object_detector_tpu_torch.train.state import TrainState, create_train_state
-from object_detector_tpu_torch.train.step import check_trainable, make_train_step
+from object_detector_tpu_torch.train.step import make_train_step
 from object_detector_tpu_torch.utils.logging import MetricsLogger, setup_logging
 
 
@@ -35,10 +35,11 @@ def init_model_state(
     cfg: DetectorConfig, seed: int, device: str | torch.device = "cuda"
 ) -> Tuple[torch.nn.Module, TrainState]:
     """The model with weights from ``seed`` on ``device``, and a fresh train
-    state around copies of them."""
+    state around copies of them and of its BatchNorm running statistics (mean
+    0 and var 1, as the reference's init leaves them)."""
     dev = resolve_device(device)
     model = init_params(build_model(cfg), seed=seed).to(dev)
-    return model, create_train_state(cfg.train, dict(model.named_parameters()))
+    return model, create_train_state(cfg.train, model.state_dict())
 
 
 def train(
@@ -52,7 +53,6 @@ def train(
     device: str | torch.device = "cuda",
 ) -> TrainState:
     log = setup_logging()
-    check_trainable(cfg)
     dev = resolve_device(device)
     num_steps = num_steps or cfg.train.num_steps
     if cfg.mesh.data_parallel not in (-1, 0, 1):

@@ -12,8 +12,9 @@ optax's order of operations:
   included, and enters before the learning rate;
 - SGD applies the rate after the momentum.
 
-The state is updated in place: a step writes into the tensors it is given
-and returns the same `TrainState`.
+The state is updated in place: a step writes into the parameters, the
+optimizer state and the EMA it is given, puts the forward's new BatchNorm
+statistics in ``batch_stats`` and returns the same `TrainState`.
 """
 
 from __future__ import annotations
@@ -35,6 +36,10 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 class TrainState:
     step: int
     params: Dict[str, Tensor]  # float32 leaves that require grad
+    # BatchNorm running statistics, float32, keyed like the state_dict
+    # (``....running_mean``, ``....running_var``); {} for VGG. No gradient,
+    # no optimizer slot, no weight decay, no EMA.
+    batch_stats: Dict[str, Tensor]
     # "sgd": {"trace": {name: tensor}}; "adamw": {"mu": {...}, "nu": {...}}.
     opt_state: Dict[str, Dict[str, Tensor]]
     ema_params: Optional[Dict[str, Tensor]]  # None when EMA is disabled
@@ -142,11 +147,20 @@ def make_optimizer(
     return update
 
 
-def create_train_state(cfg: TrainConfig, params: Mapping[str, Tensor]) -> TrainState:
-    """A fresh state around ``params`` (a model's state_dict or named
-    parameters): float32 copies that require grad, zeroed optimizer state,
-    and the EMA's own copy when ``ema_decay > 0``."""
-    own = {k: v.detach().to(torch.float32).clone().requires_grad_(True) for k, v in params.items()}
+def _is_batch_stat(name: str) -> bool:
+    """Whether a state_dict entry is a BatchNorm running statistic."""
+    return name.endswith((".running_mean", ".running_var"))
+
+
+def create_train_state(cfg: TrainConfig, variables: Mapping[str, Tensor]) -> TrainState:
+    """A fresh state around ``variables`` (a model's state_dict, or its named
+    parameters): the running statistics split off into ``batch_stats`` as
+    float32 copies; the rest float32 copies that require grad, with zeroed
+    optimizer state and the EMA's own copy when ``ema_decay > 0``."""
+    own = {k: v.detach().to(torch.float32).clone().requires_grad_(True)
+           for k, v in variables.items() if not _is_batch_stat(k)}
+    stats = {k: v.detach().to(torch.float32).clone() for k, v in variables.items()
+             if _is_batch_stat(k)}
     zeros = lambda: {k: torch.zeros_like(v, requires_grad=False) for k, v in own.items()}  # noqa: E731
     if cfg.optimizer == "sgd":
         opt_state = {"trace": zeros()}
@@ -155,4 +169,4 @@ def create_train_state(cfg: TrainConfig, params: Mapping[str, Tensor]) -> TrainS
     else:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     ema = {k: v.detach().clone() for k, v in own.items()} if cfg.ema_decay > 0 else None
-    return TrainState(step=0, params=own, opt_state=opt_state, ema_params=ema)
+    return TrainState(step=0, params=own, batch_stats=stats, opt_state=opt_state, ema_params=ema)

@@ -1,9 +1,11 @@
 """The train step: augmentation -> anchor matching -> forward -> loss ->
 backward -> optimizer update, all on the device the batch lies on.
 
-The port of ``object_detector_tpu/train/step.py`` for one device. With
-``cfg.model.pool_grad_kernel`` the backward of the four VGG pools runs the
-port's first-max pool kernel (`kernels.pool_bwd`).
+The port of ``object_detector_tpu/train/step.py`` for one device, for all
+three families. With ``cfg.model.pool_grad_kernel`` the backward of the four
+VGG pools runs the port's first-max pool kernel (`kernels.pool_bwd`). A
+ResNet-50 backbone's BatchNorm normalizes with the batch's statistics, and
+the step returns the running statistics they move (flax's ``batch_stats``).
 """
 
 from __future__ import annotations
@@ -44,17 +46,6 @@ def encode_batch_targets(
     )
 
 
-def check_trainable(cfg: DetectorConfig) -> None:
-    """Raises for the models the port serves but does not train yet: a
-    BatchNorm backbone needs batch statistics in the forward and running
-    ones kept as flax keeps them (the biased batch variance; torch keeps
-    the unbiased one)."""
-    if cfg.model.backbone == "resnet50" or cfg.model.family == "retinanet":
-        raise NotImplementedError(
-            f"training {cfg.model.family}/{cfg.model.backbone} (batch statistics) is not ported yet"
-        )
-
-
 def make_train_step(
     cfg: DetectorConfig,
     model: torch.nn.Module,
@@ -67,23 +58,26 @@ def make_train_step(
     batch: image (B,S,S,3) uint8, boxes (B,M,4), labels (B,M), valid (B,M),
     tensors on ``device``. ``model`` gives the structure; the weights are
     ``state.params``, which the step updates in place (with the optimizer
-    state and the EMA), returning the same state with ``step`` advanced.
+    state and the EMA), and the running statistics ``state.batch_stats``,
+    which it replaces by the forward's new ones, returning the same state
+    with ``step`` advanced.
     ``generator`` is the run's root generator: the step reads its initial
     seed and never advances it, and draws from a generator of its own seeded
     by `fold_in` of that seed and ``state.step``. Metrics are 0-dim tensors
     on the device: ``loss``, ``cls_loss``, ``box_loss``, ``num_positives``
     and ``grad_norm`` of the unclipped gradients. The step's
-    ``loss_fn(params, batch, seed) -> (loss, metrics)`` is its differentiable
-    half, for callers that want the gradients themselves.
+    ``loss_fn(params, batch_stats, batch, seed) -> (loss, metrics,
+    new_batch_stats)`` is its differentiable half, for callers that want the
+    gradients themselves; it leaves ``batch_stats`` and the model's mode as
+    they were.
     """
-    check_trainable(cfg)
     dev = resolve_device(device)
-    model.to(dev).train()
+    model.to(dev)
     update = make_optimizer(cfg.train)
     anchors = torch.as_tensor(np.asarray(anchors_center, np.float32), device=dev)
     step_generator = torch.Generator(device=dev)
 
-    def loss_fn(params, batch, seed: int):
+    def loss_fn(params, batch_stats, batch, seed: int):
         if augment:
             step_generator.manual_seed(seed)
             with torch.no_grad():
@@ -98,8 +92,17 @@ def make_train_step(
 
         with torch.no_grad():
             targets = encode_batch_targets(boxes, labels, valid, anchors, cfg)
-        cls_logits, box_preds = torch.func.functional_call(model, params, (images,))
-        return detection_loss(
+        # The training-mode forward moves the running statistics in place:
+        # into copies, which are the step's new statistics.
+        new_stats = {k: v.clone() for k, v in batch_stats.items()}
+        was_training = model.training
+        model.train()
+        try:
+            cls_logits, box_preds = torch.func.functional_call(
+                model, {**params, **new_stats}, (images,))
+        finally:
+            model.train(was_training)
+        total, metrics = detection_loss(
             cls_logits, box_preds, targets.cls, targets.box,
             use_focal=cfg.train.use_focal,
             focal_alpha=cfg.train.focal_alpha,
@@ -108,14 +111,17 @@ def make_train_step(
             box_loss_weight=cfg.train.box_loss_weight,
             negatives_per_positive=cfg.train.negatives_per_positive,
         )
+        return total, metrics, new_stats
 
     def train_step(state: TrainState, batch, generator: torch.Generator):
-        total, metrics = loss_fn(state.params, batch, fold_in(generator.initial_seed(), state.step))
+        total, metrics, new_stats = loss_fn(
+            state.params, state.batch_stats, batch, fold_in(generator.initial_seed(), state.step))
         names = list(state.params)
         grads = dict(zip(names, torch.autograd.grad(total, [state.params[n] for n in names])))
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
         update(state, grads, metrics["grad_norm"])
+        state.batch_stats = new_stats
         state.step += 1
         return state, metrics
 

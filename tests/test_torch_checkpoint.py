@@ -14,13 +14,18 @@ from object_detector_tpu_torch.data.synthetic import make_synthetic_dataset
 from object_detector_tpu_torch.train.checkpoint import CheckpointManager
 from object_detector_tpu_torch.train.loop import init_model_state, train
 from object_detector_tpu_torch.train.state import create_train_state
+from test_torch_resnet import small_configs
 
 torch.set_num_threads(2)
 
 
-def _cfg(**kw):
-    return config.get_config("tiny_test").override(
-        {"model.pool_grad_kernel": True, "train.batch_size": 4, "train.log_every": 1,
+def _cfg(model="vgg", **kw):
+    """tiny_test, or with ``model="resnet"`` the 64 px SSD/ResNet-50 of
+    tests/test_torch_resnet.py (BatchNorm with batch statistics)."""
+    base = config.get_config("tiny_test") if model == "vgg" else small_configs()[1].override(
+        {"train.warmup_steps": 0, "train.base_lr": 1e-2, "data.dataset": "synthetic"})
+    return base.override(
+        {"model.pool_grad_kernel": model == "vgg", "train.batch_size": 4, "train.log_every": 1,
          "data.num_workers": 1, **kw})
 
 
@@ -34,13 +39,16 @@ def _same(a, b):
         assert torch.equal(a[k], b[k]), k
 
 
-@pytest.mark.parametrize("optimizer,ema", [("sgd", 0.9), ("adamw", 0.0)])
-def test_resume_continues_bit_for_bit(tmp_path, optimizer, ema):
+@pytest.mark.parametrize("optimizer,ema,model", [("sgd", 0.9, "vgg"), ("adamw", 0.0, "vgg"),
+                                                 ("sgd", 0.9, "resnet")],
+                         ids=["sgd-0.9", "adamw-0.0", "sgd-0.9-resnet"])
+def test_resume_continues_bit_for_bit(tmp_path, optimizer, ema, model):
     """4 steps in one run equal 2 steps, a save, a restore into a fresh
-    state, and 2 more: parameters, optimizer state, EMA and the logged
-    losses. Augmentation is on, so the draws of steps 3 and 4 must come out
-    of the seed and the step alone, and the data cursor must be restored."""
-    cfg = _cfg(**{"train.optimizer": optimizer, "train.ema_decay": ema})
+    state, and 2 more: parameters, BatchNorm running statistics, optimizer
+    state, EMA and the logged losses. Augmentation is on, so the draws of
+    steps 3 and 4 must come out of the seed and the step alone, and the
+    data cursor must be restored."""
+    cfg = _cfg(model, **{"train.optimizer": optimizer, "train.ema_decay": ema})
     ds = _dataset()
     whole = train(cfg, ds, num_steps=4, checkpoint_dir=str(tmp_path / "a"), device="cpu",
                   metrics_path=str(tmp_path / "a.jsonl"))
@@ -51,6 +59,8 @@ def test_resume_continues_bit_for_bit(tmp_path, optimizer, ema):
                     resume=True, metrics_path=str(tmp_path / "b.jsonl"))
     assert whole.step == resumed.step == 4
     _same(whole.params, resumed.params)
+    _same(whole.batch_stats, resumed.batch_stats)
+    assert len(whole.batch_stats) == (106 if model == "resnet" else 0)
     for name in whole.opt_state:
         _same(whole.opt_state[name], resumed.opt_state[name])
     if ema:
@@ -109,6 +119,31 @@ def test_restore_refuses_a_checkpoint_of_another_setup(tmp_path):
     _, wider = init_model_state(_cfg(**{"model.num_classes": 5}), seed=0, device="cpu")
     with pytest.raises(RuntimeError):  # a head of another width
         CheckpointManager(str(tmp_path)).restore(wider, gen)
+
+
+def test_checkpoint_without_batch_stats_restores_vgg_and_is_refused_for_resnet(tmp_path):
+    """A checkpoint in the format before the statistics were kept (no
+    "batch_stats" key) restores an SSD-300/VGG16 state, which has none, and
+    is refused for a ResNet-50 one, which would otherwise keep fresh
+    statistics."""
+    for model, seed in (("vgg", 3), ("resnet", 3)):
+        cfg = _cfg(model)
+        _, st = init_model_state(cfg, seed=seed, device="cpu")
+        d = tmp_path / model
+        CheckpointManager(str(d)).save(st, torch.Generator(), 0, force=True)
+        path = d / "step_0.pt"
+        payload = torch.load(path, weights_only=True)
+        assert set(payload["batch_stats"]) == set(st.batch_stats)
+        del payload["batch_stats"]
+        torch.save(payload, path)
+        _, fresh = init_model_state(cfg, seed=seed + 1, device="cpu")
+        if model == "vgg":
+            restored = CheckpointManager(str(d)).restore(fresh, torch.Generator())[0]
+            _same({k: v.detach() for k, v in restored.params.items()},
+                  {k: v.detach() for k, v in st.params.items()})
+        else:
+            with pytest.raises(ValueError, match="no BatchNorm running statistics"):
+                CheckpointManager(str(d)).restore(fresh, torch.Generator())
 
 
 def test_stale_directory_raises_without_resume(tmp_path):

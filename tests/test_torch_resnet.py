@@ -152,6 +152,7 @@ def test_batch_norm_follows_flax():
               "bias": rng.normal(0, 0.5, 16).astype(np.float32)}
     port = resnet.BatchNorm(16)
     port.load_state_dict(variables_from_jax({"params": params, "batch_stats": stats}))
+    port.eval()  # running statistics; training mode: tests/test_torch_resnet_train.py
     for dtype, jdtype, atol in ((torch.float32, jnp.float32, 1e-5), (torch.bfloat16, jnp.bfloat16, 0)):
         module = nn.BatchNorm(use_running_average=True, momentum=0.9, epsilon=1e-5, dtype=jdtype)
         want = module.apply({"params": params, "batch_stats": stats}, jnp.asarray(x).astype(jdtype))
@@ -212,11 +213,24 @@ def test_full_width_ssd512_model_has_seven_levels():
     assert cls_logits.dtype == torch.float32 and bool(torch.isfinite(cls_logits).all())
 
 
-def test_train_refuses_a_batch_norm_backbone():
-    """Training needs batch statistics, held against flax first."""
+def test_train_refuses_a_batch_norm_backbone(tmp_path):
+    """train() runs the SSD/ResNet-50 model with batch statistics on the CPU:
+    two steps, every running statistic moved and finite, variances >= 0;
+    its checkpoint is refused by a state whose statistics are not the
+    model's."""
     from object_detector_tpu_torch.data.synthetic import make_synthetic_dataset
+    from object_detector_tpu_torch.train.checkpoint import CheckpointManager
 
-    ref_cfg, cfg = small_configs()
-    with pytest.raises(NotImplementedError, match="batch statistics"):
-        loop.train(cfg, make_synthetic_dataset(num_images=2, image_size=SIZE), num_steps=1,
-                   device="cpu")
+    _, cfg = small_configs()
+    cfg = cfg.override({"train.batch_size": 2, "train.warmup_steps": 0, "data.num_workers": 1})
+    st = loop.train(cfg, make_synthetic_dataset(num_images=4, image_size=SIZE), num_steps=2,
+                    device="cpu", checkpoint_dir=str(tmp_path))
+    assert st.step == 2 and len(st.batch_stats) == 106
+    init = init_params(ssd.SSDModel(cfg), seed=0).state_dict()
+    for k, v in st.batch_stats.items():
+        assert bool(torch.isfinite(v).all()) and not torch.equal(v, init[k]), k
+        assert not k.endswith("running_var") or bool((v >= 0).all())
+    _, other = loop.init_model_state(cfg, seed=0, device="cpu")
+    other.batch_stats.pop("backbone.stem_bn.running_mean")
+    with pytest.raises(ValueError, match="BatchNorm statistics"):
+        CheckpointManager(str(tmp_path)).restore(other, torch.Generator())

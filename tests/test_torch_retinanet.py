@@ -16,6 +16,7 @@ from object_detector_tpu.data.synthetic import make_synthetic_dataset as ref_syn
 from object_detector_tpu.eval import evaluator as ref_evaluator
 from object_detector_tpu.models import retinanet as ref_retinanet
 from object_detector_tpu_torch.anchors import priors
+from object_detector_tpu_torch.anchors.priors import retinanet_anchors
 from object_detector_tpu_torch.cli.predictor import Predictor
 from object_detector_tpu_torch.convert import (
     flatten_tree, init_params, names_to_jax, params_from_jax, variables_from_jax,
@@ -163,14 +164,20 @@ def test_upsample2x_is_the_reference_s():
 
 
 def test_ssd_model_refuses_the_family_and_training_refuses_it():
+    """SSDModel refuses the family; training builds the family's own model
+    and its train state carries the backbone's running statistics (the
+    step itself: tests/test_torch_retinanet_train.py)."""
     _, cfg = tiny_configs()
     with pytest.raises(NotImplementedError, match="retinanet"):
         ssd.SSDModel(cfg)
     assert isinstance(retinanet.build_model(config.get_config("ssd300_vgg16_voc")), ssd.SSDModel)
-    with pytest.raises(NotImplementedError, match="batch statistics"):
-        step.check_trainable(cfg)
     model, state = loop.init_model_state(cfg, seed=0, device="cpu")
     assert isinstance(model, retinanet.RetinaNetModel) and "fpn.p7.weight" in state.params
+    assert len(state.batch_stats) == 106 and not any(k in state.params for k in state.batch_stats)
+    assert all(torch.equal(v, torch.ones_like(v) if k.endswith("var") else torch.zeros_like(v))
+               for k, v in state.batch_stats.items())
+    step_fn = step.make_train_step(cfg, model, retinanet_anchors(SIZE), device="cpu")
+    assert callable(step_fn.loss_fn)
 
 
 # ---------------------------------------------------------------------------

@@ -452,13 +452,41 @@ def test_cli_predict_serves_the_retinanet_preset_on_cpu(tmp_path, int8):
 
 
 def test_predict_checkpoint_refuses_the_family(tmp_path, capsys):
-    """A checkpoint holds no BatchNorm running statistics: serving one would
-    serve the backbone with fresh statistics, so the command refuses."""
-    from object_detector_tpu_torch.cli.main import main
+    """``predict --checkpoint`` serves a RetinaNet checkpoint that `train`
+    wrote, with its running statistics: the Predictor's detections on the
+    restored state_dict. A checkpoint without the statistics (the format
+    before they were kept) is refused rather than served with fresh
+    ones."""
+    from PIL import Image
 
-    with pytest.raises(SystemExit, match="running statistics"):
-        main(["predict", "--preset", "retinanet_fpn_coco", "--device", "cpu", "--image",
-              str(tmp_path / "x.png"), "--checkpoint", str(tmp_path)])
+    from object_detector_tpu_torch.cli.main import (
+        _load_config, _restore_variables, build_parser, main,
+    )
+
+    image = tmp_path / "scene.png"
+    pixels = np.random.default_rng(12).integers(0, 60, (90, 120, 3), dtype=np.uint8)
+    Image.fromarray(pixels).save(image)
+    ck = str(tmp_path / "ck")
+    flags = ["--preset", "retinanet_fpn_coco", "--device", "cpu"]
+    for pair in _TINY_OVERRIDES + ["mesh.data_parallel=1", "data.dataset=synthetic",
+                                   "train.batch_size=2", "data.num_workers=1"]:
+        flags += ["--set", pair]
+    assert main(["train", *flags, "--steps", "1", "--checkpoint", ck]) == 0
+    capsys.readouterr()
+    argv = ["predict", *flags, "--image", str(image), "--checkpoint", ck, "--score-threshold", "0.0"]
+    assert main(argv) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    cfg = _load_config(build_parser().parse_args(argv))
+    served = _restore_variables(cfg, ck)
+    assert "backbone.stem_bn.running_var" in served
+    want = Predictor(cfg, served, device="cpu").predict_array(pixels, 0.0)
+    assert [d["score"] for d in lines] == [round(d.score, 4) for d in want] and want
+    path = os.path.join(ck, "step_1.pt")
+    payload = torch.load(path, weights_only=True)
+    del payload["batch_stats"]
+    torch.save(payload, path)
+    with pytest.raises(ValueError, match="no BatchNorm running statistics"):
+        main(argv)
 
 
 def test_int8_entry_points_default_to_cuda(quant):
