@@ -194,7 +194,32 @@ Phases, each fatal on failure:
      `resnet_train_card_vs_cpu` states;
  35. tiny_test trained 60 steps at 5e-3 on 16 synthetic images (crop and
      expand off) on the card: the int8 engine's mAP within 0.08 of the
-     float model's and above 0.3 (reference tests/test_e2e.py:76).
+     float model's and above 0.3 (reference tests/test_e2e.py:76);
+ 36. data-parallel training over torch.distributed, two gloo ranks in
+     processes of their own on the one card (NCCL refuses two ranks on one
+     device): full-width ssd300_voc_train_dp8 at 32 images a rank (the
+     preset's 256 / 8), the pool kernel on, augmentation on, float32 with
+     TF32 off; one step through make_train_step(mesh=...) against one
+     process's step at bs=64 from the same state and batch: loss within
+     1e-4 relative, params and EMA within 2e-5 (the reference's dp8
+     bounds), the ranks bit-equal, the pool kernel launched 4 times on each
+     rank and bit-equal to its plain version on the rank's own inputs, the
+     bytes all-reduced a step; then bfloat16 steps timed on each rank with
+     the gradient all-reduce alone and a profile window (recorded: gloo
+     stages CUDA tensors through the host);
+ 37. the same for full-width retinanet_fpn_coco at 2 images a rank (the
+     preset's 32 / 16) with BatchNorm on the global batch's moments: in
+     float64 the loss, params, EMA and the 106 running statistics within
+     the CPU step tests' float64 bounds of one process at bs=4, float32
+     recorded beside it, and the float64 step with per-rank moments
+     outside those bounds;
+ 38. `train` under torch.distributed.run with one process on NCCL
+     (ssd300_voc_train_dp8 at mesh.data_parallel=-1, bs=32, the pool kernel
+     on): a group of one, imgs_per_sec_chip = imgs_per_sec, a checkpoint
+     that `predict --checkpoint` serves (B1 once, held on its rows); the
+     preset unmodified refused with the reference's "requested 8-way data
+     parallelism but only 1 devices"; the step through an NCCL group of
+     one timed against the step without a mesh at bs=32, in turns.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -733,12 +758,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    wrappers = {"nms_rows": nms_kernel.nms_rows, "stem_conv12_pool": stem.stem_conv12_pool,
-                "l2norm_requant": l2norm.l2norm_requant,
-                "max_pool_bwd": pool_bwd.max_pool_bwd,
-                "resnet_stem": resnet_stem.resnet_stem,
-                "fused_bottleneck": bottleneck.fused_bottleneck,
-                "stem_fused_producer": stem_fp.stem_fused_producer}
+    wrappers = kernel_wrappers()
 
     def counted(fn):
         """Runs the main path fn() with every launch count set to 0 just
@@ -1620,6 +1640,12 @@ def main() -> int:
     rstem_err = max(rstem_err, rt["stem_err"])
     bott_err = max(bott_err, rt["bottleneck_err"])
     max_abs_err = max(max_abs_err, rt["nms_err"])
+
+    # 36 to 38. Data-parallel training over torch.distributed.
+    rn_mods.__dict__.update(counted=counted, wrappers=wrappers)
+    dp = data_parallel_phases(torch, np, rn_mods, launches, where)
+    pool_err = max(pool_err, dp["pool_err"])
+    max_abs_err = max(max_abs_err, dp["nms_err"])
 
     def counts(name: str) -> dict:
         return {"launches": sum(c[name] for c in launches.values()),
@@ -3248,6 +3274,516 @@ def int8_map_parity(torch, np, m, counted, launches, work_dir: str) -> dict:
     return {"steps": E2E_STEPS, "train_seconds": train_s, "losses_first_last": [losses[0],
             losses[-1]], "float_mAP": maps["float"], "int8_mAP": maps["int8"], "gap": gap,
             "launches": {k: launches[f"e2e_evaluate_{k}"] for k in maps}}
+
+
+# ---------------------------------------------------------------------------
+# Phases 36 to 38: data-parallel training (parallel/mesh.py).
+# ---------------------------------------------------------------------------
+
+# Steps each rank times in bfloat16 after the checked step (phases 36, 37),
+# and the NCCL-against-plain step timings of phase 38, each in turns.
+DP_TIMED_STEPS, NCCL_TIMED_STEPS = 5, 8
+# The one-step comparison's overrides: a full rate from the first step and an
+# EMA to compare (the presets warm up from a rate of 0 and keep no EMA).
+DP_STEP_OVERRIDES = {"train.warmup_steps": 0, "train.ema_decay": 0.9}
+# Phase 37 steps with sgd at 1e-2, as phase 34: AdamW's first update is
+# about lr * sign(g), where a gradient near 0 may flip its sign.
+DP_RESNET_OVERRIDES = {"train.warmup_steps": 0, "train.base_lr": 1e-2, "train.ema_decay": 0.9,
+                       "train.optimizer": "sgd"}
+# Phase 37's float64 bounds against one process (the float64 class of
+# tests/test_torch_resnet_train.py): loss relative; (rtol, atol) by part.
+DP_F64_LOSS_RTOL = 1e-5
+DP_F64_TOL = {"params": (1e-5, 2e-6), "ema": (1e-5, 2e-6), "stats": (1e-4, 1e-4)}
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from object_detector_tpu_torch.kernels import (
+        bottleneck, l2norm, nms, pool_bwd, resnet_stem, stem, stem_fp,
+    )
+
+    return {"nms_rows": nms.nms_rows, "stem_conv12_pool": stem.stem_conv12_pool,
+            "l2norm_requant": l2norm.l2norm_requant, "max_pool_bwd": pool_bwd.max_pool_bwd,
+            "resnet_stem": resnet_stem.resnet_stem, "fused_bottleneck": bottleneck.fused_bottleneck,
+            "stem_fused_producer": stem_fp.stem_fused_producer}
+
+
+def dp_spawn(torch, world: int, fn_name: str, args: tuple, work_dir: str) -> list:
+    """Runs this script's ``fn_name(torch, rank, world, *args)`` in ``world``
+    processes (the spawn start method) over a gloo group, every rank on
+    cuda:0 (NCCL refuses two ranks on one device); returns each rank's
+    result. A rank that raises ends the others and the phase."""
+    import torch.multiprocessing as mp
+
+    os.makedirs(work_dir)
+    mp.spawn(_dp_entry, args=(world, work_dir, fn_name, args), nprocs=world, join=True)
+    return [torch.load(f"{work_dir}/rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _dp_entry(rank: int, world: int, work_dir: str, fn_name: str, args: tuple) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work_dir}/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        torch.save(globals()[fn_name](torch, rank, world, *args), f"{work_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_cfg(get_config, preset: str, batch: int, dtype: str, overrides: dict):
+    return get_config(preset).override({
+        "data.dataset": "synthetic", "train.batch_size": batch, "mesh.data_parallel": 2,
+        "model.compute_dtype": dtype, "model.pool_grad_kernel": preset.startswith("ssd300"),
+        **overrides})
+
+
+def dp_rank_state(torch, mesh, st) -> dict:
+    """Whether every rank holds rank 0's params, EMA and statistics (each
+    tensor broadcast from rank 0 and compared), and rank 0's on the CPU."""
+    tensors = [*st.params.values(), *st.ema_params.values(), *st.batch_stats.values()]
+    differ = 0
+    for t in tensors:
+        theirs = t.detach().clone()
+        mesh.broadcast_(theirs)
+        differ += int(not torch.equal(theirs, t))
+    differ = int(mesh.all_reduce_(torch.tensor([differ], device=mesh.device)).item())
+    cpu = lambda tree: {k: v.detach().cpu() for k, v in tree.items()}  # noqa: E731
+    return {"ranks_bit_equal": differ == 0, "tensors": len(tensors),
+            **({"params": cpu(st.params), "ema": cpu(st.ema_params),
+                "stats": cpu(st.batch_stats)} if mesh.rank == 0 else {})}
+
+
+def dp_timing(torch, mesh, cfg, model_state, make_train_step, anchors, rows) -> dict:
+    """Host ms of DP_TIMED_STEPS steps (after warm-up, ranks aligned by a
+    barrier), the gradient all-reduce alone (host ms of all_reduce_buckets
+    on tensors of the gradients' shapes, median of 5) and, from a profile
+    window of two steps, the host time a step of each op whose name holds
+    "all_reduce" or "allreduce" (nested ops each count their children)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, st = model_state
+    fn = make_train_step(cfg, model, anchors, mesh=mesh, augment=True)
+    gen = torch.Generator().manual_seed(1)
+    mesh.barrier()
+    step_ms = host_ms(torch, lambda: fn(st, rows, gen), DP_TIMED_STEPS)
+    grads = [torch.ones_like(p) for p in st.params.values()]
+    mesh.barrier()
+    reduce_ms = host_ms(torch, lambda: mesh.all_reduce_buckets(grads), 5)
+    mesh.barrier()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            fn(st, rows, gen)
+        torch.cuda.synchronize()
+    ops = {e.key: e.cpu_time_total / 2e3 for e in prof.key_averages()
+           if "allreduce" in e.key.lower() or "all_reduce" in e.key.lower()}
+    return {"step_median_ms": statistics.median(step_ms), "step_ms": step_ms,
+            "gradient_all_reduce_median_ms": statistics.median(reduce_ms),
+            "gradient_bytes": sum(g.numel() * 4 for g in grads),
+            "profile_all_reduce_ops_host_ms_per_step": ops or "not measured"}
+
+
+def dp_ssd300_rank(torch, rank: int, world: int, batch_np) -> dict:
+    """Phase 36 on one rank: one float32 step (TF32 off, augmentation on)
+    of its rows through make_train_step(mesh=...), capturing what the four
+    pool backwards were given and holding the kernel bit-equal to its plain
+    version on them; then DP_TIMED_STEPS bfloat16 steps timed."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from object_detector_tpu_torch.anchors.priors import anchors_for_model
+    from object_detector_tpu_torch.core.config import get_config
+    from object_detector_tpu_torch.kernels import pool_bwd
+    from object_detector_tpu_torch.ops import pooling
+    from object_detector_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from object_detector_tpu_torch.train.loop import init_model_state
+    from object_detector_tpu_torch.train.step import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = Mesh(dist.group.WORLD, rank, world, torch.device("cuda", 0))
+    cfg = dp_cfg(get_config, "ssd300_voc_train_dp8", len(batch_np["image"]), "float32",
+                 DP_STEP_OVERRIDES)
+    anchors = anchors_for_model(cfg.model.family, cfg.anchors, cfg.model.image_size)
+    model, st = init_model_state(cfg, 0, mesh.device)
+    fn = make_train_step(cfg, model, anchors, mesh=mesh, augment=True)
+    rows = {k: torch.from_numpy(np.ascontiguousarray(v)).to(mesh.device)
+            for k, v in shard_batch(mesh, batch_np).items()}
+    captured = []
+
+    def capture(x, y, g):
+        captured.append((x, y, g))
+        return pool_bwd.max_pool_bwd(x, y, g)
+
+    pooling.max_pool_bwd = capture
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    before = mesh.bytes_reduced
+    try:
+        st, metrics = fn(st, rows, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+    finally:
+        pooling.max_pool_bwd = pool_bwd.max_pool_bwd
+    launches = {name: w.launches for name, w in wrappers.items()}
+    bytes_a_step = mesh.bytes_reduced - before
+    pool_err, pool_equal = 0.0, True
+    for x, y, g in captured:
+        got, want = pool_bwd.max_pool_bwd(x, y, g), pool_bwd.max_pool_bwd_reference(x, y, g)
+        pool_err = max(pool_err, (got - want).abs().max().item())
+        pool_equal &= torch.equal(got.view(torch.int32), want.view(torch.int32))
+    out = {"metrics": {k: float(v) for k, v in metrics.items()}, "launches": launches,
+           "pool_inputs": [list(x.shape) for x, _, _ in captured], "pool_err": pool_err,
+           "pool_bit_equal": pool_equal, "bytes_all_reduced_a_step": bytes_a_step,
+           **dp_rank_state(torch, mesh, st)}
+    del st, model, fn, captured
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    bf16 = dp_cfg(get_config, "ssd300_voc_train_dp8", len(batch_np["image"]), "bfloat16", {})
+    out["bf16"] = dp_timing(torch, mesh, bf16, init_model_state(bf16, 0, mesh.device),
+                            make_train_step, anchors, rows)
+    return out
+
+
+def dp_retinanet_rank(torch, rank: int, world: int, batch_np) -> dict:
+    """Phase 37 on one rank: one step of its two images without augmentation
+    in float64 and in float32 (TF32 off) with BatchNorm on the global
+    batch's moments, and in float64 with each BatchNorm on its rank's images
+    only (the step's reduction dropped); then DP_TIMED_STEPS bfloat16 steps
+    timed (augmentation on)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from object_detector_tpu_torch.anchors.priors import anchors_for_model
+    from object_detector_tpu_torch.core.config import get_config
+    from object_detector_tpu_torch.models.resnet import BatchNorm
+    from object_detector_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from object_detector_tpu_torch.train.loop import init_model_state
+    from object_detector_tpu_torch.train.step import make_train_step
+
+    class PerRank(BatchNorm):
+        all_reduce = property(lambda self: None, lambda self, value: None)
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = Mesh(dist.group.WORLD, rank, world, torch.device("cuda", 0))
+    total = len(batch_np["image"])
+    rows = {k: torch.from_numpy(np.ascontiguousarray(v)).to(mesh.device)
+            for k, v in shard_batch(mesh, batch_np).items()}
+    out = {}
+    wrappers = kernel_wrappers()
+    for name, dtype, per_rank in (("float64", "float64", False), ("float32", "float32", False),
+                                  ("float64_per_rank", "float64", True)):
+        cfg = dp_cfg(get_config, "retinanet_fpn_coco", total, dtype, DP_RESNET_OVERRIDES)
+        anchors = anchors_for_model(cfg.model.family, cfg.anchors, cfg.model.image_size)
+        model, st = init_model_state(cfg, 0, mesh.device)
+        if per_rank:
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.__class__ = PerRank
+        fn = make_train_step(cfg, model, anchors, mesh=mesh, augment=False)
+        for w in wrappers.values():
+            w.launches = 0
+        before = mesh.bytes_reduced
+        st, metrics = fn(st, rows, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        out[name] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                     "launches": {k: w.launches for k, w in wrappers.items()},
+                     "bytes_all_reduced_a_step": mesh.bytes_reduced - before,
+                     **dp_rank_state(torch, mesh, st)}
+        del model, st, fn
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    bf16 = dp_cfg(get_config, "retinanet_fpn_coco", total, "bfloat16", {})
+    out["bf16"] = dp_timing(torch, mesh, bf16, init_model_state(bf16, 0, mesh.device),
+                            make_train_step, anchors_for_model("retinanet", bf16.anchors, 512),
+                            rows)
+    return out
+
+
+def one_process_step(torch, np, m, cfg, batch_np, augment: bool) -> dict:
+    """One step of cfg on the whole batch in this process (no mesh), from
+    the seed-0 state: metrics, and params, EMA and statistics on the CPU."""
+    anchors = m.anchors_for_model(cfg.model.family, cfg.anchors, cfg.model.image_size)
+    model, st = m.init_model_state(cfg, seed=0, device="cuda")
+    fn = m.make_train_step(cfg, model, anchors, device="cuda", augment=augment)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    st, metrics = fn(st, batch, torch.Generator().manual_seed(0))
+    cpu = lambda tree: {k: v.detach().cpu() for k, v in tree.items()}  # noqa: E731
+    out = {"metrics": {k: float(v) for k, v in metrics.items()}, "params": cpu(st.params),
+           "ema": cpu(st.ema_params), "stats": cpu(st.batch_stats)}
+    del model, st, fn, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_diff(torch, got: dict, want: dict) -> dict:
+    """Largest absolute difference by part, and the loss's relative one."""
+    out = {"loss_rel": abs(got["metrics"]["loss"] - want["metrics"]["loss"])
+           / abs(want["metrics"]["loss"])}
+    for part in ("params", "ema", "stats"):
+        check(set(got[part]) == set(want[part]), f"DP and one-process {part} leaves differ")
+        out[part] = max((float((got[part][k] - want[part][k]).abs().max())
+                         for k in want[part]), default=0.0)
+    return out
+
+
+def dp_within(torch, got: dict, want: dict, tol: dict) -> bool:
+    return all(torch.allclose(got[part][k], want[part][k], rtol=rtol, atol=atol)
+               for part, (rtol, atol) in tol.items() for k in want[part])
+
+
+def data_parallel_phases(torch, np, m, launches, where) -> dict:
+    """Phases 36 to 38. Returns the pool kernel's largest difference from
+    its plain version on the ranks' inputs and the NMS kernel's on the
+    served checkpoint."""
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_dp_")
+    try:
+        out = dp_ssd300_phase(torch, np, m, launches, f"{work.name}/36", where)
+        dp_retinanet_phase(torch, np, m, launches, f"{work.name}/37", where)
+        out["nms_err"] = nccl_launch_phase(torch, np, m, launches, f"{work.name}/38", where)
+    finally:
+        work.cleanup()
+    return out
+
+
+def dp_ssd300_phase(torch, np, m, launches, work_dir: str, where) -> dict:
+    """Phase 36: ssd300_voc_train_dp8 at full width over two gloo ranks on
+    the card, 32 images a rank (the preset's 256 / 8), against one process
+    at bs=64 from the same state and batch: loss within 1e-4 relative,
+    params and EMA within 2e-5 (the reference's dp8 bounds), the ranks
+    bit-equal, the pool kernel launched 4 times a step on each rank and
+    bit-equal to its plain version on the rank's inputs."""
+    cfg = dp_cfg(m.get_config, "ssd300_voc_train_dp8", 64, "float32", DP_STEP_OVERRIDES)
+    check(cfg.model.image_size == 300 and cfg.model.family == "ssd"
+          and cfg.model.backbone == "vgg16", f"ssd300_voc_train_dp8 is not SSD-300: {cfg.model}")
+    cache = m.DecodedCache(m.make_synthetic_dataset(num_images=64, image_size=300), 300,
+                           cfg.data.max_boxes, 4)
+    batch = cache.gather(np.arange(64))
+    was = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        one = one_process_step(torch, np, m, cfg.override({"mesh.data_parallel": 1}), batch,
+                               augment=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = was
+    t0 = time.perf_counter()
+    ranks = dp_spawn(torch, 2, "dp_ssd300_rank", (batch,), work_dir)
+    seconds = time.perf_counter() - t0
+    got = ranks[0]
+    want_launches = {**{k: 0 for k in m.wrappers}, "max_pool_bwd": 4}
+    for r, rank in enumerate(ranks):
+        launches[f"dp2_ssd300_rank{r}"] = rank["launches"]
+        check(rank["launches"] == want_launches, f"rank {r} launched {rank['launches']} in "
+              f"one step, expected {want_launches}")
+        check(rank["pool_bit_equal"], f"rank {r}: the pool kernel differs from its plain "
+              f"version on the rank's inputs by {rank['pool_err']}")
+        check(rank["ranks_bit_equal"], f"rank {r}: the ranks' params or EMA differ")
+        check(rank["metrics"] == got["metrics"], f"rank {r}'s metrics differ from rank 0's")
+    diff = dp_diff(torch, got, one)
+    check(diff["loss_rel"] <= 1e-4, f"DP-2 loss {got['metrics']['loss']} against one "
+          f"process's {one['metrics']['loss']}")
+    check(got["metrics"]["num_positives"] == one["metrics"]["num_positives"],
+          "DP-2 counts other positives than one process")
+    check(dp_within(torch, got, one, {"params": (0.0, 2e-5), "ema": (0.0, 2e-5)}),
+          f"DP-2 params or EMA differ from one process's by {diff}")
+    n_params = sum(v.numel() for v in one["params"].values())
+    check(got["bytes_all_reduced_a_step"] == 4 * n_params + 8 + 12,
+          f"{got['bytes_all_reduced_a_step']} bytes all-reduced a step, expected the "
+          f"gradients' {4 * n_params} and 20 of metrics")
+    print(json.dumps({"phase": "dp2_ssd300_voc_train_dp8", "ranks": 2, "backend": "gloo",
+                      "images_a_rank": 32, "seconds_with_spawn": seconds,
+                      "metrics_dp2": got["metrics"], "metrics_one_process": one["metrics"],
+                      "max_abs_diff": diff, "launches_by_rank": [r["launches"] for r in ranks],
+                      "pool_inputs": got["pool_inputs"], "pool_kernel_bit_equal": True,
+                      "ranks_bit_equal": True, "bytes_all_reduced_a_step":
+                      got["bytes_all_reduced_a_step"],
+                      "bf16_timing_by_rank": [r["bf16"] for r in ranks], **where}))
+    return {"pool_err": max(r["pool_err"] for r in ranks)}
+
+
+def dp_retinanet_phase(torch, np, m, launches, work_dir: str, where) -> None:
+    """Phase 37: retinanet_fpn_coco at full width (512 px) over two gloo
+    ranks on the card, 2 images a rank (the preset's 32 / 16), BatchNorm
+    on the global batch's moments, against one process at bs=4 from the
+    same state and batch (no augmentation, sgd at 1e-2). In float64: loss
+    within DP_F64_LOSS_RTOL, params, EMA and the 106 running statistics
+    within DP_F64_TOL, the ranks bit-equal; float32 (TF32 off) recorded
+    beside it. The float64 step with each BatchNorm on its rank's images
+    lands outside DP_F64_TOL: the reduction is needed."""
+    base = dp_cfg(m.get_config, "retinanet_fpn_coco", 4, "float64", DP_RESNET_OVERRIDES)
+    check(base.model.image_size == 512 and base.model.family == "retinanet",
+          f"retinanet_fpn_coco is not at full width: {base.model}")
+    cache = m.DecodedCache(m.make_synthetic_dataset(num_images=4, image_size=512), 512,
+                           base.data.max_boxes, 4)
+    batch = cache.gather(np.arange(4))
+    was = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        one = {dtype: one_process_step(torch, np, m, base.override({
+            "model.compute_dtype": dtype, "mesh.data_parallel": 1}), batch, augment=False)
+            for dtype in ("float64", "float32")}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = was
+    ranks = dp_spawn(torch, 2, "dp_retinanet_rank", (batch,), work_dir)
+    report = {}
+    for name in ("float64", "float32", "float64_per_rank"):
+        got = ranks[0][name]
+        want = one[name.split("_")[0]]
+        check(len(want["stats"]) == 106, f"{len(want['stats'])} running statistics")
+        report[name] = {"max_abs_diff": dp_diff(torch, got, want),
+                        "ranks_bit_equal": all(r[name]["ranks_bit_equal"] for r in ranks),
+                        "bytes_all_reduced_a_step": got["bytes_all_reduced_a_step"],
+                        "loss_dp2": got["metrics"]["loss"], "loss_one": want["metrics"]["loss"]}
+        for k, v in got["metrics"].items():
+            check(np.isfinite(v), f"{name}: metric {k} is {v}")
+    f64 = report["float64"]
+    check(f64["ranks_bit_equal"] and report["float32"]["ranks_bit_equal"],
+          "the ranks' params, EMA or running statistics differ")
+    check(f64["max_abs_diff"]["loss_rel"] <= DP_F64_LOSS_RTOL
+          and dp_within(torch, ranks[0]["float64"], one["float64"], DP_F64_TOL),
+          f"float64 DP-2 step against one process: {f64['max_abs_diff']}")
+    check(not dp_within(torch, ranks[0]["float64_per_rank"], one["float64"],
+                        {"stats": DP_F64_TOL["stats"]}),
+          "per-rank BatchNorm statistics land within the bound: the check cannot tell")
+    for r, rank in enumerate(ranks):
+        launches[f"dp2_retinanet_rank{r}"] = rank["float64"]["launches"]
+        check(all(rank[name]["launches"] == {k: 0 for k in m.wrappers} for name in report),
+              f"rank {r}: RetinaNet training launched a kernel; its path holds none")
+    print(json.dumps({"phase": "dp2_retinanet_fpn_coco", "ranks": 2, "backend": "gloo",
+                      "images_a_rank": 2, "running_statistics": 106, **report,
+                      "bf16_timing_by_rank": [r["bf16"] for r in ranks], **where}))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def nccl_launch_phase(torch, np, m, launches, work_dir: str, where) -> float:
+    """Phase 38: `train` under the real launcher on the real backend:
+    torch.distributed.run with one process, NCCL, ssd300_voc_train_dp8 at
+    mesh.data_parallel=-1 and bs=32 with the pool kernel on the synthetic
+    set, a checkpoint and metrics; its checkpoint served by `predict
+    --checkpoint` in-process (B1 once); the preset unmodified refused with
+    the reference's error on this host's cards; then the step through an
+    NCCL group of one in this process timed against the step without a mesh
+    at the same bs=32, in turns. Returns the NMS kernel's largest
+    difference from its plain version on the served rows."""
+    from PIL import Image
+
+    os.makedirs(work_dir)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")])}
+    steps = 4
+    flags = ["--preset", "ssd300_voc_train_dp8", "--set", "mesh.data_parallel=-1",
+             "--set", "train.batch_size=32", "--set", "model.pool_grad_kernel=True",
+             "--set", "data.dataset=synthetic", "--set", "train.log_every=1"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+           "--nnodes", "1", "--master_addr", "localhost", "--master_port", str(free_port()),
+           "-m", "object_detector_tpu_torch", "train", *flags, "--steps", str(steps),
+           "--checkpoint", f"{work_dir}/ck", "--metrics", f"{work_dir}/train.jsonl"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
+    launch_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"torchrun train exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    check("1 rank(s), backend nccl" in proc.stderr,
+          f"torchrun train made no NCCL group of one:\n{proc.stderr[-2000:]}")
+    with open(f"{work_dir}/train.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    check([r["step"] for r in rows] == list(range(1, steps + 1)), f"logged steps {rows}")
+    for r in rows:
+        check(r["imgs_per_sec_chip"] == r["imgs_per_sec"] / 1 and np.isfinite(r["loss"]),
+              f"torchrun train logged {r}")
+    check(os.listdir(f"{work_dir}/ck") == [f"step_{steps}.pt"],
+          f"torchrun train left {os.listdir(f'{work_dir}/ck')}")
+
+    image = np.random.default_rng(38).integers(0, 80, (375, 500, 3), dtype=np.uint8)
+    image[100:300, 150:400] = (200, 60, 40)
+    Image.fromarray(image).save(f"{work_dir}/image.png")
+    buf = io.StringIO()
+    argv = ["predict", *flags, "--checkpoint", f"{work_dir}/ck", "--image",
+            f"{work_dir}/image.png", "--score-threshold", "0.0"]
+    with contextlib.redirect_stdout(buf):
+        rc, launches["predict_checkpoint_nccl_trained"] = m.counted(lambda: m.cli_main(argv))
+    served = [json.loads(line) for line in buf.getvalue().splitlines()]
+    check(rc == 0 and len(served) > 0, f"predict --checkpoint of the torchrun checkpoint: rc "
+          f"{rc}, {len(served)} detections")
+    want = {**{k: 0 for k in m.wrappers}, "nms_rows": 1}
+    check(launches["predict_checkpoint_nccl_trained"] == want,
+          f"predict --checkpoint launched {launches['predict_checkpoint_nccl_trained']}")
+    cfg = m.load_config(m.build_parser().parse_args(["predict", *flags, "--image", "x"]))
+    predictor = m.Predictor(cfg, m.restore_variables(cfg, f"{work_dir}/ck"), device="cuda")
+    canvas = torch.from_numpy(np.array(Image.fromarray(image).resize(
+        (300, 300), Image.BILINEAR), np.uint8)[None]).cuda()
+    held, _ = hold_path(torch, m.nms_kernel, m.normalize, predictor.model, canvas,
+                        m.anchors_for_model("ssd", cfg.anchors, 300), cfg)
+    del predictor
+
+    refused = subprocess.run(
+        [sys.executable, "-m", "object_detector_tpu_torch", "train", "--preset",
+         "ssd300_voc_train_dp8"], capture_output=True, text=True, timeout=300, env=env)
+    message = (f"requested 8-way data parallelism but only {torch.cuda.device_count()} "
+               "devices")
+    check(refused.returncode != 0 and message in refused.stderr,
+          f"train --preset ssd300_voc_train_dp8 exited {refused.returncode} without "
+          f"{message!r}:\n{refused.stderr[-2000:]}")
+
+    nccl = nccl_step_timing(torch, np, m, cfg, work_dir)
+    print(json.dumps({"phase": "nccl_launch", "launcher": "torch.distributed.run",
+                      "backend": "nccl", "ranks": 1, "steps": steps, "seconds": launch_s,
+                      "losses": [r["loss"] for r in rows],
+                      "imgs_per_sec": [r["imgs_per_sec"] for r in rows],
+                      "imgs_per_sec_chip": [r["imgs_per_sec_chip"] for r in rows],
+                      "served_detections": len(served),
+                      "served_launches": launches["predict_checkpoint_nccl_trained"],
+                      "refused_with": message, **nccl, **where}))
+    return held["max_abs_err"]
+
+
+def nccl_step_timing(torch, np, m, cfg, work_dir: str) -> dict:
+    """The bs=32 bfloat16 step through an NCCL process group of one in this
+    process against the step without a mesh, same state, batch and draws,
+    NCCL_TIMED_STEPS host-clock steps each in the order plain, NCCL, NCCL,
+    plain; the difference is the cost of the collectives on one card."""
+    import torch.distributed as dist
+
+    from object_detector_tpu_torch.parallel.mesh import Mesh, shard_batch
+
+    cfg = cfg.override({"train.batch_size": TRAIN_BATCH})
+    dist.init_process_group("nccl", init_method=f"file://{work_dir}/nccl_rendezvous", rank=0,
+                            world_size=1)
+    try:
+        mesh = Mesh(dist.group.WORLD, 0, 1, torch.device("cuda", 0))
+        anchors = m.anchors_for_model("ssd", cfg.anchors, 300)
+        cache = m.DecodedCache(m.make_synthetic_dataset(num_images=TRAIN_BATCH, image_size=300),
+                               300, cfg.data.max_boxes, 4)
+        host = cache.gather(np.arange(TRAIN_BATCH))
+        model, st = m.init_model_state(cfg, seed=0, device="cuda")
+        steps = {
+            "plain": (m.make_train_step(cfg, model, anchors, device="cuda"),
+                      {k: torch.from_numpy(v).cuda() for k, v in host.items()}),
+            "nccl": (m.make_train_step(cfg, model, anchors, mesh=mesh),
+                     {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                      for k, v in shard_batch(mesh, host).items()}),
+        }
+        gen = torch.Generator().manual_seed(0)
+        times = {"plain": [], "nccl": []}
+        before = mesh.bytes_reduced
+        for kind in ("plain", "nccl", "nccl", "plain"):
+            fn, batch = steps[kind]
+            times[kind] += host_ms(torch, lambda: fn(st, batch, gen), NCCL_TIMED_STEPS)
+        bytes_a_step = (mesh.bytes_reduced - before) / (2 * (NCCL_TIMED_STEPS + 3))
+    finally:
+        dist.destroy_process_group()
+    med = {k: statistics.median(v) for k, v in times.items()}
+    return {"nccl_group_of_one_step_median_ms": med["nccl"],
+            "no_mesh_step_median_ms": med["plain"],
+            "collectives_cost_ms": med["nccl"] - med["plain"],
+            "nccl_step_ms": times["nccl"], "no_mesh_step_ms": times["plain"],
+            "nccl_bytes_all_reduced_a_step": bytes_a_step, "batch": TRAIN_BATCH}
 
 
 def _same_detections(torch, a, b) -> bool:

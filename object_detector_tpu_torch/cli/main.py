@@ -4,19 +4,22 @@
     python -m object_detector_tpu_torch predict  --preset ssd300_vgg16_voc --checkpoint ckpt/ --image dog.jpg --output out.jpg
     python -m object_detector_tpu_torch evaluate --preset ssd300_vgg16_voc --checkpoint ckpt/ --data-root /data/VOCdevkit [--int8]
 
-``train`` trains any preset's model on one device (SSD-300/VGG16,
-SSD-512/ResNet-50 and RetinaNet/FPN, the last two with BatchNorm batch
-statistics). ``predict`` serves the float model of any preset, or with
-``--int8`` the int8 engine (calibrated on 8 random images from a seed),
-with the weights of ``--checkpoint`` (a directory ``train`` wrote; the EMA
-weights if it holds them, with the running statistics) or random weights
-from a seed (smoke mode). ``evaluate`` sweeps a
-split (``--split``, default ``data.val_split``) through the float model or,
-with ``--int8``, the int8 engine, and prints the mAP dict of
-``eval.map_style``. ``train`` and ``evaluate`` read ``data.dataset``: VOC,
-COCO or the synthetic set. All three run on the card unless ``--device cpu``
-is given. Config fields are overridable with ``--set
-eval.score_threshold=0.05`` (repeatable).
+``train`` trains any preset's model (SSD-300/VGG16, SSD-512/ResNet-50 and
+RetinaNet/FPN, the last two with BatchNorm batch statistics), data-parallel
+over ``mesh.data_parallel`` devices: started by torchrun
+(``python -m torch.distributed.run --nproc_per_node 8 -m
+object_detector_tpu_torch train ...``) each process is one rank; started
+alone with ``mesh.data_parallel`` above 1 it spawns a process a card.
+``predict`` serves the float model of any preset, or with ``--int8`` the
+int8 engine (calibrated on 8 random images from a seed), with the weights
+of ``--checkpoint`` (a directory ``train`` wrote; the EMA weights if it
+holds them, with the running statistics) or random weights from a seed
+(smoke mode). ``evaluate`` sweeps a split (``--split``, default
+``data.val_split``) through the float model or, with ``--int8``, the int8
+engine, and prints the mAP dict of ``eval.map_style``. ``train`` and
+``evaluate`` read ``data.dataset``: VOC, COCO or the synthetic set. All
+three run on the card unless ``--device cpu`` is given. Config fields are
+overridable with ``--set eval.score_threshold=0.05`` (repeatable).
 """
 
 from __future__ import annotations
@@ -83,20 +86,31 @@ def _restore_variables(cfg: DetectorConfig, checkpoint_dir: str) -> Dict[str, to
 
 
 def cmd_train(args: argparse.Namespace) -> int:
+    import torch.distributed as dist
+
+    from object_detector_tpu_torch.parallel.mesh import maybe_init_distributed, world_size
     from object_detector_tpu_torch.train.loop import train
 
-    cfg = _load_config(args)
-    dataset = _load_dataset(cfg, cfg.data.train_split)
-    train(
-        cfg,
-        dataset,
-        num_steps=args.steps,
-        metrics_path=args.metrics,
-        resume=args.resume,
-        checkpoint_dir=args.checkpoint,
-        profile_dir=args.profile,
-        device=args.device,
-    )
+    made_group = maybe_init_distributed(args.device)
+    try:
+        cfg = _load_config(args)
+        # Too few devices for mesh.data_parallel fails here, before the
+        # dataset is read.
+        world_size(cfg.mesh.data_parallel, args.device)
+        dataset = _load_dataset(cfg, cfg.data.train_split)
+        train(
+            cfg,
+            dataset,
+            num_steps=args.steps,
+            metrics_path=args.metrics,
+            resume=args.resume,
+            checkpoint_dir=args.checkpoint,
+            profile_dir=args.profile,
+            device=args.device,
+        )
+    finally:
+        if made_group:
+            dist.destroy_process_group()
     return 0
 
 

@@ -9,6 +9,7 @@ the CPU tests import every module on hosts without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -74,9 +75,20 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile the named kernels (all by default) with ``nvcc``, one process
     per source, all started together. Returns each new build's compiler
     output (the ``-Xptxas -v`` register and shared-memory report); sources
-    already built are skipped."""
+    already built are skipped. Processes that build at once (the ranks of a
+    data-parallel run) take turns on a lock file, so each source is
+    compiled once."""
     names = list(SOURCES) if names is None else list(names)
+    if all(library_path(name).exists() for name in names):
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        # flock is released when the file closes or the process ends.
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build(names)
+
+
+def _build(names: List[str]) -> Dict[str, str]:
     jobs = {}
     for name in names:
         out = library_path(name)

@@ -4,12 +4,13 @@ hard-negative mining (both behind ``TrainConfig.use_focal``).
 The port of ``object_detector_tpu/losses/detection.py``. Inputs come from
 `ops.matching` targets: per-anchor class ids in {-1 ignore, 0 background,
 1..C} and encoded box offsets, batched (B, A, ...). Normalization is by the
-number of positive anchors in the batch.
+number of positive anchors in the batch: under data parallelism the global
+batch's, so that the ranks' losses sum to the global batch's loss.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -91,13 +92,24 @@ def detection_loss(
     smooth_l1_beta: float = 1.0,
     box_loss_weight: float = 1.0,
     negatives_per_positive: int = 3,
+    all_reduce: Optional[Callable[[Tensor], Tensor]] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Total scalar loss + metrics dict, computed in float32."""
+    """Total scalar loss + metrics dict, computed in float32.
+
+    With ``all_reduce`` (a SUM over the data-parallel ranks) the batch is
+    this rank's rows of a global batch: the positives are counted over the
+    global batch, clamped to at least 1 after the sum, and the losses and
+    their metrics are this rank's shares of the global batch's (their SUM
+    over the ranks). ``num_positives`` is the global count. Hard-negative
+    mining stays per image."""
     cls_logits = cls_logits.to(torch.float32)
     box_preds = box_preds.to(torch.float32)
     positive = cls_targets > 0
     valid = cls_targets >= 0  # ignore band excluded everywhere
-    num_pos = positive.sum().clamp_min(1).to(torch.float32)
+    num_pos = positive.sum()
+    if all_reduce is not None:
+        num_pos = all_reduce(num_pos)
+    num_pos = num_pos.clamp_min(1).to(torch.float32)
 
     if use_focal:
         per_anchor = sigmoid_focal_loss(cls_logits, cls_targets, focal_alpha, focal_gamma)

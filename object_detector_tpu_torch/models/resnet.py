@@ -16,7 +16,7 @@ in float32 on float32 parameters and rounded once to the activation's dtype.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +41,13 @@ class BatchNorm(nn.Module):
     input), as flax computes them (``use_fast_variance``): ``mean = E[x]``, ``var = max(E[x^2] - mean^2,
     0)``, the biased variance, differentiated through; and the running
     statistics move in place by `MOMENTUM`. ``torch.nn.BatchNorm2d`` would
-    keep the unbiased variance."""
+    keep the unbiased variance.
+
+    Under data parallelism the train step sets ``all_reduce`` (a
+    differentiable SUM over the ranks, `parallel.mesh.Mesh.all_reduce`) for
+    the length of its forward, as flax's ``axis_name``: the per-channel sums
+    of x and x^2 and the element count are then reduced in one collective,
+    and the moments are those of the global batch."""
 
     def __init__(self, channels: int, epsilon: float = 1e-5):
         super().__init__()
@@ -50,14 +56,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.epsilon = epsilon
+        self.all_reduce: Optional[Callable[[Tensor], Tensor]] = None
 
     def forward(self, x: Tensor) -> Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 training=False, eps=self.epsilon)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean((0, 2, 3))
-        var = torch.clamp_min(xf.square().mean((0, 2, 3)) - mean.square(), 0.0)
+        if self.all_reduce is None:
+            mean, mean_sq = xf.mean((0, 2, 3)), xf.square().mean((0, 2, 3))
+        else:
+            count = xf.new_full((1,), xf.numel() // xf.shape[1])
+            total = self.all_reduce(
+                torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)), count]))
+            mean, mean_sq = (total[:-1] / total[-1]).chunk(2)
+        var = torch.clamp_min(mean_sq - mean.square(), 0.0)
         with torch.no_grad():
             for running, batch in ((self.running_mean, mean), (self.running_var, var)):
                 running.mul_(MOMENTUM).add_(batch, alpha=1.0 - MOMENTUM)

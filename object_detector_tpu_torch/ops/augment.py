@@ -332,6 +332,19 @@ def draw_augment(
     )
 
 
+def take_rows(params: AugmentParams, rows: slice) -> AugmentParams:
+    """The draws of some images of a batch. Every draw is made for the
+    whole batch at once, one value (or rect) per image and each image's from
+    its own boxes, so the rows of a batch's draws are what a process that
+    drew for the whole batch gives those images: data-parallel ranks draw
+    for the global batch and each takes its rows."""
+    return AugmentParams(
+        photometric=PhotometricParams(*(t[rows] for t in params.photometric)),
+        rect=params.rect[rows],
+        flip=params.flip[rows],
+    )
+
+
 def apply_augment(
     images_u8: Tensor, boxes: Tensor, labels: Tensor, valid: Tensor, params: AugmentParams,
     out_size: int,

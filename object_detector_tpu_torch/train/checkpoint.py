@@ -9,6 +9,11 @@ and renamed (so there is nothing to wait for or close). A checkpoint
 written before the statistics were kept holds none: it restores a model
 without BatchNorm (SSD-300/VGG16) and is refused for one with. The
 reference's orbax checkpoints are not read.
+
+Under data parallelism every rank holds the same state, so only rank 0
+writes (``mesh``), every rank waits for it at a barrier after each save,
+and every rank restores, after a barrier, from the same file. A
+data-parallel run's checkpoint is the same file as a one-device run's.
 """
 
 from __future__ import annotations
@@ -19,17 +24,20 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from object_detector_tpu_torch.parallel.mesh import Mesh
 from object_detector_tpu_torch.train.state import TrainState
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, save_every: int = 1000):
+    def __init__(self, directory: str, keep: int = 3, save_every: int = 1000,
+                 mesh: Optional[Mesh] = None):
         self._dir = os.path.abspath(directory)
         os.makedirs(self._dir, exist_ok=True)
         self._keep = keep
         self._save_every = max(1, save_every)
+        self._mesh = mesh
 
     def _steps(self) -> List[int]:
         return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self._dir)) if m)
@@ -46,13 +54,23 @@ class CheckpointManager:
         force: bool = False,
     ) -> bool:
         """Save if the retention policy wants this step (a multiple of the
-        interval, or ``force``) and it is not on disk already."""
+        interval, or ``force``) and it is not on disk already. Under a mesh
+        every rank calls it and rank 0 alone writes; returns whether this
+        process wrote."""
         if step is None:
             step = state.step
-        if self.latest_step() == step:
-            return False  # e.g. the final forced save after an interval save
         if not force and step % self._save_every:
             return False
+        wrote = (self._mesh is None or self._mesh.rank == 0) and self._write(
+            state, generator, data_step, step)
+        if self._mesh is not None:
+            self._mesh.barrier()
+        return wrote
+
+    def _write(self, state: TrainState, generator: torch.Generator, data_step: int,
+               step: int) -> bool:
+        if self.latest_step() == step:
+            return False  # e.g. the final forced save after an interval save
         cpu = lambda tree: {k: v.detach().cpu() for k, v in tree.items()}  # noqa: E731
         payload = {
             "step": state.step,
@@ -81,6 +99,8 @@ class CheckpointManager:
     ) -> Optional[Tuple[TrainState, torch.Generator, int]]:
         """The latest checkpoint copied into the template's tensors (on
         their device) and generator, or None if there is none."""
+        if self._mesh is not None:
+            self._mesh.barrier()
         step = self.latest_step()
         if step is None:
             return None

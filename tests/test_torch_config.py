@@ -226,6 +226,7 @@ import object_detector_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 names.remove("object_detector_tpu_torch.__main__")
 assert "object_detector_tpu_torch.models.retinanet" in names
+assert "object_detector_tpu_torch.parallel.mesh" in names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -241,7 +242,8 @@ def test_port_imports_no_jax_and_no_reference():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 44  # the training, ResNet and RetinaNet modules among them
+    # The training, ResNet, RetinaNet and data-parallel modules among them.
+    assert int(out.stdout.strip()) >= 46
 
 
 def test_entry_points_default_to_cuda():

@@ -59,11 +59,22 @@ def test_batch_size_above_the_dataset_surfaces_the_value_error(tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
+    """Data parallelism is ported: mesh.data_parallel=8 on a host without 8
+    devices raises the reference's error (parallel/mesh.py:58-62), in
+    train() and in the command before it reads the dataset."""
+    cards = torch.cuda.device_count()
+    if cards >= 8:
+        pytest.skip("this host has 8 CUDA devices; this checks the refusal with fewer")
     ds = make_synthetic_dataset(num_images=8, image_size=64)
-    cfg = config.get_config("tiny_test")
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        train(cfg.override({"mesh.data_parallel": 8}), ds, num_steps=1,
-              checkpoint_dir=str(tmp_path), device="cpu")
+    cfg = config.get_config("tiny_test").override({"mesh.data_parallel": 8})
+    message = f"requested 8-way data parallelism but only {cards} devices"
+    with pytest.raises(ValueError, match=message):
+        train(cfg, ds, num_steps=1, checkpoint_dir=str(tmp_path), device="cuda")
+    # The preset's VOC root does not exist here: the refusal comes first.
+    with pytest.raises(ValueError, match=message):
+        main(["train", "--preset", "ssd300_voc_train_dp8", "--steps", "1",
+              "--checkpoint", str(tmp_path)])
+    assert not os.listdir(tmp_path)
     # The VOC reader runs: with no data.root it finds no split file.
     with pytest.raises(FileNotFoundError, match="trainval.txt") as exc:
         main(["train", "--preset", "ssd300_vgg16_voc", "--device", "cpu", "--steps", "1",
