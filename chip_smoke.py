@@ -219,7 +219,30 @@ Phases, each fatal on failure:
      that `predict --checkpoint` serves (B1 once, held on its rows); the
      preset unmodified refused with the reference's "requested 8-way data
      parallelism but only 1 devices"; the step through an NCCL group of
-     one timed against the step without a mesh at bs=32, in turns.
+     one timed against the step without a mesh at bs=32, in turns;
+ 39. hold the NMS scan's bfloat16-coordinate instantiation (the
+     reference's coord_bf16) bit-equal to its plain version at the serving
+     paths' shapes (1280, 5120, 80 and 20 rows of 512 columns; 5120 rows of
+     class_top_k's 256 and 128), at k = 1, at a threshold whose bfloat16
+     t / (1 + t) rounds through float32, and on its block route through
+     per_class_nms_batched (80 rows of 896);
+ 40. the serving knobs, each alone and all together (per_level_heads,
+     nms_class_top_k 256 and 128, nms_packed_sort, nms_coord_bf16), on
+     int8 ssd512_resnet50_coco, retinanet_fpn_coco and ssd300_infer_bs64
+     (B4) at bs=64 through make_int8_predict_fn: the launches a forward (one
+     scan of the instantiation the coordinates pick), the scan held
+     bit-equal to its plain version on each path's own rows with the
+     detections through it equal to the plain path's, the per-level
+     detection set equal to the concat path's, each knob's Jaccard index
+     against the default path, the trunk kernels (B6 and B7, or B4 and B3)
+     held on the knob path's inputs, img/s of each knob in turns with the
+     default path, and the scan timed on each path's rows;
+ 41. model.remat_block1 on the ssd300_vgg16_voc bs=32 training step (bf16,
+     augmentation and the pool kernel on): three steps with and without it
+     from the same weights, seed and batch with cuDNN deterministic, the
+     losses and parameters no further apart than two runs without it, 4
+     pool-kernel launches a step either way, the peak memory of a step and
+     the step ms in turns.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -279,9 +302,9 @@ OVERFIT_STEPS, OVERFIT_LR, OVERFIT_FALL = 60, 2e-3, 0.8
 # (ODT_STEM_FP=0): conv1_1 through the engine's int8 conv, then B2.
 INT8_PATH_KERNELS = ("nms_rows", "stem_conv12_pool", "l2norm_requant")
 # Launches of one int8 SSD-300 forward with B4 selected (ODT_STEM_FP=1).
-STEM_FP_LAUNCHES = {"nms_rows": 1, "stem_conv12_pool": 0, "l2norm_requant": 1,
-                    "max_pool_bwd": 0, "resnet_stem": 0, "fused_bottleneck": 0,
-                    "stem_fused_producer": 1}
+STEM_FP_LAUNCHES = {"nms_rows": 1, "nms_rows_bf16": 0, "stem_conv12_pool": 0,
+                    "l2norm_requant": 1, "max_pool_bwd": 0, "resnet_stem": 0,
+                    "fused_bottleneck": 0, "stem_fused_producer": 1}
 # The evaluate phase: the synthetic set's 64 images at eval.batch_size=48 are
 # two batches, the second overlapping the first by 32 rows.
 EVAL_BATCH, EVAL_IMAGES = 48, 64
@@ -291,8 +314,8 @@ EVAL_TRAIN_STEPS = 100
 # bottleneck kernel for blocks 2 and later of the four stages (2 + 3 + 5 + 2),
 # the NMS scan once; no kernel of the VGG path.
 RESNET_INT8_LAUNCHES = {"resnet_stem": 1, "fused_bottleneck": 12, "nms_rows": 1,
-                        "stem_conv12_pool": 0, "l2norm_requant": 0, "max_pool_bwd": 0,
-                        "stem_fused_producer": 0}
+                        "nms_rows_bf16": 0, "stem_conv12_pool": 0, "l2norm_requant": 0,
+                        "max_pool_bwd": 0, "stem_fused_producer": 0}
 # (C, Cm, H = W) of the bottleneck kernel's inputs at 512 px, with the number
 # of blocks of each stage that run it.
 RESNET_BLOCKS = ((256, 64, 128, 2), (512, 128, 64, 3), (1024, 256, 32, 5), (2048, 512, 16, 2))
@@ -470,23 +493,34 @@ SASS_OPS = ("IMMA", "IDP4A", "LDSM", "LDGSTS", "BAR", "SHFL", "REDUX")
 
 
 def kernel_name(mangled: str) -> str:
-    """The kernel's own name in a mangled symbol, with its template argument
-    (the length-prefixed component that ends in "_kernel", then "ILi<n>E")."""
+    """The kernel's own name in a mangled symbol, with its template arguments
+    (the length-prefixed component that ends in "_kernel", then "I...E":
+    integer literals "Li<n>E", "f" for float and length-prefixed type
+    names), as in "nms_rows_kernel<__nv_bfloat16,16>"."""
     import re
 
     for m in re.finditer(r"\d+", mangled):
         for i in range(len(m.group())):  # a hash's digits may run into the length
             name = mangled[m.end():m.end() + int(m.group()[i:])]
             if name.endswith("_kernel"):
-                arg = re.match(r"ILi(\d+)E", mangled[m.end() + len(name):])
-                return name + (f"<{arg.group(1)}>" if arg else "")
+                pos, args = m.end() + len(name), []
+                if mangled.startswith("I", pos):  # the template argument list, up to its "E"
+                    pos += 1
+                    while arg := re.match(r"Li(\d+)E|f|(\d+)", mangled[pos:]):
+                        pos += arg.end()
+                        if arg.group(2):  # a type's name, its length first
+                            args.append(mangled[pos:pos + int(arg.group(2))])
+                            pos += int(arg.group(2))
+                        else:
+                            args.append(arg.group(1) or "float")
+                return name + (f"<{','.join(args)}>" if args else "")
     return mangled
 
 
 def sass_counts(library: str) -> dict:
     """{kernel: {opcode: count}} for each kernel function of a built
     library, from `cuobjdump -sass` (kernel names shortened to the
-    function and its template argument)."""
+    function and its template arguments)."""
     import re
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -517,13 +551,16 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def nms_bound_ms(scores_out, rows: int, k: int, max_out: int):
-    """Least time for the NMS scan on these inputs: bytes (5 planes read once,
-    2 outputs written once) over HBM bandwidth, against the float32
+def nms_bound_ms(scores_out, rows: int, k: int, max_out: int, coord_bytes: int = 4):
+    """Least time for the NMS scan on these inputs: bytes (4 coordinate
+    planes of ``coord_bytes`` a value and the float32 scores read once, 2
+    outputs written once) over HBM bandwidth, against the float32
     operations this data needs (each row runs its valid emits plus the one
-    step that finds nothing, at most max_out) over the float32 peak."""
+    step that finds nothing, at most max_out) over the float32 peak. The
+    bfloat16 instantiation does the same operations, each in float32 and
+    then rounded."""
     steps = (scores_out > 0).sum(dim=1).add(1).clamp(max=max_out).sum().item()
-    bytes_moved = 5 * rows * k * 4 + rows * max_out * 8
+    bytes_moved = 4 * rows * k * coord_bytes + rows * k * 4 + rows * max_out * 8
     ops = NMS_OPS_PER_COLUMN_STEP * k * steps + NMS_OPS_PER_COLUMN_HOISTED * rows * k
     return bound(bytes_moved, ops, F32_OPS_PER_S)
 
@@ -535,8 +572,9 @@ def nms_timing(torch, nms_kernel, held: dict, plain_iters: int) -> dict:
     and the bound from the rows each row really ran."""
     coords, scores, kwargs = held["coords"], held["scores"], held["kwargs"]
     rows, k = scores.shape
-    bound_ms, bound_by = nms_bound_ms(held["kernel_scores"], rows, k, kwargs["max_out"])
-    return {"rows": rows, "k": k, "max_out": kwargs["max_out"],
+    bound_ms, bound_by = nms_bound_ms(held["kernel_scores"], rows, k, kwargs["max_out"],
+                                      coords.element_size())
+    return {"rows": rows, "k": k, "max_out": kwargs["max_out"], "coords": str(coords.dtype),
             "ms": graph_ms(torch, lambda: nms_kernel.nms_rows(coords, scores, **kwargs), 20),
             "plain_ms": cuda_ms(
                 torch, lambda: nms_kernel.nms_rows_reference(coords, scores, **kwargs), plain_iters),
@@ -801,9 +839,11 @@ def main() -> int:
     # The counter sees __dp4a where a kernel has it: the L2Norm's sum of squares.
     check(all(c["IDP4A"] > 0 for c in sass["l2norm"].values()),
           f"no IDP4A counted in the L2Norm's SASS: {sass['l2norm']}")
-    warp_routes = {fn: c for fn, c in sass["nms"].items() if fn.startswith("nms_rows_kernel<")}
-    check(len(warp_routes) == 5 and all(c["BAR"] == 0 for c in warp_routes.values()),
-          f"the NMS scan's warp route is not five barrier-free kernels: {warp_routes}")
+    for prefix in ("nms_rows_kernel<float,", "nms_rows_kernel<__nv_bfloat16,"):
+        warp_routes = {fn: c for fn, c in sass["nms"].items() if fn.startswith(prefix)}
+        check(len(warp_routes) == 5 and all(c["BAR"] == 0 for c in warp_routes.values()),
+              f"the NMS scan's warp route ({prefix}) is not five barrier-free kernels: "
+              f"{warp_routes}")
     print(json.dumps({"phase": "dynamic_smem_bytes", "resnet_stem": resnet_stem.smem_bytes(),
                       "nms_rows_warp_route_block_at_k512": 4 * 512 * 16,
                       "nms_rows_block_route_per_column": 24,
@@ -815,13 +855,14 @@ def main() -> int:
     # The NMS scan: the four kinds at the SSD-300 bs=64 shape, the bs=1
     # paths' 20 and 80 rows and SSD-512 bs=64's 5120; k = 1, a k that is not
     # a multiple of 32, the warp route's widest row and the block route's
-    # narrowest, and the widest row the wrapper takes.
+    # narrowest, the block route's 48 KB of dynamic shared memory (2048
+    # columns) and the widest row the wrapper takes.
     max_abs_err = 0.0
     widest = nms_kernel.WARP_ROUTE_MAX_K
     nms_cases = [("dense", R, K), ("sparse", R, K), ("ties", R, K), ("negative", R, K),
                  ("dense", 20, K), ("dense", 80, K), ("dense", 5120, K), ("dense", 64, 1),
                  ("ties", 64, 100), ("dense", 64, widest), ("dense", 64, widest + 1),
-                 ("dense", 16, nms_kernel.MAX_K)]
+                 ("dense", 16, 2048), ("dense", 16, nms_kernel.MAX_K)]
     for i, (case, rows, k) in enumerate(nms_cases):
         coords, scores = rows_case(np, torch, case, seed=i, rows=rows, k=k)
         kw = dict(max_out=min(MAX_OUT, k), iou_threshold=0.45, score_threshold=0.01)
@@ -1647,6 +1688,21 @@ def main() -> int:
     pool_err = max(pool_err, dp["pool_err"])
     max_abs_err = max(max_abs_err, dp["nms_err"])
 
+    # 39 to 41. The serving knobs of the B1 path, and remat_block1.
+    nms_bf16_err = nms_bf16_phase(torch, np, nms_kernel, where)
+    rn_mods.__dict__.update(stem=stem, l2norm=l2norm, stem_fp=stem_fp)
+    kn = knob_phases(torch, np, rn_mods, counted, launches, where)
+    max_abs_err = max(max_abs_err, kn["nms_err"])
+    nms_bf16_err = max(nms_bf16_err, kn["nms_bf16_err"])
+    stem_fp_err = max(stem_fp_err, kn["stem_fp_err"])
+    l2norm_err = max(l2norm_err, kn["l2norm_err"])
+    rstem_err = max(rstem_err, kn["stem_err"])
+    bott_err = max(bott_err, kn["bottleneck_err"])
+    remat_phase(torch, np, rn_mods, counted, launches, where)
+    bf16_at = {preset: {name: t[name] for name in ("default", "coord_bf16", "all")}
+               for preset, t in kn["timing"].items()}
+    bf16_300 = kn["timing"]["ssd300_infer_bs64"]["coord_bf16"]
+
     def counts(name: str) -> dict:
         return {"launches": sum(c[name] for c in launches.values()),
                 "launches_by_path": {path: c[name] for path, c in launches.items()}}
@@ -1671,6 +1727,31 @@ def main() -> int:
             "at_rows": {"20": nms20, "80": nms80, "1280": nms1280, "5120": nms512,
                         "retinanet_5120": rn["nms_5120"], "retinanet_5120_int8": rn["nms_5120_int8"],
                         "retinanet_80": rn["nms_80"]},
+            "class_top_k_rows": {preset: {name: t[name] for name in ("class_top_k_256",
+                                                                    "class_top_k_128")}
+                                 for preset, t in kn["timing"].items()},
+        },
+        {
+            "name": "nms_rows_bf16",
+            "route": "cuda",
+            "source": "object_detector_tpu_torch/csrc/nms.cu",
+            "replaces": "object_detector_tpu/kernels/nms_pallas.py:61",
+            **counts("nms_rows_bf16"),
+            "max_abs_err": nms_bf16_err,
+            "ms": bf16_300["ms"],
+            "plain_ms": bf16_300["plain_ms"],
+            "bound_ms": bf16_300["bound_ms"],
+            "bound_by": bf16_300["bound_by"],
+            "library_ms": None,
+            "library_none_because": "no single PyTorch call computes a greedy NMS scan, in "
+                                    "bfloat16 coordinates or any other type (torchvision's nms "
+                                    "is another package, suppresses one float box set at a "
+                                    "time and has no emit cap)",
+            "times_are": "the bfloat16-coordinate instantiation of the scan (coord_bf16) on the "
+                         "int8 SSD-300 bs=64 path's own 1280 rows of 512 columns; at_rows: each "
+                         "phase-40 preset's float32 default, coord_bf16 and all-knobs rows "
+                         "(128 columns); kernel ms by CUDA graph replay",
+            "at_rows": bf16_at,
         },
         {
             "name": "stem_conv12_pool",
@@ -3297,12 +3378,14 @@ DP_F64_TOL = {"params": (1e-5, 2e-6), "ema": (1e-5, 2e-6), "stats": (1e-4, 1e-4)
 
 
 def kernel_wrappers() -> dict:
-    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    """Each kernel's wrapper, whose ``launches`` counts its launches (the NMS
+    scan's two instantiations apart)."""
     from object_detector_tpu_torch.kernels import (
         bottleneck, l2norm, nms, pool_bwd, resnet_stem, stem, stem_fp,
     )
 
-    return {"nms_rows": nms.nms_rows, "stem_conv12_pool": stem.stem_conv12_pool,
+    return {"nms_rows": nms.nms_rows, "nms_rows_bf16": nms.nms_rows.bf16,
+            "stem_conv12_pool": stem.stem_conv12_pool,
             "l2norm_requant": l2norm.l2norm_requant, "max_pool_bwd": pool_bwd.max_pool_bwd,
             "resnet_stem": resnet_stem.resnet_stem, "fused_bottleneck": bottleneck.fused_bottleneck,
             "stem_fused_producer": stem_fp.stem_fused_producer}
@@ -3786,19 +3869,351 @@ def nccl_step_timing(torch, np, m, cfg, work_dir: str) -> dict:
             "nccl_bytes_all_reduced_a_step": bytes_a_step, "batch": TRAIN_BATCH}
 
 
+# ---------------------------------------------------------------------------
+# Phases 39 to 41: the serving knobs of the B1 path, and remat_block1.
+# ---------------------------------------------------------------------------
+
+# An IoU threshold whose bfloat16 t / (1 + t) is rounded through float32 (as
+# the reference's ml_dtypes scalar is) to 0.125, where double -> bfloat16
+# would give 0.1259765625.
+IOU_DOUBLE_ROUNDING = 0.1434952540480179
+# Phase 40's serving configurations (int8, bs=64, B4 for SSD-300) and the
+# knobs, each alone and all together; "default" is the presets' own path.
+KNOB_PRESETS = ("ssd512_resnet50_coco", "retinanet_fpn_coco", "ssd300_infer_bs64")
+KNOB_VARIANTS = (
+    ("default", {}),
+    ("per_level_heads", {"eval.per_level_heads": True}),
+    ("class_top_k_256", {"eval.nms_class_top_k": 256}),
+    ("class_top_k_128", {"eval.nms_class_top_k": 128}),
+    ("packed_sort", {"eval.nms_packed_sort": True}),
+    ("coord_bf16", {"eval.nms_coord_bf16": True}),
+    ("all", {"eval.per_level_heads": True, "eval.nms_class_top_k": 128,
+             "eval.nms_packed_sort": True, "eval.nms_coord_bf16": True}),
+)
+# Phase 41: training steps compared with and without remat_block1, and the
+# steps timed in each of four turns.
+REMAT_STEPS, REMAT_TIMED_STEPS = 3, 10
+
+
+def nms_bf16_phase(torch, np, nms_kernel, where) -> float:
+    """Phase 39: the scan's bfloat16-coordinate instantiation bit-equal to
+    its plain version (the same emit loop in bfloat16 on the card) at the
+    serving paths' shapes: SSD-300 bs=64's 1280 rows and SSD-512's and
+    RetinaNet's 5120, of 512 columns, and at class_top_k's 256 and 128; the
+    bs=1 paths' 20 and 80 rows; k = 1; a threshold whose bfloat16 t rounds
+    through float32; and the block route (rows of 896) through
+    per_class_nms_batched at pre_nms_top_k=400 on SSD-300's 8732 anchors.
+    The paths' own rows are held in phase 40. Returns the largest score
+    difference (0.0)."""
+    err = 0.0
+    cases = [("dense", R, K, 0.45), ("sparse", R, K, 0.45), ("ties", R, K, 0.45),
+             ("negative", R, K, 0.45), ("dense", 5120, K, 0.45), ("dense", 5120, 256, 0.5),
+             ("dense", 5120, 128, 0.45), ("dense", 20, K, 0.45), ("dense", 80, K, 0.45),
+             ("dense", 64, 1, 0.45), ("dense", 256, 256, IOU_DOUBLE_ROUNDING)]
+    for i, (kind, rows, k, iou) in enumerate(cases):
+        coords, scores = rows_case(np, torch, kind, seed=390 + i, rows=rows, k=k)
+        coords = coords.to(torch.bfloat16)
+        kw = dict(max_out=min(MAX_OUT, k), iou_threshold=iou, score_threshold=0.01)
+        got_s, got_c = nms_kernel.nms_rows(coords, scores, **kw)
+        torch.cuda.synchronize()
+        want_s, want_c = nms_kernel.nms_rows_reference(coords, scores, **kw)
+        e = (got_s - want_s).abs().max().item()
+        err = max(err, e)
+        check(torch.equal(got_s, want_s) and torch.equal(got_c, want_c),
+              f"the bf16 nms kernel differs from its plain version ({kind}, {rows} x {k}, iou "
+              f"{iou}): max_abs_err {e}, {int((got_c != want_c).sum())} columns differ")
+        print(json.dumps({"phase": "nms_bf16_kernel_vs_plain", "case": kind, "rows": rows, "k": k,
+                          "iou_threshold": iou, "route": "warp", "bit_equal": True,
+                          "emitted": int((got_s > 0).sum()), **where}))
+    # The block route, on the rows per_class_nms_batched gives the scan.
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    xy = torch.rand((4, 8732, 2), generator=gen, device="cuda") * 0.9
+    boxes = torch.cat([xy, (xy + 0.05 + 0.25 * torch.rand((4, 8732, 2), generator=gen,
+                                                           device="cuda")).clamp(max=1.0)], -1)
+    scores = torch.rand((4, 8732, 20), generator=gen, device="cuda") ** 6
+    captured = {}
+
+    def capture(coords, scores, **kwargs):
+        captured.update(coords=coords, scores=scores, kwargs=kwargs)
+        return nms_kernel.nms_rows(coords, scores, **kwargs)
+
+    kw = dict(pre_nms_top_k=400, coord_bf16=True, max_detections=200, max_per_class=100)
+    det_k = nms_kernel.per_class_nms_batched(boxes, scores, rows_fn=capture, **kw)
+    det_p = nms_kernel.per_class_nms_batched(boxes, scores,
+                                             rows_fn=nms_kernel.nms_rows_reference, **kw)
+    coords, rows_scores = captured["coords"], captured["scores"]
+    check(coords.dtype == torch.bfloat16 and tuple(rows_scores.shape) == (80, 896),
+          f"per_class_nms_batched gave the scan {coords.dtype} rows {tuple(rows_scores.shape)}")
+    got_s, got_c = nms_kernel.nms_rows(coords, rows_scores, **captured["kwargs"])
+    want_s, want_c = nms_kernel.nms_rows_reference(coords, rows_scores, **captured["kwargs"])
+    torch.cuda.synchronize()
+    check(torch.equal(got_s, want_s) and torch.equal(got_c, want_c) and
+          _same_detections(torch, det_k, det_p),
+          "the bf16 nms kernel's block route differs from its plain version on "
+          "per_class_nms_batched's rows")
+    print(json.dumps({"phase": "nms_bf16_kernel_vs_plain", "case": "per_class_nms_batched",
+                      "rows": 80, "k": 896, "route": "block", "bit_equal": True,
+                      "detections": int(det_k.valid.sum()), **where}))
+    return err
+
+
+def hold_knob_nms(torch, m, predict8, cfg, images, anchors_np, label):
+    """A knob path's heads on ``images`` through the same QuantParams as
+    ``predict8`` (concatenated, or per level with eval.per_level_heads), and
+    its decode + NMS (`decode_nms` or `decode_nms_levels`) with the settings
+    of ``cfg``, capturing the rows that reach the scan. Holds the kernel
+    bit-equal to its plain version on those rows and the detections through
+    the kernel equal to those through the plain version. Returns the
+    captured rows with the kernel's scores, the largest score difference and
+    the detections."""
+    nms_kernel = m.nms_kernel
+    per_level = cfg.eval.per_level_heads
+    forward = (m.engine.retinanet_int8_forward if cfg.model.family == "retinanet"
+               else m.engine.int8_forward)
+    captured = {}
+
+    def capture(coords, scores, **kwargs):
+        captured.update(coords=coords, scores=scores, kwargs=kwargs)
+        return nms_kernel.nms_rows(coords, scores, **kwargs)
+
+    with torch.inference_mode():
+        x = m.normalize(images.float() / 255.0)
+        cls, box = forward(predict8.qp, predict8.spec, cfg, x, concat_heads=not per_level)
+        anchors = torch.from_numpy(anchors_np).cuda()
+        kw = _decode_kwargs(cfg)
+        if per_level:
+            levels = (cls, [t.float() for t in box], anchors, tuple(cfg.anchors.anchors_per_level))
+            det_k = nms_kernel.decode_nms_levels(*levels, rows_fn=capture, **kw)
+            det_p = nms_kernel.decode_nms_levels(*levels, rows_fn=nms_kernel.nms_rows_reference,
+                                                 **kw)
+        else:
+            det_k = nms_kernel.decode_nms(cls, box.float(), anchors, rows_fn=capture, **kw)
+            det_p = nms_kernel.decode_nms(cls, box.float(), anchors,
+                                          rows_fn=nms_kernel.nms_rows_reference, **kw)
+        coords, scores, kwargs = captured["coords"], captured["scores"], captured["kwargs"]
+        got_s, got_c = nms_kernel.nms_rows(coords, scores, **kwargs)
+        want_s, want_c = nms_kernel.nms_rows_reference(coords, scores, **kwargs)
+    torch.cuda.synchronize()
+    err = (got_s - want_s).abs().max().item()
+    check(torch.equal(got_s, want_s) and torch.equal(got_c, want_c),
+          f"{label}: the {coords.dtype} nms kernel differs from its plain version on the path's "
+          f"rows {tuple(scores.shape)}: max_abs_err {err}, {int((got_c != want_c).sum())} "
+          "columns differ")
+    check(_same_detections(torch, det_k, det_p),
+          f"{label}: detections through the kernel differ from the plain path")
+    captured.update(kernel_scores=got_s, max_abs_err=err, detections=det_k)
+    return captured
+
+
+def _detection_set(det) -> set:
+    """(image, class, score, box) of every valid detection."""
+    valid = det.valid.cpu().numpy()
+    classes, scores = det.classes.cpu().numpy(), det.scores.cpu().numpy()
+    boxes = det.boxes.cpu().numpy()
+    return {(int(b), int(classes[b, i]), float(scores[b, i]), tuple(boxes[b, i].tolist()))
+            for b, i in zip(*valid.nonzero())}
+
+
+def _jaccard(a: set, b: set) -> float:
+    return len(a & b) / max(len(a | b), 1)
+
+
+def knob_phases(torch, np, m, counted, launches, where) -> dict:
+    """Phase 40: each serving knob alone and all together on int8
+    ssd512_resnet50_coco, retinanet_fpn_coco and ssd300_infer_bs64 (B4) at
+    bs=64, through make_int8_predict_fn: one scan launch of the instantiation
+    the coordinates' dtype picks and the trunk's kernels a forward; the scan
+    held bit-equal to its plain version on each path's own rows (512, 256 or
+    128 columns, float32 or bfloat16) with the detections through it equal
+    to the plain path's; per_level_heads' detection set equal to the concat
+    path's; the Jaccard index of each knob's set against the default's;
+    B6 and B7 (ResNet) or B4 and B3 (SSD-300) held on the path's inputs with
+    the knobs on; img/s of each knob in turns with the default path; the scan
+    timed on each path's rows (both instantiations at 512 columns, and at
+    class_top_k's widths). Returns the scan's largest differences by dtype
+    and its timings."""
+    out = {"nms_err": 0.0, "nms_bf16_err": 0.0, "timing": {}, "stem_fp_err": 0, "l2norm_err": 0,
+           "stem_err": 0, "bottleneck_err": 0}
+    rng = np.random.default_rng(40)
+    for preset in KNOB_PRESETS:
+        t0 = time.perf_counter()
+        cfg0 = m.get_config(preset)
+        resnet = cfg0.model.backbone == "resnet50"
+        params = m.init_params(m.build_model(cfg0), seed=0, random_batch_stats=resnet).state_dict()
+        size = cfg0.model.image_size
+        calib = rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)
+        images = torch.from_numpy(rng.integers(0, 256, (64, size, size, 3), dtype=np.uint8)).cuda()
+        anchors_np = m.anchors_for_model(cfg0.model.family, cfg0.anchors, size)
+        want_base = RESNET_INT8_LAUNCHES if resnet else STEM_FP_LAUNCHES
+        report, dets, paths = {}, {}, {}
+        for name, overrides in KNOB_VARIANTS:
+            cfg = cfg0.override(overrides)
+            predict = m.make_int8_predict_fn(cfg, params, anchors_np, calib, device="cuda")
+            det, got = counted(lambda: predict(images))
+            bf16 = cfg.eval.nms_coord_bf16
+            want = {**want_base, "nms_rows": int(not bf16), "nms_rows_bf16": int(bf16)}
+            path = f"knobs_{preset}_{name}"
+            launches[path] = got
+            check(got == want, f"{path} launched {got}, expected {want}")
+            held = hold_knob_nms(torch, m, predict, cfg, images, anchors_np, path)
+            check(_same_detections(torch, det, held["detections"]),
+                  f"{path}: the served detections differ from the held decode's")
+            key = "nms_bf16_err" if bf16 else "nms_err"
+            out[key] = max(out[key], held["max_abs_err"])
+            dets[name] = _detection_set(det)
+            paths[name] = (predict, cfg, held)
+            report[name] = {"launches": got, "scan_rows": list(held["scores"].shape),
+                            "coords": str(held["coords"].dtype), "detections": len(dets[name]),
+                            "kernel_vs_plain_bit_equal": True}
+        check(dets["per_level_heads"] == dets["default"],
+              f"{preset}: the per-level path's detection set differs from the concat path's")
+        for name in report:
+            report[name]["jaccard_vs_default"] = _jaccard(dets[name], dets["default"])
+        # The trunk's kernels on this path's inputs with the knobs on.
+        if resnet:
+            predict, cfg, _ = paths["coord_bf16"]
+            trunk = hold_resnet_int8_path(torch, m.engine, m.resnet_stem, m.bottleneck,
+                                          m.postprocess, m.normalize, predict, images,
+                                          anchors_np, cfg)
+            out["stem_err"] = max(out["stem_err"], trunk["stem_err"])
+            out["bottleneck_err"] = max(out["bottleneck_err"], trunk["bottleneck_err"])
+        else:
+            predict, cfg, _ = paths["all"]
+            trunk = hold_int8_path(torch, m.engine, m.stem, m.l2norm, m.postprocess, m.normalize,
+                                   predict, images, anchors_np, cfg, stem_fp=m.stem_fp)
+            out["stem_fp_err"] = max(out["stem_fp_err"], trunk["stem_err"])
+            out["l2norm_err"] = max(out["l2norm_err"], trunk["l2norm_err"])
+        out["nms_bf16_err"] = max(out["nms_bf16_err"], trunk["nms_err"])
+        # img/s of each knob in turns with the default path.
+        default = paths["default"][0]
+        for name, (predict, _, _) in paths.items():
+            if name == "default":
+                continue
+            turns = [host_ms(torch, lambda f=f: f(images), 5)
+                     for f in (default, predict, predict, default)]
+            report[name]["img_per_s"] = 64e3 / statistics.median(turns[1] + turns[2])
+            report[name]["default_img_per_s"] = 64e3 / statistics.median(turns[0] + turns[3])
+        # The scan on this path's own rows: both instantiations at 512
+        # columns, then class_top_k's widths.
+        timing = {}
+        for name in ("default", "coord_bf16", "class_top_k_256", "class_top_k_128", "all"):
+            timing[name] = nms_timing(torch, m.nms_kernel, paths[name][2], 1)
+        out["timing"][preset] = timing
+        print(json.dumps({"phase": "knobs", "preset": preset, "batch": 64, "variants": report,
+                          "scan_timing": timing, "seconds": time.perf_counter() - t0, **where}))
+        del paths, params, images
+        torch.cuda.empty_cache()
+    return out
+
+
+def remat_phase(torch, np, m, counted, launches, where) -> dict:
+    """Phase 41: model.remat_block1 on the ssd300_vgg16_voc bs=32 training step
+    (bf16, augmentation on, model.pool_grad_kernel=True), with and without
+    the flag from the same weights, seed and batch: REMAT_STEPS steps each
+    with cuDNN deterministic, the losses and the parameters against the flag
+    off, beside a second run without it (the step's own run-to-run spread);
+    B5 launches a step; the memory the forward leaves live for the backward
+    (memory_allocated after the loss, less before), the peak memory of a
+    step (max_memory_allocated after a reset) and the step ms (median of
+    REMAT_TIMED_STEPS), in turns."""
+    base = m.get_config("ssd300_vgg16_voc").override({
+        "model.pool_grad_kernel": True, "data.dataset": "synthetic",
+        "train.batch_size": TRAIN_BATCH})
+    size = base.model.image_size
+    dataset = m.make_synthetic_dataset(num_images=TRAIN_BATCH, image_size=size)
+    cache = m.DecodedCache(dataset, size, base.data.max_boxes, 4)
+    batch = m.make_place(torch.device("cuda"))(cache.gather(np.arange(TRAIN_BATCH)))
+    torch.cuda.current_stream().wait_event(batch.pop("_ready"))
+    anchors = m.anchors_for_model(base.model.family, base.anchors, size)
+    model0, _ = m.init_model_state(base, seed=0, device="cuda")
+    weights = {k: v.detach().clone() for k, v in model0.state_dict().items()}
+    del model0
+
+    def setup(remat: bool):
+        cfg = base.override({"model.remat_block1": remat})
+        model = m.build_model(cfg).cuda()
+        model.load_state_dict(weights)
+        step_fn = m.make_train_step(cfg, model, anchors, device="cuda", augment=True)
+        return step_fn, m.create_train_state(cfg.train, weights)
+
+    def run(remat: bool):
+        step_fn, state = setup(remat)
+        gen = torch.Generator().manual_seed(41)
+        losses, counts = [], []
+        for _ in range(REMAT_STEPS):
+            (state, metrics), got = counted(lambda: step_fn(state, batch, gen))
+            losses.append(float(metrics["loss"]))
+            counts.append(got)
+        return losses, state.params, counts
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        off, on, off2 = run(False), run(True), run(False)
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+    def diff(a, b):
+        return {"loss": max(abs(x - y) for x, y in zip(a[0], b[0])),
+                "params": max((a[1][k].float() - b[1][k].float()).abs().max().item()
+                              for k in a[1])}
+
+    remat_diff, spread = diff(on, off), diff(off2, off)
+    # Each step launches B5 four times, with the flag or without, and no
+    # other kernel.
+    want = {**{k: 0 for k in m.wrappers}, "max_pool_bwd": 4}
+    check(all(got == want for got in off[2] + on[2] + off2[2]),
+          f"kernel launches a step: {off[2]} without remat_block1, {on[2]} with it")
+    check(all(np.isfinite(on[0])), f"remat_block1 losses {on[0]}")
+    # Bound: no further from the plain steps than the plain steps are from
+    # themselves (0 where the step is deterministic).
+    check(remat_diff["loss"] <= spread["loss"] and remat_diff["params"] <= spread["params"],
+          f"remat_block1 moved the steps {remat_diff}, beyond their own spread {spread}")
+    launches["remat_block1_step"] = on[2][-1]
+    # Peak memory of a step and step ms, in turns.
+    peaks, times, live = {False: [], True: []}, {False: [], True: []}, {False: [], True: []}
+    for remat in (False, True, True, False):
+        step_fn, state = setup(remat)
+        gen = torch.Generator().manual_seed(41)
+        state, _ = step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        loss = step_fn.loss_fn(state.params, state.batch_stats, batch, 0)[0]
+        torch.cuda.synchronize()
+        live[remat].append((torch.cuda.memory_allocated() - before) / 2**30)
+        del loss
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        peaks[remat].append(torch.cuda.max_memory_allocated() / 2**30)
+        for _ in range(REMAT_TIMED_STEPS):
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, batch, gen)
+            torch.cuda.synchronize()
+            times[remat].append((time.perf_counter() - t0) * 1e3)
+        del step_fn, state
+    report = {"phase": "remat_block1", "batch": TRAIN_BATCH, "steps_compared": REMAT_STEPS,
+              "losses_off": off[0], "losses_on": on[0], "max_abs_diff_on_vs_off": remat_diff,
+              "max_abs_diff_off_vs_off": spread,
+              "pool_launches_per_step": [got["max_pool_bwd"] for got in on[2]],
+              "forward_live_gib_off": live[False], "forward_live_gib_on": live[True],
+              "peak_gib_off": peaks[False], "peak_gib_on": peaks[True],
+              "step_ms_off": statistics.median(times[False]),
+              "step_ms_on": statistics.median(times[True]), **where}
+    print(json.dumps(report))
+    return report
+
+
 def _same_detections(torch, a, b) -> bool:
     return (torch.equal(a.valid, b.valid) and torch.equal(a.classes, b.classes)
             and torch.equal(a.scores, b.scores) and torch.equal(a.boxes, b.boxes))
 
 
 def _decode_kwargs(cfg) -> dict:
-    e, a = cfg.eval, cfg.anchors
-    return dict(
-        score_threshold=e.score_threshold, iou_threshold=e.nms_iou_threshold,
-        pre_nms_top_k=e.pre_nms_top_k, max_detections=e.max_detections,
-        max_per_class=e.nms_max_per_class, center_variance=a.center_variance,
-        size_variance=a.size_variance,
-    )
+    """The kernel path's settings from ``cfg``, the serving knobs included."""
+    from object_detector_tpu_torch.ops.postprocess import nms_kwargs
+
+    return nms_kwargs(cfg)
 
 
 if __name__ == "__main__":

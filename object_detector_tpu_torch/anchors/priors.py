@@ -8,7 +8,7 @@ flatten their outputs. `ssd_anchors` follows the SSD paper's scheme,
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -82,3 +82,14 @@ def anchors_for_model(model_family: str, cfg: AnchorConfig, image_size: int) -> 
     if model_family == "retinanet":
         return retinanet_anchors(image_size)
     return ssd_anchors(cfg, image_size)
+
+
+def level_slices(cfg: AnchorConfig) -> List[Tuple[int, int]]:
+    """(start, end) anchor index range per pyramid level."""
+    out = []
+    start = 0
+    for f, a in zip(cfg.feature_sizes, cfg.anchors_per_level):
+        n = f * f * a
+        out.append((start, start + n))
+        start += n
+    return out

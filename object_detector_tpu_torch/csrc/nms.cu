@@ -4,7 +4,7 @@
 // ::_nms_kernel (:61, launched through _nms_rows, pallas_call at :343).
 //
 // Contract. Each of R rows holds k candidate columns: corner planes x1, y1,
-// x2, y2 (coords, laid out (4, R, k)) and scores (R, k), all float32. The
+// x2, y2 (coords, laid out (4, R, k)) and scores (R, k), float32. The
 // kernel makes up to max_out emit steps per row. Each step takes the argmax
 // of the remaining scores (the first index wins a tie); the winner is valid
 // only if its score > score_threshold; a valid winner's score and column go
@@ -22,6 +22,26 @@
 // Bit-exactness. The reference rounds after every operation. nvcc would
 // contract a * b + c into one FMA, so every product and sum here is an
 // explicit round-to-nearest intrinsic, and the build passes -fmad=false too.
+//
+// Coordinates in bfloat16 (nms_rows_bf16, the reference's coord_bf16: the
+// same _nms_kernel reads the planes' dtype at nms_pallas.py:76 and runs its
+// plane arithmetic in it). Scores, the argmax and the emitted scores stay
+// float32. Every coordinate operation (the areas, area * t, w_area * t, the
+// intersection's sides, inter, the right-hand side's add) is computed in
+// float32 by its _rn intrinsic and rounded to bfloat16 at once with
+// __float2bfloat16_rn; min, max and the clamps are exact on bfloat16 values.
+// Only the suppress compare reads the two bfloat16 values as float32, as
+// the reference upcasts its one compare (:137-141). This is how PyTorch's
+// bf16 elementwise ops round, so the kernel equals its plain version bit for
+// bit. t is rounded on the host to bfloat16 (through float32, as the
+// reference's ml_dtypes scalar cdt.type(t) is). The registers and the
+// shared memory hold the coordinates as float32 in both instantiations:
+// bfloat16 halves only the bytes read from device memory, and each rounding
+// is a float32 -> bfloat16 -> float32 conversion pair on the critical path,
+// so this instantiation is slower than the float32 one (PERF.md). Hopper's
+// packed bfloat16 arithmetic (HADD2/HMUL2.BF16) rounds once in bfloat16,
+// where PyTorch's ops round a float32 result; a faster design has to show
+// those agree on every input it runs.
 //
 // What bounds it on an H100. At the SSD-300 bs=64 shape (R = 1280,
 // k = 512, max_out = 100) the kernel reads 13 MB, about 4 us at 3.35 TB/s,
@@ -63,14 +83,45 @@
 // design: one block of 128 threads a row, the row in shared memory (24 bytes
 // a column).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kWarpMaxK = 512;  // the widest row of the warp route: 16 columns a lane
+
+// Coordinate planes of type T: a load to float32, and the rounding of a
+// float32 result to T (none for float32).
+__device__ __forceinline__ float load_coord(const float* p) { return *p; }
+__device__ __forceinline__ float load_coord(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same<T, float>::value) {
+    return x;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+}
+
+// a - b, a * b, a + b rounded to nearest in float32 and then to T.
+template <typename T>
+__device__ __forceinline__ float sub(float a, float b) { return round_to<T>(__fsub_rn(a, b)); }
+template <typename T>
+__device__ __forceinline__ float mul(float a, float b) { return round_to<T>(__fmul_rn(a, b)); }
+template <typename T>
+__device__ __forceinline__ float add(float a, float b) { return round_to<T>(__fadd_rn(a, b)); }
+
+// max(x2 - x1, 0) * max(y2 - y1, 0) in T's rounding.
+template <typename T>
+__device__ __forceinline__ float box_area(float x1, float y1, float x2, float y2) {
+  return mul<T>(fmaxf(sub<T>(x2, x1), 0.0f), fmaxf(sub<T>(y2, y1), 0.0f));
+}
 
 // A key whose unsigned order is the float order of s, with -0 taken as +0
 // (they compare equal): the warp's argmax is then one __reduce_max_sync.
@@ -115,10 +166,10 @@ __device__ __forceinline__ void take_better(float& s, int& i, float os, int oi) 
 }
 
 // The warp route: warp w of block b owns row 4 b + w; lane l holds columns
-// l + 32 j, j < J.
-template <int J>
+// l + 32 j, j < J. T is the coordinates' type.
+template <typename T, int J>
 __global__ void __launch_bounds__(kThreads, 4) nms_rows_kernel(
-    const float* __restrict__ coords, const float* __restrict__ scores,
+    const T* __restrict__ coords, const float* __restrict__ scores,
     int rows, int k, int max_out, float t_ratio, float score_threshold,
     float* __restrict__ out_scores, int* __restrict__ out_cols) {
   extern __shared__ float4 s_boxes_all[];
@@ -127,21 +178,19 @@ __global__ void __launch_bounds__(kThreads, 4) nms_rows_kernel(
   if (row >= rows) return;
   float4* s_boxes = s_boxes_all + (threadIdx.x >> 5) * 32 * J;  // this warp's row
   const size_t plane = static_cast<size_t>(rows) * k;
-  const float* x1_row = coords + static_cast<size_t>(row) * k;
+  const T* x1_row = coords + static_cast<size_t>(row) * k;
   const float* score_row = scores + static_cast<size_t>(row) * k;
   float x1[J], y1[J], x2[J], y2[J], area_scaled[J], remaining[J];
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int c = lane + 32 * j;
     if (c < k) {
-      x1[j] = x1_row[c];
-      y1[j] = x1_row[plane + c];
-      x2[j] = x1_row[2 * plane + c];
-      y2[j] = x1_row[3 * plane + c];
+      x1[j] = load_coord(x1_row + c);
+      y1[j] = load_coord(x1_row + plane + c);
+      x2[j] = load_coord(x1_row + 2 * plane + c);
+      y2[j] = load_coord(x1_row + 3 * plane + c);
       s_boxes[c] = make_float4(x1[j], y1[j], x2[j], y2[j]);
-      const float area = __fmul_rn(fmaxf(__fsub_rn(x2[j], x1[j]), 0.0f),
-                                   fmaxf(__fsub_rn(y2[j], y1[j]), 0.0f));
-      area_scaled[j] = __fmul_rn(area, t_ratio);
+      area_scaled[j] = mul<T>(box_area<T>(x1[j], y1[j], x2[j], y2[j]), t_ratio);
       remaining[j] = score_row[c];
     } else {
       x1[j] = y1[j] = x2[j] = y2[j] = 0.0f;
@@ -183,18 +232,16 @@ __global__ void __launch_bounds__(kThreads, 4) nms_rows_kernel(
       wx2 = fmaxf(wx2, 0.0f);
       wy2 = fmaxf(wy2, 0.0f);
     }
-    const float w_area = __fmul_rn(fmaxf(__fsub_rn(wx2, wx1), 0.0f),
-                                   fmaxf(__fsub_rn(wy2, wy1), 0.0f));
-    const float w_scaled = __fmul_rn(w_area, t_ratio);
+    const float w_scaled = mul<T>(box_area<T>(wx1, wy1, wx2, wy2), t_ratio);
     const int mine = lane == owner ? best_j : -1;  // the winner's slot in this lane
 #pragma unroll
     for (int jj = 0; jj < J; ++jj) {
-      const float iw = fmaxf(__fsub_rn(fminf(wx2, x2[jj]), fmaxf(wx1, x1[jj])), 0.0f);
-      const float ih = __fsub_rn(fminf(wy2, y2[jj]), fmaxf(wy1, y1[jj]));
-      const float inter = __fmul_rn(iw, ih);
+      const float iw = fmaxf(sub<T>(fminf(wx2, x2[jj]), fmaxf(wx1, x1[jj])), 0.0f);
+      const float ih = sub<T>(fminf(wy2, y2[jj]), fmaxf(wy1, y1[jj]));
+      const float inter = mul<T>(iw, ih);
       // Both tests evaluated and one select: a short-circuit || compiles to a
       // branch a column.
-      const bool hit = inter > __fadd_rn(area_scaled[jj], w_scaled);
+      const bool hit = inter > add<T>(area_scaled[jj], w_scaled);
       remaining[jj] = (hit | (jj == mine)) ? 0.0f : remaining[jj];
     }
   }
@@ -210,8 +257,9 @@ __global__ void __launch_bounds__(kThreads, 4) nms_rows_kernel(
 // bytes a column) for all steps. Each step reduces (score, column) pairs with
 // warp shuffles and then across the four warps, ties going to the lower
 // column, and reads the winner's corners straight from shared memory.
+template <typename T>
 __global__ void __launch_bounds__(kThreads) nms_rows_block_kernel(
-    const float* __restrict__ coords, const float* __restrict__ scores,
+    const T* __restrict__ coords, const float* __restrict__ scores,
     int rows, int k, int max_out, float t_ratio, float score_threshold,
     float* __restrict__ out_scores, int* __restrict__ out_cols) {
   extern __shared__ float smem[];
@@ -228,20 +276,18 @@ __global__ void __launch_bounds__(kThreads) nms_rows_block_kernel(
 
   const int row = blockIdx.x;
   const size_t plane = static_cast<size_t>(rows) * k;
-  const float* x1_row = coords + static_cast<size_t>(row) * k;
+  const T* x1_row = coords + static_cast<size_t>(row) * k;
   const float* score_row = scores + static_cast<size_t>(row) * k;
   for (int c = threadIdx.x; c < k; c += kThreads) {
-    const float x1 = x1_row[c];
-    const float y1 = x1_row[plane + c];
-    const float x2 = x1_row[2 * plane + c];
-    const float y2 = x1_row[3 * plane + c];
+    const float x1 = load_coord(x1_row + c);
+    const float y1 = load_coord(x1_row + plane + c);
+    const float x2 = load_coord(x1_row + 2 * plane + c);
+    const float y2 = load_coord(x1_row + 3 * plane + c);
     sx1[c] = x1;
     sy1[c] = y1;
     sx2[c] = x2;
     sy2[c] = y2;
-    const float area = __fmul_rn(fmaxf(__fsub_rn(x2, x1), 0.0f),
-                                 fmaxf(__fsub_rn(y2, y1), 0.0f));
-    area_scaled[c] = __fmul_rn(area, t_ratio);
+    area_scaled[c] = mul<T>(box_area<T>(x1, y1, x2, y2), t_ratio);
     remaining[c] = score_row[c];
   }
   __syncthreads();
@@ -290,14 +336,12 @@ __global__ void __launch_bounds__(kThreads) nms_rows_block_kernel(
     const float wy1 = k > 1 ? fmaxf(sy1[w], 0.0f) : sy1[w];
     const float wx2 = k > 1 ? fmaxf(sx2[w], 0.0f) : sx2[w];
     const float wy2 = k > 1 ? fmaxf(sy2[w], 0.0f) : sy2[w];
-    const float w_area = __fmul_rn(fmaxf(__fsub_rn(wx2, wx1), 0.0f),
-                                   fmaxf(__fsub_rn(wy2, wy1), 0.0f));
-    const float w_scaled = __fmul_rn(w_area, t_ratio);
+    const float w_scaled = mul<T>(box_area<T>(wx1, wy1, wx2, wy2), t_ratio);
     for (int c = threadIdx.x; c < k; c += kThreads) {
-      const float iw = fmaxf(__fsub_rn(fminf(wx2, sx2[c]), fmaxf(wx1, sx1[c])), 0.0f);
-      const float ih = __fsub_rn(fminf(wy2, sy2[c]), fmaxf(wy1, sy1[c]));
-      const float inter = __fmul_rn(iw, ih);
-      if (c == w || inter > __fadd_rn(area_scaled[c], w_scaled)) remaining[c] = 0.0f;
+      const float iw = fmaxf(sub<T>(fminf(wx2, sx2[c]), fmaxf(wx1, sx1[c])), 0.0f);
+      const float ih = sub<T>(fminf(wy2, sy2[c]), fmaxf(wy1, sy1[c]));
+      const float inter = mul<T>(iw, ih);
+      if (c == w || inter > add<T>(area_scaled[c], w_scaled)) remaining[c] = 0.0f;
     }
     __syncthreads();
   }
@@ -307,41 +351,62 @@ __global__ void __launch_bounds__(kThreads) nms_rows_block_kernel(
   }
 }
 
-template <int J>
-void launch_warp_route(const float* coords, const float* scores, int rows, int k, int max_out,
+template <typename T, int J>
+void launch_warp_route(const T* coords, const float* scores, int rows, int k, int max_out,
                        float t_ratio, float score_threshold, float* out_scores, int* out_cols,
                        cudaStream_t stream) {
-  nms_rows_kernel<J><<<(rows + kWarps - 1) / kWarps, kThreads,
-                       kWarps * 32 * J * sizeof(float4), stream>>>(
+  const int blocks = (rows + kWarps - 1) / kWarps;
+  const size_t smem = kWarps * 32 * J * sizeof(float4);
+  nms_rows_kernel<T, J><<<blocks, kThreads, smem, stream>>>(
       coords, scores, rows, k, max_out, t_ratio, score_threshold, out_scores, out_cols);
+}
+
+// Launches either route on `stream` and returns cudaGetLastError() (0 on
+// success).
+template <typename T>
+int launch(const T* coords, const float* scores, int rows, int k, int max_out, float t_ratio,
+           float score_threshold, float* out_scores, int* out_cols, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= kWarpMaxK) {
+    // The fewest columns a lane that cover the row.
+    const auto warp = k <= 32    ? launch_warp_route<T, 1>
+                      : k <= 64  ? launch_warp_route<T, 2>
+                      : k <= 128 ? launch_warp_route<T, 4>
+                      : k <= 256 ? launch_warp_route<T, 8>
+                                 : launch_warp_route<T, 16>;
+    warp(coords, scores, rows, k, max_out, t_ratio, score_threshold, out_scores, out_cols, st);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const auto block = nms_rows_block_kernel<T>;
+  // The dynamic shared memory is allowed for every k: the block's static
+  // shared memory (the per-warp bests and the winner) comes on top, so rows
+  // just under the default 48 KB of dynamic memory (2041 to 2048 columns)
+  // would not launch without it either.
+  const size_t smem = 6 * static_cast<size_t>(k) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      block, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  block<<<rows, kThreads, smem, st>>>(
+      coords, scores, rows, k, max_out, t_ratio, score_threshold, out_scores, out_cols);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Float32 coordinates. Launches on `stream` and returns cudaGetLastError().
 extern "C" int nms_rows(const float* coords, const float* scores, int rows, int k,
                         int max_out, float t_ratio, float score_threshold,
                         float* out_scores, int* out_cols, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k <= kWarpMaxK) {
-    // The fewest columns a lane that cover the row.
-    const auto launch = k <= 32    ? launch_warp_route<1>
-                        : k <= 64  ? launch_warp_route<2>
-                        : k <= 128 ? launch_warp_route<4>
-                        : k <= 256 ? launch_warp_route<8>
-                                   : launch_warp_route<16>;
-    launch(coords, scores, rows, k, max_out, t_ratio, score_threshold, out_scores, out_cols, st);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const size_t smem = 6 * static_cast<size_t>(k) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nms_rows_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  nms_rows_block_kernel<<<rows, kThreads, smem, st>>>(
-      coords, scores, rows, k, max_out, t_ratio, score_threshold, out_scores, out_cols);
-  return static_cast<int>(cudaGetLastError());
+  return launch(coords, scores, rows, k, max_out, t_ratio, score_threshold, out_scores, out_cols,
+                stream);
+}
+
+// Bfloat16 coordinates (scores float32); t_ratio must be a bfloat16 value.
+extern "C" int nms_rows_bf16(const __nv_bfloat16* coords, const float* scores, int rows, int k,
+                             int max_out, float t_ratio, float score_threshold,
+                             float* out_scores, int* out_cols, void* stream) {
+  return launch(coords, scores, rows, k, max_out, t_ratio, score_threshold, out_scores, out_cols,
+                stream);
 }
 
 // The widest row of the warp route.

@@ -22,7 +22,7 @@ from object_detector_tpu_torch.eval.map import MeanAPEvaluator
 from object_detector_tpu_torch.models.retinanet import build_model
 from object_detector_tpu_torch.ops.augment import normalize
 from object_detector_tpu_torch.ops.nms import Detections
-from object_detector_tpu_torch.ops.postprocess import postprocess
+from object_detector_tpu_torch.ops.postprocess import postprocess, postprocess_levels
 from object_detector_tpu_torch.quant import engine
 
 
@@ -78,25 +78,35 @@ def make_int8_predict_fn(
     ``calibration_images_u8`` is a
     small representative (B, H, W, 3) uint8 batch. The returned function
     carries the quantized weights and the op list as ``predict.qp`` and
-    ``predict.spec``."""
+    ``predict.spec``.
+
+    With ``eval.per_level_heads`` on the kernel NMS path and int8 heads (for
+    RetinaNet: an int8 FPN, as `quantize_retinanet` makes by default), the
+    heads' native per-level outputs go to `postprocess_levels`; the
+    concatenated logits are never built."""
     dev = resolve_device(device)
     pallas = cfg.eval.use_pallas_nms if use_pallas is None else use_pallas
-    if cfg.eval.per_level_heads and pallas:
-        raise NotImplementedError("per_level_heads is not ported yet")
     device_params = {k: v.to(dev) for k, v in params.items()}
     calib = _normalized(calibration_images_u8, dev)
     if cfg.model.family == "retinanet":
         qp, spec = engine.quantize_retinanet(cfg, device_params, [calib])
         forward = engine.retinanet_int8_forward
+        int8_fpn = "fpn/lateral3" in qp.w_int8
     else:
         qp, spec = engine.quantize_ssd(cfg, device_params, [calib])
         forward = engine.int8_forward
+        int8_fpn = True
     qp = qp.to(dev)
     anchors = torch.as_tensor(np.asarray(anchors_center, np.float32), device=dev)
+    per_level = cfg.eval.per_level_heads and pallas and int8_fpn
 
     @torch.inference_mode()
     def predict(images_u8) -> Detections:
-        cls_logits, box_offsets = forward(qp, spec, cfg, _normalized(images_u8, dev))
+        images = _normalized(images_u8, dev)
+        if per_level:
+            cls_levels, box_levels = forward(qp, spec, cfg, images, concat_heads=False)
+            return postprocess_levels(cls_levels, box_levels, anchors, cfg)
+        cls_logits, box_offsets = forward(qp, spec, cfg, images)
         return postprocess(cls_logits, box_offsets, anchors, cfg, use_pallas)
 
     predict.qp, predict.spec = qp, spec

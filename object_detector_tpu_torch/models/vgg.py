@@ -17,6 +17,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from object_detector_tpu_torch.ops.pooling import max_pool_2x2_fastgrad
 
@@ -87,7 +88,8 @@ class L2Norm(nn.Module):
         return x * inv * self.scale.to(x.dtype)[None, :, None, None]
 
 
-# (name, in, out) per conv; "pool" marks a 2x2/s2 max pool.
+# (name, in, out) per conv; "pool" marks a 2x2/s2 max pool. The first three
+# entries are block 1 (`VGG16Backbone._block1`).
 _VGG_LAYERS: Sequence = (
     ("conv1_1", 3, 64), ("conv1_2", 64, 64), "pool",
     ("conv2_1", 64, 128), ("conv2_2", 128, 128), "pool",
@@ -103,9 +105,12 @@ class VGG16Backbone(nn.Module):
     With ``pool_grad_kernel`` the four 2x2/s2 pools go through
     `ops.pooling.max_pool_2x2_fastgrad`, whose backward is the port's
     first-max pool kernel; the forward, and so serving, is the same either
-    way. ``pack_block1`` and ``remat_block1`` are the reference's TPU layout
-    and training-memory devices; the math is the same without them, so they
-    are accepted and ignored.
+    way. With ``remat_block1`` block 1 (conv1_1, conv1_2, pool1), whose
+    activations are a training step's largest, runs under
+    `torch.utils.checkpoint`: its activations are not kept for the backward
+    but recomputed there (reference ``nn.remat``, ``models/vgg.py:141``).
+    ``pack_block1`` is the reference's TPU lane layout; the math is the same
+    without it, so it is accepted and ignored.
     """
 
     def __init__(
@@ -113,8 +118,9 @@ class VGG16Backbone(nn.Module):
         remat_block1: bool = False,
     ):
         super().__init__()
-        del pack_block1, remat_block1
+        del pack_block1
         self.pool_grad_kernel = pool_grad_kernel
+        self.remat_block1 = remat_block1
         for layer in _VGG_LAYERS:
             if layer != "pool":
                 name, cin, cout = layer
@@ -133,10 +139,28 @@ class VGG16Backbone(nn.Module):
             x = F.pad(x, (0, pw, 0, ph), value=torch.finfo(x.dtype).min)
         return max_pool_2x2_fastgrad(x)
 
+    def _block1(self, x: Tensor, *params: Tensor) -> Tensor:
+        """conv1_1, conv1_2 and pool1 on the convs' (weight, bias, weight,
+        bias) ``params``. They are handed in, not read from the modules: a
+        recompute under checkpoint runs in the backward, after a
+        `torch.func.functional_call` that lent the forward its parameters
+        has put the module's own back."""
+        for i, name in enumerate(("conv1_1", "conv1_2")):
+            conv_params = {"weight": params[2 * i], "bias": params[2 * i + 1]}
+            x = F.relu(torch.func.functional_call(getattr(self, name), conv_params, (x,)))
+        return self._pool(x, ceil_mode=False)
+
     def forward(self, x: Tensor) -> List[Tensor]:
-        pools = 0
+        if self.remat_block1 and torch.is_grad_enabled():
+            params = [t for conv in (self.conv1_1, self.conv1_2) for t in (conv.weight, conv.bias)]
+            x = checkpoint(self._block1, x, *params, use_reentrant=False)
+        else:
+            x = F.relu(self.conv1_1(x))
+            x = F.relu(self.conv1_2(x))
+            x = self._pool(x, ceil_mode=False)
+        pools = 1
         conv4_3 = x
-        for layer in _VGG_LAYERS:
+        for layer in _VGG_LAYERS[3:]:
             if layer == "pool":
                 pools += 1
                 # pool3 is ceil-mode (75 -> 38 at input 300).

@@ -1,17 +1,21 @@
 """Raw head outputs -> final detections (decode + score + per-class NMS).
 
-The port of ``object_detector_tpu/ops/postprocess.py:22-85``. With
-``use_pallas`` (the config default ``eval.use_pallas_nms``) the NMS runs
-through the hand-written kernel path (`kernels.nms.decode_nms`); without it,
-through the plain per-class NMS of `ops.nms`.
+The port of ``object_detector_tpu/ops/postprocess.py``. With ``use_pallas``
+(the config default ``eval.use_pallas_nms``) the NMS runs through the
+hand-written kernel path (`kernels.nms.decode_nms`); without it, through
+the plain per-class NMS of `ops.nms`. `postprocess_levels` takes the int8
+heads' native per-level tensors (``eval.per_level_heads``) to the same
+kernel path through `kernels.nms.decode_nms_levels`.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from object_detector_tpu_torch.core.config import DetectorConfig
-from object_detector_tpu_torch.kernels.nms import decode_nms
+from object_detector_tpu_torch.kernels.nms import decode_nms, decode_nms_levels
 from object_detector_tpu_torch.ops import boxes as box_ops
 from object_detector_tpu_torch.ops import nms as nms_ops
 
@@ -38,24 +42,9 @@ def postprocess(
     if use_pallas is None:
         use_pallas = cfg.eval.use_pallas_nms
     if use_pallas:
-        if cfg.eval.per_level_heads:
-            raise NotImplementedError("per_level_heads is not ported yet")
-        return decode_nms(
-            cls_logits,
-            box_offsets.float(),
-            anchors_center,
-            score_threshold=cfg.eval.score_threshold,
-            iou_threshold=cfg.eval.nms_iou_threshold,
-            pre_nms_top_k=cfg.eval.pre_nms_top_k,
-            max_detections=cfg.eval.max_detections,
-            max_per_class=cfg.eval.nms_max_per_class,
-            center_variance=cfg.anchors.center_variance,
-            size_variance=cfg.anchors.size_variance,
-            exact_prefilter=cfg.eval.nms_exact_prefilter,
-            packed_sort=cfg.eval.nms_packed_sort,
-            class_top_k=cfg.eval.nms_class_top_k,
-            coord_bf16=cfg.eval.nms_coord_bf16,
-        )
+        # The logits keep their dtype (bf16 from the int8 heads with
+        # eval.int8_logits_bf16): the prefilter selects on them as they are.
+        return decode_nms(cls_logits, box_offsets.float(), anchors_center, **nms_kwargs(cfg))
 
     scores = scores_from_logits(cls_logits.float(), cfg.model.family)
     decoded = box_ops.decode(
@@ -72,4 +61,41 @@ def postprocess(
         iou_threshold=cfg.eval.nms_iou_threshold,
         pre_nms_top_k=cfg.eval.pre_nms_top_k,
         max_detections=cfg.eval.max_detections,
+    )
+
+
+def nms_kwargs(cfg: DetectorConfig) -> dict:
+    """The kernel path's settings from ``cfg``."""
+    return dict(
+        score_threshold=cfg.eval.score_threshold,
+        iou_threshold=cfg.eval.nms_iou_threshold,
+        pre_nms_top_k=cfg.eval.pre_nms_top_k,
+        max_detections=cfg.eval.max_detections,
+        max_per_class=cfg.eval.nms_max_per_class,
+        center_variance=cfg.anchors.center_variance,
+        size_variance=cfg.anchors.size_variance,
+        exact_prefilter=cfg.eval.nms_exact_prefilter,
+        packed_sort=cfg.eval.nms_packed_sort,
+        class_top_k=cfg.eval.nms_class_top_k,
+        coord_bf16=cfg.eval.nms_coord_bf16,
+    )
+
+
+def postprocess_levels(
+    level_logits: Sequence[Tensor],  # per level: (B, H, W, a*C) head-native raw logits
+    level_offsets: Sequence[Tensor],  # per level: (B, H, W, a*4) box offsets
+    anchors_center: Tensor,  # (A, 4) the full level-major anchor set
+    cfg: DetectorConfig,
+) -> nms_ops.Detections:
+    """Per-level decode -> NMS over the heads' native per-level tensors: the
+    concatenated (B, A, C) logits are never built. The same candidate set
+    as `postprocess` with use_pallas=True (the two-stage exact prefilter of
+    `decode_nms_levels`). Kernel path only; pair with
+    ``eval.per_level_heads``."""
+    return decode_nms_levels(
+        tuple(level_logits),
+        tuple(t.float() for t in level_offsets),
+        anchors_center,
+        tuple(cfg.anchors.anchors_per_level),
+        **nms_kwargs(cfg),
     )

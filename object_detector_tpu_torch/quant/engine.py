@@ -698,7 +698,10 @@ def apply_heads_int8(
     concat: bool = True,
     l2norm_fn: KernelFn = l2norm_requant,
 ) -> Tuple[Tensor, Tensor]:
-    """Int8 prediction heads over int8 taps -> (cls_logits, box_offsets).
+    """Int8 prediction heads over int8 taps -> (cls_logits, box_offsets),
+    concatenated over levels; with ``concat=False`` per-level tuples of the
+    convs' native (B, H, W, a*C) and (B, H, W, a*4) outputs, for
+    `ops.postprocess.postprocess_levels`.
 
     L2Norm on tap 0 (VGG) runs on the int8 codes (it is scale-invariant in
     its input) through ``l2norm_fn`` (the kernel wrapper unless a caller
@@ -707,8 +710,6 @@ def apply_heads_int8(
     nothing: the port has one arithmetic for this step. Head convs are int8
     with float32 dequantized outputs (the final logits)."""
     del pallas_l2norm
-    if not concat:
-        raise NotImplementedError("per-level head outputs (concat=False) are not ported yet")
     taps = list(taps_q)
     if "__l2norm__" in qp.act_scale:
         q0, _ = taps[0]
@@ -726,7 +727,9 @@ def apply_heads_int8(
             y = acc.to(torch.float32).mul_(qp.deq(path, s_tap, tap.device)).add_(qp.bias[path])
             if kind == "cls":
                 y = y.to(logits_dtype)
-            out.append(y.reshape(b, h * w * a, width))
+            out.append(y.reshape(b, h * w * a, width) if concat else y)
+    if not concat:
+        return tuple(cls_out), tuple(box_out)
     return torch.cat(cls_out, dim=1), torch.cat(box_out, dim=1)
 
 
@@ -777,16 +780,16 @@ def int8_forward(
     stem_fp_fn: KernelFn = stem_fused_producer,
 ) -> Tuple[Tensor, Tensor]:
     """Normalized float images (B, S, S, 3) -> (cls_logits, box_offsets),
-    int8 trunk. The five kernel functions as in `run_int8` and
-    `apply_heads_int8`."""
-    if not concat_heads:
-        raise NotImplementedError("per-level head outputs (concat_heads=False) are not ported yet")
+    int8 trunk. ``concat_heads=False`` (int8 heads only) gives the heads'
+    per-level tuples (`apply_heads_int8`). The five kernel functions as in
+    `run_int8` and `apply_heads_int8`."""
     fns = dict(stem_fn=stem_fn, resnet_stem_fn=resnet_stem_fn, bottleneck_fn=bottleneck_fn,
                stem_fp_fn=stem_fp_fn)
     if int8_heads:
         taps_q = run_int8(qp, spec, images, dequantize_taps=False, **fns)
         logits_dtype = torch.bfloat16 if cfg.eval.int8_logits_bf16 else torch.float32
-        return apply_heads_int8(qp, taps_q, cfg, logits_dtype=logits_dtype, l2norm_fn=l2norm_fn)
+        return apply_heads_int8(qp, taps_q, cfg, logits_dtype=logits_dtype, concat=concat_heads,
+                                l2norm_fn=l2norm_fn)
     taps = run_int8(qp, spec, images, **fns)
     return apply_heads(qp.float_params, taps, cfg)
 
@@ -920,10 +923,13 @@ def run_int8_heads(
     qp: QuantParams, cfg: DetectorConfig, pyramid: Mapping[str, Tuple[Tensor, float]],
     logits_dtype: torch.dtype = torch.float32,
     codes: Optional[Dict[str, Tensor]] = None,
+    concat: bool = True,
 ) -> Tuple[Tensor, Tensor]:
     """The shared int8 heads over the FPN's levels -> (cls_logits in
-    ``logits_dtype``, box_offsets float32), concatenated over levels. Each
-    level requants with its own scales; the out conv emits float32."""
+    ``logits_dtype``, box_offsets float32), concatenated over levels; with
+    ``concat=False`` per-level tuples of the out convs' native
+    (B, H, W, 9*C) and (B, H, W, 9*4) outputs. Each level requants with its
+    own scales; the out conv emits float32."""
     outs: Dict[str, List[Tensor]] = {"cls_head": [], "box_head": []}
     for head in outs:
         for lvl in FPN_LEVELS:
@@ -935,7 +941,10 @@ def run_int8_heads(
             if head == "cls_head":
                 y = y.to(logits_dtype)
             b, h, w, _ = y.shape
-            outs[head].append(y.reshape(b, h * w * ANCHORS_PER_LOCATION, _head_width(cfg, head)))
+            outs[head].append(y.reshape(b, h * w * ANCHORS_PER_LOCATION, _head_width(cfg, head))
+                              if concat else y)
+    if not concat:
+        return tuple(outs["cls_head"]), tuple(outs["box_head"])
     return torch.cat(outs["cls_head"], dim=1), torch.cat(outs["box_head"], dim=1)
 
 
@@ -948,11 +957,9 @@ def run_int8_fpn_heads(
     """Int8 FPN + shared heads over the int8 trunk taps (`run_int8_fpn`, then
     `run_int8_heads`). ``codes``, where given, receives the int8 codes at
     every requant point, keyed as their scales are, in the reference's
-    order of requants."""
-    if not concat:
-        raise NotImplementedError("per-level head outputs (concat=False) are not ported yet")
+    order of requants. ``concat`` as in `run_int8_heads`."""
     pyramid = run_int8_fpn(qp, taps_q, codes)
-    return run_int8_heads(qp, cfg, pyramid, logits_dtype, codes)
+    return run_int8_heads(qp, cfg, pyramid, logits_dtype, codes, concat=concat)
 
 
 def quantize_retinanet(
@@ -1006,14 +1013,14 @@ def retinanet_int8_forward(
     int8 trunk. With the FPN's weights in ``qp`` (`quantize_retinanet`'s
     default) the FPN and heads run int8 (`run_int8_fpn_heads`); otherwise
     the model's float FPN and heads run in ``dtype`` over the dequantized
-    taps. The two kernel functions as in `run_int8`."""
-    if not concat_heads:
-        raise NotImplementedError("per-level head outputs (concat_heads=False) are not ported yet")
+    taps. ``concat_heads=False`` (int8 FPN and heads only) gives the heads'
+    per-level tuples (`run_int8_heads`). The two kernel functions as in
+    `run_int8`."""
     fns = dict(resnet_stem_fn=resnet_stem_fn, bottleneck_fn=bottleneck_fn)
     if "fpn/lateral3" in qp.w_int8:
         taps_q = run_int8(qp, spec, images, dequantize_taps=False, **fns)
         logits_dtype = torch.bfloat16 if cfg.eval.int8_logits_bf16 else torch.float32
-        return run_int8_fpn_heads(qp, cfg, taps_q, logits_dtype=logits_dtype)
+        return run_int8_fpn_heads(qp, cfg, taps_q, logits_dtype=logits_dtype, concat=concat_heads)
     taps = run_int8(qp, spec, images, **fns)
     fpn, cls_head, box_head = _float_fpn_heads(qp, cfg, images.device)
     pyramid = fpn([t.to(dtype).permute(0, 3, 1, 2) for t in taps])

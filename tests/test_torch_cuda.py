@@ -47,13 +47,14 @@ def _rows(kind, seed, rows=ROWS, k=K):
 # (kind, rows, k): the four kinds at the SSD-300 bs=64 shape; the bs=1 paths'
 # 20 and 80 rows and SSD-512 bs=64's 5120; k = 1, a k that is not a multiple
 # of 32, the widest row of the warp route and one column either side of it
-# (511 and 512 in registers, 513 on the block route), and the widest row the
-# wrapper takes.
+# (511 and 512 in registers, 513 on the block route), the block route at 48 KB
+# of dynamic shared memory (2048), and the widest row the wrapper takes.
 NMS_CASES = [("dense", ROWS, K), ("sparse", ROWS, K), ("ties", ROWS, K), ("negative", ROWS, K),
              ("dense", 20, K), ("dense", 80, K), ("dense", 5120, K),
              ("dense", 64, 1), ("ties", 64, 100), ("dense", 64, nms_kernel.WARP_ROUTE_MAX_K - 1),
              ("ties", 64, nms_kernel.WARP_ROUTE_MAX_K),
-             ("dense", 64, nms_kernel.WARP_ROUTE_MAX_K + 1), ("dense", 8, nms_kernel.MAX_K)]
+             ("dense", 64, nms_kernel.WARP_ROUTE_MAX_K + 1), ("dense", 16, 2048),
+             ("dense", 8, nms_kernel.MAX_K)]
 
 
 @pytest.mark.cuda
@@ -69,6 +70,28 @@ def test_nms_kernel_bit_equal_to_plain_version(cuda_device, kind, rows, k):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert nms_kernel.warp_route_max_k() == nms_kernel.WARP_ROUTE_MAX_K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,rows,k,iou", [
+    ("dense", 1280, 512, 0.45), ("sparse", 80, 512, 0.5), ("ties", 64, 128, 0.45),
+    ("dense", 256, 256, 0.1434952540480179), ("dense", 16, 1, 0.45), ("dense", 16, 2048, 0.45),
+])
+def test_nms_bf16_kernel_bit_equal_to_plain_version(cuda_device, kind, rows, k, iou):
+    """The bfloat16-coordinate instantiation on both routes (k = 2048: the
+    block route) against the plain version's bfloat16 arithmetic on the
+    card, at a threshold whose bfloat16 t / (1 + t) rounds through float32."""
+    coords, scores = (torch.from_numpy(a).to(cuda_device) for a in _rows(kind, 12, rows, k))
+    coords = coords.to(torch.bfloat16)
+    kw = dict(max_out=min(MAX_OUT, k), iou_threshold=iou, score_threshold=0.01)
+    before = (nms_kernel.nms_rows.launches, nms_kernel.nms_rows.bf16.launches)
+    got = nms_kernel.nms_rows(coords, scores, **kw)
+    torch.cuda.synchronize()
+    assert (nms_kernel.nms_rows.launches, nms_kernel.nms_rows.bf16.launches) == (
+        before[0], before[1] + 1)
+    want = nms_kernel.nms_rows_reference(coords, scores, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

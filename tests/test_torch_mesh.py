@@ -139,7 +139,9 @@ def _rank_cases(cases, checks_all_reduce):
         got = _step((cfg, weights, batch, augment, per_rank), mesh)
         if mesh.rank:
             continue
-        key = name.replace("-per_rank", "-global")
+        # A per-rank case is held against its global case's one-process
+        # step, a remat case against its plain case's.
+        key = name.replace("-per_rank", "-global").replace("-remat", "")
         if key not in one:
             one[key] = _step((cfg, weights, batch, augment, False), None)
         want = one[key]
@@ -238,10 +240,14 @@ def _resnet_cases():
     return out
 
 
-def _tiny_cases(weights):
+def _tiny_cases(weights, remat=False):
     batch = _noise_batch(_tiny(), 8)
-    return {f"tiny-aug_{'on' if aug else 'off'}": (_tiny(), weights, batch, aug, False, DP_TOL)
-            for aug in (False, True)}
+    cases = {f"tiny-aug_{'on' if aug else 'off'}": (_tiny(), weights, batch, aug, False, DP_TOL)
+             for aug in (False, True)}
+    if remat:
+        cfg = _tiny().override({"model.remat_block1": True})
+        cases["tiny-aug_on-remat"] = (cfg, weights, batch, True, False, DP_TOL)
+    return cases
 
 
 @pytest.fixture(scope="module")
@@ -250,10 +256,11 @@ def runs(tiny_weights, tmp_path_factory):
     checks) and of the DP-4 ranks (tiny_test), both launched at once."""
     tiny = _tiny_cases(tiny_weights[0])
     resnet = _resnet_cases()
+    remat = _tiny_cases(tiny_weights[0], remat=True)
     tempfile.tempdir = str(tmp_path_factory.mktemp("ranks"))
     try:
         with ThreadPoolExecutor(2) as pool:
-            dp2 = pool.submit(mesh_lib.spawn, 2, "cpu", _rank_cases, ({**tiny, **resnet}, True))
+            dp2 = pool.submit(mesh_lib.spawn, 2, "cpu", _rank_cases, ({**remat, **resnet}, True))
             dp4 = pool.submit(mesh_lib.spawn, 4, "cpu", _rank_cases, (tiny, False))
             return {2: dp2.result(), 4: dp4.result()}
     finally:
@@ -359,6 +366,19 @@ def test_dp_step_equals_one_process_step(runs, world, aug):
     # The gradients once (in buckets of 25 MB), the positive count and the
     # three loss metrics.
     assert got["bytes_a_step"] == 4 * got["n_params"] + 8 + 4 * 3
+
+
+def test_dp_step_with_remat_block1_equals_one_process_step(runs):
+    """model.remat_block1 under the data-parallel step: block 1 recomputed
+    in each rank's backward (its parameters handed to the recompute, as the
+    step lends them through functional_call), the DP-2 step with
+    augmentation on within the dp8 bounds of one process's step without
+    remat on the whole batch, the ranks bit-equal."""
+    got = runs[2]["tiny-aug_on-remat"]
+    assert got["ranks_bit_equal"]
+    for k, v in got["one_metrics"].items():
+        np.testing.assert_allclose(got["metrics"][k], v, rtol=1e-4, err_msg=k)
+    _within(got, ("params", "ema"))
 
 
 @pytest.mark.parametrize("world", [2, 4])

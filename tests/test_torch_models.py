@@ -134,10 +134,11 @@ def test_init_params_is_seeded_and_follows_the_reference_scheme():
 @pytest.mark.parametrize("pack_block1", [False, True])
 @pytest.mark.parametrize("remat_block1", [False, True])
 def test_pack_and_remat_block1_are_accepted_and_change_nothing(pack_block1, remat_block1):
-    """The reference's image-pair packing of block 1 (models/vgg.py:119) and
-    its rematerialisation (:141-142) are accepted and ignored by the port
-    (models/vgg.py): every combination gives the same forward and the same
-    gradients on tiny_test, bit for bit."""
+    """The reference's image-pair packing of block 1 (models/vgg.py:119) is
+    accepted and ignored by the port, and its rematerialisation (:141-142)
+    recomputes block 1 in the backward (models/vgg.py): every combination
+    gives the same forward and the same gradients on tiny_test, bit for
+    bit."""
     base_cfg = config.get_config("tiny_test")
     params = init_params(ssd.SSDModel(base_cfg), seed=6).state_dict()
     x = torch.from_numpy(np.random.default_rng(7).normal(0, 1, (2, 64, 64, 3)).astype(np.float32))
@@ -155,3 +156,34 @@ def test_pack_and_remat_block1_are_accepted_and_change_nothing(pack_block1, rema
     got_out, got_grads = run(pack_block1, remat_block1)
     for g, w in zip(got_out + list(got_grads), want_out + list(want_grads)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("pool_grad_kernel", [False, True])
+def test_remat_block1_keeps_no_block1_activation_for_the_backward(pool_grad_kernel):
+    """With model.remat_block1 the forward saves no activation of block 1
+    for the backward: the bytes packed by autograd's saved-tensor hooks
+    (torch.autograd.graph.saved_tensors_hooks) fall by at least conv1_1's
+    and conv1_2's outputs, (B, 64, H, W) float32 each, and the gradients
+    stay bit for bit the same, also through torch.func.functional_call with
+    parameters other than the module's own (the train step's way)."""
+    cfg = config.get_config("tiny_test").override({"model.pool_grad_kernel": pool_grad_kernel})
+    x = torch.from_numpy(np.random.default_rng(8).normal(0, 1, (2, 64, 64, 3)).astype(np.float32))
+    lent = {k: v.detach().clone().requires_grad_(True)
+            for k, v in init_params(ssd.SSDModel(cfg), seed=9).named_parameters()}
+    runs = []
+    for remat in (False, True):
+        model = init_params(ssd.SSDModel(cfg.override({"model.remat_block1": remat})), seed=6)
+        saved = [0]
+
+        def pack(t):
+            saved[0] += t.numel() * t.element_size()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            cls, box = torch.func.functional_call(model, lent, (x,))
+        loss = cls.square().mean() + box.abs().mean()
+        runs.append((saved[0], torch.autograd.grad(loss, list(lent.values()))))
+    (plain_bytes, plain_grads), (remat_bytes, remat_grads) = runs
+    assert plain_bytes - remat_bytes >= 2 * (2 * 64 * 64 * 64 * 4)
+    for a, b in zip(plain_grads, remat_grads):
+        assert torch.equal(a, b)

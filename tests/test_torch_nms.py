@@ -240,19 +240,54 @@ def test_golden_detections_through_the_port(prefix, use_pallas):
     "knob", [{"packed_sort": True}, {"class_top_k": 128}, {"coord_bf16": True}]
 )
 def test_unported_nms_knobs_raise(knob):
+    """Each knob of the NMS path, once refused, now runs through decode_nms
+    (one image, 320 anchors, M = 320 so the 384-column rows narrow to 128
+    under class_top_k) and agrees with pallas_decode_nms in interpret mode:
+    packed_sort and class_top_k with valid and classes bit for bit, scores
+    and boxes within 1e-6 (sigmoid and exp may round an ulp apart);
+    coord_bf16 within the reference's own bound for it, a Jaccard index
+    above 0.97 of the (class, score) set, since the reference's interpret
+    mode does not round its fused bfloat16 operations one by one
+    (tests/test_torch_nms_knobs.py holds the scan itself bit for bit)."""
     cls, box = _logits_offsets(np.random.default_rng(0), 1, 320, 3)
     anchors = ssd_anchors(tiny_test_config().anchors, 64)
-    with pytest.raises(NotImplementedError):
-        nms_kernel.decode_nms(
-            torch.from_numpy(cls), torch.from_numpy(box), torch.from_numpy(anchors), **knob
-        )
+    kw = dict(score_threshold=0.01, iou_threshold=0.45, pre_nms_top_k=160, max_detections=60,
+              max_per_class=30, exact_prefilter=True, **knob)
+    got = nms_kernel.decode_nms(
+        torch.from_numpy(cls), torch.from_numpy(box), torch.from_numpy(anchors), **kw
+    )
+    want = nms_pallas.pallas_decode_nms(
+        jnp.asarray(cls), jnp.asarray(box), jnp.asarray(anchors), interpret=True, **kw
+    )
+    assert got.valid.sum() > 20
+    if "coord_bf16" in knob:
+        def pairs(det):
+            v = np.asarray(det.valid)
+            return set(zip(np.asarray(det.classes)[v].tolist(),
+                           np.round(np.asarray(det.scores)[v], 5).tolist()))
+
+        a, b = pairs(got), pairs(want)
+        assert len(a & b) / len(a | b) > 0.97
+        return
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(got.classes.numpy(), np.asarray(want.classes))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes), rtol=0, atol=1e-6)
 
 
 def test_unported_per_level_heads_raises():
+    """eval.per_level_heads, once refused on the kernel path, is read only by
+    the int8 serving path (make_int8_predict_fn); the float postprocess
+    ignores it, as the reference's make_predict_fn does
+    (eval/evaluator.py:19-30): the same detections with it on and off."""
     from object_detector_tpu_torch.ops.postprocess import postprocess
 
-    cfg = tiny_test_config().override({"eval.per_level_heads": True})
+    cfg = tiny_test_config()
     cls, box = _logits_offsets(np.random.default_rng(0), 1, 320, 3)
     anchors = torch.from_numpy(ssd_anchors(cfg.anchors, 64))
-    with pytest.raises(NotImplementedError):
-        postprocess(torch.from_numpy(cls), torch.from_numpy(box), anchors, cfg, use_pallas=True)
+    args = (torch.from_numpy(cls), torch.from_numpy(box), anchors)
+    want = postprocess(*args, cfg, use_pallas=True)
+    got = postprocess(*args, cfg.override({"eval.per_level_heads": True}), use_pallas=True)
+    assert want.valid.any()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

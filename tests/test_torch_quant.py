@@ -180,9 +180,14 @@ def test_int8_logits_bf16_casts_only_the_class_logits(tiny):
 
 
 def test_unported_options_raise(tiny):
+    """A backbone the engine has no op list for raises. The per-level head
+    outputs, once refused here, run (tests/test_torch_per_level.py holds
+    them): one (B, H, W, a*C) class tensor a level."""
     ref_cfg, cfg, params, state, x, ref_qp = tiny
     qp, spec = quant_params_from_jax(ref_qp), engine.build_spec(cfg)
-    with pytest.raises(NotImplementedError):
-        engine.int8_forward(qp, spec, cfg, torch.from_numpy(x), concat_heads=False)
+    cls_levels, _ = engine.int8_forward(qp, spec, cfg, torch.from_numpy(x), concat_heads=False)
+    assert [tuple(t.shape[1:]) for t in cls_levels] == [
+        (f, f, a * cfg.model.num_classes)
+        for f, a in zip(cfg.anchors.feature_sizes, cfg.anchors.anchors_per_level)]
     with pytest.raises(NotImplementedError):
         engine.quantize_ssd(cfg.override({"model.backbone": "mobilenet"}), state, [])

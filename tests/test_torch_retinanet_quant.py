@@ -303,19 +303,94 @@ def test_quantize_retinanet_own_calibration_close_to_float(quant):
 
 
 def test_per_level_outputs_still_raise(quant):
-    cfg = quant["cfg"]
+    """The per-level head outputs (``concat_heads=False``, reference
+    quant/engine.py:1533-1540, :1582-1600), once refused, now run: the
+    heads' native (B, H, W, 9*C) and (B, H, W, 9*4) tensors of P3 to P7.
+    Concatenated they are the concat path's, bit for bit; each level is the
+    reference's op-by-op per-level output within 1e-5, as the concatenated
+    forward is (test_retinanet_int8_forward_matches_reference)."""
+    cfg, ref_cfg = quant["cfg"], quant["ref_cfg"]
     qp = quant_params_from_jax(quant["ref_qp"])
-    x = torch.from_numpy(quant["x"][:1])
-    with pytest.raises(NotImplementedError, match="concat"):
-        engine.retinanet_int8_forward(qp, _unfused_trunk_spec(), cfg, x, concat_heads=False)
+    x = torch.from_numpy(quant["x"])
+    cls_lv, box_lv = engine.retinanet_int8_forward(qp, _unfused_trunk_spec(), cfg, x,
+                                                   concat_heads=False)
+    cls_cat, box_cat = engine.retinanet_int8_forward(qp, _unfused_trunk_spec(), cfg, x)
+    want_cls, want_box = ref_engine.retinanet_int8_forward(
+        quant["ref_qp"], quant["ref_spec"], ref_cfg, jnp.asarray(quant["x"]), concat_heads=False)
+    assert len(cls_lv) == len(box_lv) == len(want_cls) == 5
+    c = cfg.model.num_classes
+    assert torch.equal(torch.cat([t.reshape(1, -1, c) for t in cls_lv], 1), cls_cat)
+    assert torch.equal(torch.cat([t.reshape(1, -1, 4) for t in box_lv], 1), box_cat)
+    for got, want in zip(cls_lv + box_lv, tuple(want_cls) + tuple(want_box)):
+        assert tuple(got.shape) == want.shape and got.shape[-1] in (9 * c, 9 * 4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
     taps_q = [(torch.tensor(q), s) for q, s in quant["taps_q"]]
-    with pytest.raises(NotImplementedError, match="concat"):
-        engine.run_int8_fpn_heads(qp, cfg, taps_q, concat=False)
-    per_level = cfg.override({"eval.per_level_heads": True})
-    with pytest.raises(NotImplementedError, match="per_level_heads"):
-        evaluator.make_int8_predict_fn(per_level, quant["state"], retinanet_anchors(SIZE),
-                                       np.zeros((1, SIZE, SIZE, 3), np.uint8), use_pallas=True,
-                                       device="cpu")
+    heads = engine.run_int8_fpn_heads(qp, cfg, taps_q, concat=False)
+    assert all(torch.equal(a, b) for a, b in zip(heads[0] + heads[1], cls_lv + box_lv))
+
+
+def test_int8_predict_fn_per_level_heads_matches_reference(quant):
+    """eval.per_level_heads through make_int8_predict_fn (reference
+    eval/evaluator.py:56-72): the heads' per-level outputs go to
+    postprocess_levels, against the reference's op-by-op per-level forward
+    and its postprocess_levels on the same scales (the tolerances of
+    `_assert_detections_match`). The detection set equals the concat
+    path's, as reference tests/test_quant.py:667-696 holds it; with the
+    float FPN (quantize_fpn_heads=False) the flag is not taken."""
+    from object_detector_tpu.ops.postprocess import postprocess_levels as ref_postprocess_levels
+
+    ref_cfg, cfg = (c.override({"eval.per_level_heads": True, "eval.nms_packed_sort": True,
+                                "eval.nms_class_top_k": 128})
+                    for c in (quant["ref_cfg"], quant["cfg"]))
+    ref_qp, ref_spec = quant["ref_qp"], quant["ref_spec"]
+    images = np.random.default_rng(10).integers(0, 256, quant["x"].shape, dtype=np.uint8)
+    x = jnp.asarray(_normalized(images))
+    anchors = retinanet_anchors(SIZE)
+    levels = ref_engine.retinanet_int8_forward(ref_qp, ref_spec, ref_cfg, x, concat_heads=False)
+    want = ref_postprocess_levels(*levels, jnp.asarray(anchors), ref_cfg)
+    seen = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(engine, "calibrate_scales",
+                   lambda *args, **kwargs: dict(ref_qp.act_scale))
+        mp.setattr(evaluator, "postprocess_levels",
+                   lambda *a, **k: seen.append(1) or _postprocess_levels(*a, **k))
+        predict = _with_env(lambda: evaluator.make_int8_predict_fn(
+            cfg, quant["state"], anchors, images, use_pallas=True, device="cpu"),
+            ODT_STEM_KERNEL="0", ODT_FUSED_BOTTLENECK="0")
+        got = predict(images)
+        concat = _with_env(lambda: evaluator.make_int8_predict_fn(
+            cfg.override({"eval.per_level_heads": False}), quant["state"], anchors, images,
+            use_pallas=True, device="cpu"), ODT_STEM_KERNEL="0", ODT_FUSED_BOTTLENECK="0")
+    assert seen == [1]
+    _assert_detections_match(got, want)
+    assert _detection_set(concat(images)) == _detection_set(got)
+    quantize = engine.quantize_retinanet
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("postprocess_levels without an int8 FPN")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(engine, "quantize_retinanet", lambda c, p, b: quantize(c, p, b, False))
+        mp.setattr(evaluator, "postprocess_levels", refuse)
+        det = evaluator.make_int8_predict_fn(cfg, quant["state"], anchors, images,
+                                             use_pallas=True, device="cpu")(images)
+    assert det.valid.any()
+
+
+def _postprocess_levels(*args, **kwargs):
+    from object_detector_tpu_torch.ops.postprocess import postprocess_levels
+
+    return postprocess_levels(*args, **kwargs)
+
+
+def _detection_set(det):
+    out = set()
+    for b in range(det.valid.shape[0]):
+        v = det.valid[b].numpy()
+        out |= {(b, int(c), round(float(s), 5), tuple(np.round(x, 5)))
+                for c, s, x in zip(det.classes[b].numpy()[v], det.scores[b].numpy()[v],
+                                   det.boxes[b].numpy()[v])}
+    return out
 
 
 # ---------------------------------------------------------------------------

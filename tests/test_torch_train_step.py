@@ -209,3 +209,33 @@ def test_unported_families_raise(both):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             step.make_train_step(cfg, ssd.SSDModel(cfg), anchors)
+
+
+def test_remat_block1_steps_equal_the_plain_steps(both, monkeypatch):
+    """model.remat_block1 (reference models/vgg.py:141-142) recomputes block
+    1 in the backward under torch.utils.checkpoint. Two augmented steps with
+    the pool kernel's route on: the metrics and the updated parameters bit
+    for bit those without it, four pool backwards a step either way. The
+    second step's parameters are the train state's, no longer the module's
+    own, which the recompute must not read."""
+    _, cfg, _, variables, anchors = both
+    batch = _tensors(_batch(cfg))
+    flat = flatten_tree(variables["params"])
+    calls = []
+    real = pool_bwd.max_pool_bwd_reference
+    monkeypatch.setattr(pool_bwd, "max_pool_bwd_reference",
+                        lambda x, y, g: calls.append(1) or real(x, y, g))
+    runs = {}
+    for remat in (False, True):
+        c = cfg.override({"model.remat_block1": remat, "model.pool_grad_kernel": True})
+        st = state.create_train_state(c.train, params_from_jax(flat))
+        fn = step.make_train_step(c, ssd.SSDModel(c), anchors, device="cpu", augment=True)
+        gen = torch.Generator().manual_seed(5)
+        calls.clear()
+        metrics = [fn(st, batch, gen)[1] for _ in range(2)]
+        runs[remat] = (metrics, st.params, len(calls))
+    (m0, p0, n0), (m1, p1, n1) = runs[False], runs[True]
+    assert n0 == n1 == 8
+    for a, b in zip(m0, m1):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
