@@ -242,7 +242,33 @@ Phases, each fatal on failure:
      from the same weights, seed and batch with cuDNN deterministic, the
      losses and parameters no further apart than two runs without it, 4
      pool-kernel launches a step either way, the peak memory of a step and
-     the step ms in turns.
+     the step ms in turns;
+ 42. torchvision-layout VGG16 (with its classifier) and ResNet-50 dicts at
+     full width from the key and shape inventory (He-scaled, seeded), saved
+     as .pth and converted by `python -m
+     object_detector_tpu_torch.cli.convert_weights` in a subprocess, read by
+     load_backbone_npz and grafted by inject_backbone into
+     ssd300_infer_bs64 and ssd512_resnet50_coco; each served at bs=64 in
+     float (B1 once, held on its rows) and int8 (B4, B3 and B1, or B6, B7
+     twelve times and B1, each held bit-equal to its plain version on the
+     path's inputs), img/s recorded; three bs=32 fine-tuning steps of
+     ssd300_vgg16_voc from the converted VGG16 with the pool kernel (4 B5
+     launches a step, finite losses);
+ 43. utils.profiling: `trace` around two converted int8 SSD-300 bs=64
+     calls writes a Chrome trace whose kernel events name B4, B3 and B1
+     (a window's first kernel records can be lost after earlier profiler
+     sessions; the count of each kernel's events is printed);
+     `StepTimer` laps over 20 bs=32 fine-tuning steps within 5% of CUDA
+     events on the same steps (medians); `enable_debug_checks` raises
+     FloatingPointError on a NaN pixel in a forward on the card and not on
+     the clean forward, and its handle undoes it;
+ 44. host work: 512 seeded smooth JPEGs (500x375 and 375x500) decoded into
+     a DecodedCache at 300 px by the native pool and by PIL (forced), which
+     decoder ran, each's images/s and thread count and the host's CPU; the
+     two within the reference's mean absolute difference of 8; two gloo
+     ranks on the card sharing one spill directory: both finish with the
+     in-process cache's images and exactly one decodes. Without the pool's
+     library, the reason, decoder "pil" and the PIL numbers only.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -759,6 +785,7 @@ def resnet_stem_timing(torch, int8_ops, resnet_stem, qp, op, stem_args, stem_kw)
 
 
 def main() -> int:
+    started = time.perf_counter()
     import numpy as np
     import torch
 
@@ -806,6 +833,16 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         return out, {name: w.launches for name, w in wrappers.items()}
+
+    mark = [started]
+
+    def mark_seconds(phases: str) -> None:
+        """Prints the seconds that ``phases`` took (since the last mark) and
+        the seconds since the script started."""
+        now = time.perf_counter()
+        print(json.dumps({"phase": "seconds", "phases": phases, "seconds": now - mark[0],
+                          "since_start": now - started}))
+        mark[0] = now
 
     # 1. The card.
     gpu = gpu_line()
@@ -888,6 +925,8 @@ def main() -> int:
     anchors_np = ssd_anchors(cfg64.anchors, cfg64.model.image_size)
     rng = np.random.default_rng(0)
     launches = {}
+
+    mark_seconds("1 to 3")
 
     # 4. Full-width SSD-300 through the Predictor, bs=1.
     predictor = Predictor(cfg1, params, VOC_CLASSES, device="cuda")
@@ -1080,6 +1119,8 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = True  # phase 10 is over: cuDNN's default again
 
+    mark_seconds("4 to 10")
+
     # 11. The pool-backward kernel against its plain version, bit-equal.
     pool_err, aten_equal = pool_kernel_cases(torch, np, pool_bwd)
 
@@ -1202,6 +1243,8 @@ def main() -> int:
 
     del held_train, batch, cache
     torch.cuda.empty_cache()
+
+    mark_seconds("11 to 16")
 
     # 17. The two ResNet kernels against their plain versions on synthetic cases.
     rstem_err, bott_err = resnet_kernel_cases(torch, resnet_stem, bottleneck)
@@ -1461,6 +1504,8 @@ def main() -> int:
         torch, np, port_config, engine, postprocess, normalize, make_int8_predict_fn, SSDModel,
         init_params, ssd_anchors)}))
 
+    mark_seconds("17 to 22")
+
     # 23. B4 (all of VGG block 1 in one kernel) against its plain version on
     # synthetic cases.
     stem_fp_err = stem_fp_kernel_cases(torch, stem_fp)
@@ -1651,6 +1696,8 @@ def main() -> int:
     del os.environ["ODT_STEM_FP"], trained
     work.cleanup()
 
+    mark_seconds("23 to 26")
+
     # 27 to 30. RetinaNet/FPN (retinanet_fpn_coco) in float and int8.
     rn_mods = types.SimpleNamespace(
         engine=engine, nms_kernel=nms_kernel, resnet_stem=resnet_stem, bottleneck=bottleneck,
@@ -1663,6 +1710,8 @@ def main() -> int:
     rstem_err = max(rstem_err, rn["stem_err"])
     bott_err = max(bott_err, rn["bottleneck_err"])
     max_abs_err = max(max_abs_err, rn["nms_err"])
+
+    mark_seconds("27 to 30")
 
     # 31 to 35. Training both ResNet-50 families, serving what was trained.
     from object_detector_tpu_torch.cli.main import _load_config, _restore_variables, build_parser
@@ -1682,11 +1731,15 @@ def main() -> int:
     bott_err = max(bott_err, rt["bottleneck_err"])
     max_abs_err = max(max_abs_err, rt["nms_err"])
 
+    mark_seconds("31 to 35")
+
     # 36 to 38. Data-parallel training over torch.distributed.
     rn_mods.__dict__.update(counted=counted, wrappers=wrappers)
     dp = data_parallel_phases(torch, np, rn_mods, launches, where)
     pool_err = max(pool_err, dp["pool_err"])
     max_abs_err = max(max_abs_err, dp["nms_err"])
+
+    mark_seconds("36 to 38")
 
     # 39 to 41. The serving knobs of the B1 path, and remat_block1.
     nms_bf16_err = nms_bf16_phase(torch, np, nms_kernel, where)
@@ -1699,6 +1752,23 @@ def main() -> int:
     rstem_err = max(rstem_err, kn["stem_err"])
     bott_err = max(bott_err, kn["bottleneck_err"])
     remat_phase(torch, np, rn_mods, counted, launches, where)
+
+    mark_seconds("39 to 41")
+
+    # 42 to 44. Converted torchvision backbones, profiling, the decoded cache.
+    surface = converted_backbone_phase(torch, np, rn_mods, counted, launches, where)
+    max_abs_err = max(max_abs_err, surface["nms_err"])
+    stem_fp_err = max(stem_fp_err, surface["stem_fp_err"])
+    l2norm_err = max(l2norm_err, surface["l2norm_err"])
+    rstem_err = max(rstem_err, surface["stem_err"])
+    bott_err = max(bott_err, surface["bottleneck_err"])
+    mark_seconds("42")
+    profiling_phase(torch, np, rn_mods, counted, launches, where, surface)
+    del surface
+    torch.cuda.empty_cache()
+    mark_seconds("43")
+    cache_phase(torch, np, where)
+    mark_seconds("44")
     bf16_at = {preset: {name: t[name] for name in ("default", "coord_bf16", "all")}
                for preset, t in kn["timing"].items()}
     bf16_300 = kn["timing"]["ssd300_infer_bs64"]["coord_bf16"]
@@ -4202,6 +4272,384 @@ def remat_phase(torch, np, m, counted, launches, where) -> dict:
               "step_ms_on": statistics.median(times[True]), **where}
     print(json.dumps(report))
     return report
+
+
+# Phases 42 to 44: converted backbones served and fine-tuned, the profiling
+# utilities, the decoded cache filled by the native pool and shared.
+FINE_TUNE_STEPS, TIMER_STEPS = 3, 20
+# Calls in phase 43's trace window: the first may lose its first kernel
+# records after earlier profiler sessions; the second is whole.
+TRACED_CALLS = 2
+# StepTimer's median lap against CUDA events on the same steps.
+TIMER_AGREEMENT = 0.05
+CACHE_IMAGES, CACHE_SIZE = 512, 300
+# The reference's bound between the native pool and PIL on smooth content
+# (tests/test_native_decode.py:56): area and bilinear resampling differ.
+NATIVE_VS_PIL_MEAN_LIMIT = 8.0
+
+
+def he_scaled_torchvision(torch, shapes: dict, seed: int) -> dict:
+    """A torchvision-layout state_dict from the key and shape inventory whose
+    activations stay finite through the whole backbone: He-scaled weights,
+    biases and BatchNorm shifts with stddev 0.05, BatchNorm scales in
+    [0.5, 1) and running variances in [0.5, 2)."""
+    import math
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for key, shape in shapes.items():
+        if key.endswith("num_batches_tracked"):
+            out[key] = torch.tensor(100)
+        elif key.endswith("running_var"):
+            out[key] = torch.rand(shape, generator=gen) * 1.5 + 0.5
+        elif len(shape) == 1 and key.endswith(".weight"):  # a BatchNorm's scale
+            out[key] = torch.rand(shape, generator=gen) * 0.5 + 0.5
+        elif len(shape) == 1:  # biases, BatchNorm shifts and running means
+            out[key] = torch.randn(shape, generator=gen) * 0.05
+        else:
+            out[key] = torch.randn(shape, generator=gen) * math.sqrt(2.0 / math.prod(shape[1:]))
+    return out
+
+
+def converted_backbone_phase(torch, np, m, counted, launches, where) -> dict:
+    """Phase 42: full-width torchvision VGG16 (its classifier too) and
+    ResNet-50 dicts from the inventory, saved as .pth, converted by the
+    port's CLI in a subprocess, read by load_backbone_npz and grafted by
+    inject_backbone into ssd300_infer_bs64 and ssd512_resnet50_coco. Each
+    served at bs=64 in float (B1 once, held on its rows) and int8 (B4, B3
+    and B1, or B6, B7 twelve times and B1, each held bit-equal to its plain
+    version on the path's inputs), img/s recorded; then FINE_TUNE_STEPS
+    bs=32 steps of ssd300_vgg16_voc from the converted VGG16 with the pool
+    kernel: 4 B5 launches and no other a step, finite losses. Returns the
+    kernels' largest differences and what phase 43 runs."""
+    from object_detector_tpu_torch.cli.convert_weights import load_backbone_npz
+    from object_detector_tpu_torch.utils.weights import (
+        inject_backbone, torchvision_state_dict_shapes,
+    )
+
+    out = {"nms_err": 0.0, "stem_fp_err": 0, "l2norm_err": 0, "stem_err": 0, "bottleneck_err": 0}
+    zeros = {k: 0 for k in m.wrappers}
+    rng = np.random.default_rng(42)
+    work = tempfile.TemporaryDirectory(prefix="odt_weights_")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    for arch, preset in (("vgg16", "ssd300_infer_bs64"), ("resnet50", "ssd512_resnet50_coco")):
+        t0 = time.perf_counter()
+        src, npz = f"{work.name}/{arch}.pth", f"{work.name}/{arch}.npz"
+        torch.save(he_scaled_torchvision(torch, torchvision_state_dict_shapes(arch), 42), src)
+        proc = subprocess.run(
+            [sys.executable, "-m", "object_detector_tpu_torch.cli.convert_weights", "--backbone",
+             arch, "--src", src, "--dst", npz], capture_output=True, text=True, timeout=300,
+            cwd=repo)
+        check(proc.returncode == 0,
+              f"convert_weights --backbone {arch} failed: {proc.stderr[-2000:]}")
+        convert_s = time.perf_counter() - t0
+        cfg = m.get_config(preset)
+        init = m.init_params(m.build_model(cfg), seed=0).state_dict()
+        backbone = load_backbone_npz(npz)
+        state = inject_backbone(init, backbone)
+        moved = [k for k in init if not torch.equal(state[k], init[k])]
+        check(sorted(moved) == sorted(f"backbone.{k}" for k in backbone)
+              and len(moved) == {"vgg16": 30, "resnet50": 265}[arch],
+              f"{arch}: the graft moved {len(moved)} entries of {len(backbone)}")
+        size = cfg.model.image_size
+        anchors_np = m.anchors_for_model(cfg.model.family, cfg.anchors, size)
+        images = torch.from_numpy(rng.integers(0, 256, (64, size, size, 3), dtype=np.uint8)).cuda()
+        calib = rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)
+        resnet = arch == "resnet50"
+
+        model = m.build_model(cfg)
+        model.load_state_dict(state)
+        predict = m.make_predict_fn(cfg, model, anchors_np, device="cuda")
+        predict(images)
+        det, got = counted(lambda: predict(images))
+        launches[f"converted_{arch}_float_bs64"] = got
+        check(got == {**zeros, "nms_rows": 1}, f"converted {arch} float bs=64 launched {got}")
+        check(bool(torch.isfinite(det.scores).all()) and bool(torch.isfinite(det.boxes).all())
+              and bool(det.valid.any()), f"converted {arch} float: detections not finite or empty")
+        rows, _ = hold_path(torch, m.nms_kernel, m.normalize, model, images, anchors_np, cfg)
+        out["nms_err"] = max(out["nms_err"], rows["max_abs_err"])
+        float_ms = host_ms(torch, lambda: predict(images), 5)
+        del rows
+
+        predict8 = m.make_int8_predict_fn(cfg, state, anchors_np, calib, device="cuda")
+        predict8(images)
+        det8, got8 = counted(lambda: predict8(images))
+        launches[f"converted_{arch}_int8_bs64"] = got8
+        want8 = RESNET_INT8_LAUNCHES if resnet else STEM_FP_LAUNCHES
+        check(got8 == want8, f"converted {arch} int8 bs=64 launched {got8}, expected {want8}")
+        check(bool(torch.isfinite(det8.scores).all()) and bool(det8.valid.any()),
+              f"converted {arch} int8: detections not finite or empty")
+        if resnet:
+            held = hold_resnet_int8_path(torch, m.engine, m.resnet_stem, m.bottleneck,
+                                         m.postprocess, m.normalize, predict8, images,
+                                         anchors_np, cfg)
+            out["stem_err"] = max(out["stem_err"], held["stem_err"])
+            out["bottleneck_err"] = max(out["bottleneck_err"], held["bottleneck_err"])
+        else:
+            held = hold_int8_path(torch, m.engine, m.stem, m.l2norm, m.postprocess, m.normalize,
+                                  predict8, images, anchors_np, cfg, stem_fp=m.stem_fp)
+            out["stem_fp_err"] = max(out["stem_fp_err"], held["stem_err"])
+            out["l2norm_err"] = max(out["l2norm_err"], held["l2norm_err"])
+        out["nms_err"] = max(out["nms_err"], held["nms_err"])
+        check(_same_detections(torch, held["detections"], det8),
+              f"converted {arch} int8: the served detections differ from the held rerun")
+        int8_ms = host_ms(torch, lambda: predict8(images), 5)
+        print(json.dumps({
+            "phase": "converted_backbone", "arch": arch, "preset": preset, "batch": 64,
+            "converted_entries": len(backbone), "pth_to_npz_seconds": convert_s,
+            "float_launches": got, "int8_launches": got8, "kernels_vs_plain_bit_equal": True,
+            "nms_rows": held["nms_rows"], "float_valid_detections": int(det.valid.sum()),
+            "int8_valid_detections": int(det8.valid.sum()),
+            "float_img_per_s": 64e3 / statistics.median(float_ms),
+            "int8_img_per_s": 64e3 / statistics.median(int8_ms),
+            "seconds": time.perf_counter() - t0, **where}))
+        if not resnet:
+            out.update(predict8=predict8, images=images, float_model=model, vgg_state=state)
+        del held, det, det8
+    work.cleanup()
+
+    # Fine-tuning from the converted VGG16, with the pool kernel.
+    cfg = m.get_config("ssd300_vgg16_voc").override({
+        "model.pool_grad_kernel": True, "data.dataset": "synthetic",
+        "train.batch_size": TRAIN_BATCH})
+    model = m.build_model(cfg).cuda()
+    model.load_state_dict(out.pop("vgg_state"))
+    size = cfg.model.image_size
+    anchors = m.anchors_for_model(cfg.model.family, cfg.anchors, size)
+    step_fn = m.make_train_step(cfg, model, anchors, device="cuda", augment=True)
+    state = m.create_train_state(cfg.train, model.state_dict())
+    cache = m.DecodedCache(m.make_synthetic_dataset(num_images=TRAIN_BATCH, image_size=size),
+                           size, cfg.data.max_boxes, 4)
+    batch = m.make_place(torch.device("cuda"))(cache.gather(np.arange(TRAIN_BATCH)))
+    torch.cuda.current_stream().wait_event(batch.pop("_ready"))
+    gen = torch.Generator().manual_seed(42)
+    losses = []
+    for i in range(FINE_TUNE_STEPS):
+        (state, metrics), got = counted(lambda: step_fn(state, batch, gen))
+        launches[f"converted_vgg16_fine_tune_step{i + 1}"] = got
+        check(got == {**zeros, "max_pool_bwd": 4},
+              f"fine-tuning step {i + 1} from the converted VGG16 launched {got}")
+        losses.append(float(metrics["loss"]))
+    check(all(np.isfinite(losses)), f"fine-tuning losses {losses}")
+    print(json.dumps({"phase": "converted_vgg16_fine_tune", "batch": TRAIN_BATCH,
+                      "steps": FINE_TUNE_STEPS, "losses": losses,
+                      "pool_launches_per_step": [4] * FINE_TUNE_STEPS, **where}))
+    out["train"] = (step_fn, state, batch, gen)
+    return out
+
+
+def profiling_phase(torch, np, m, counted, launches, where, surface) -> None:
+    """Phase 43: utils.profiling on the card. `trace` around TRACED_CALLS
+    int8 SSD-300 bs=64 calls of the converted model writes a Chrome trace
+    whose kernel events name B4, B3 and B1 (the count of each is printed:
+    after earlier profiler sessions a window's first kernel records, B4's
+    among them, were seen missing); `StepTimer` laps over TIMER_STEPS
+    bs=32 fine-tuning steps agree with CUDA events on the same steps within
+    TIMER_AGREEMENT (medians); `enable_debug_checks` raises
+    FloatingPointError on a NaN pixel in a forward of the converted float
+    model, is silent on the clean one, and its handle undoes it."""
+    import glob
+
+    from object_detector_tpu_torch.utils import profiling
+
+    predict8, images = surface["predict8"], surface["images"]
+    with tempfile.TemporaryDirectory(prefix="odt_trace_") as trace_dir:
+        with profiling.trace(trace_dir):
+            _, got = counted(lambda: [predict8(images) for _ in range(TRACED_CALLS)])
+        launches["traced_int8_bs64"] = got
+        check(got == {k: TRACED_CALLS * v for k, v in STEM_FP_LAUNCHES.items()},
+              f"the traced int8 calls launched {got}")
+        files = glob.glob(f"{trace_dir}/*.pt.trace.json")
+        check(len(files) == 1, f"trace() wrote {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    names = [kernel_name(e["name"]) for e in events if e.get("cat") == "kernel"]
+    named = {kernel: sum(fragment in n for n in names) for kernel, fragment in (
+        ("stem_fused_producer", "stem_fp_kernel"), ("l2norm_requant", "l2norm_requant_kernel"),
+        ("nms_rows", "nms_rows_kernel"))}
+    check(all(named.values()),
+          f"the trace does not name every kernel: {named}; it has {sorted(set(names))}")
+
+    step_fn, state, batch, gen = surface["train"]
+    for _ in range(2):
+        state, _ = step_fn(state, batch, gen)
+    torch.cuda.synchronize()
+    timer, laps, marks = profiling.StepTimer(), [], []
+    for _ in range(TIMER_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step_fn(state, batch, gen)
+        end.record()
+        laps.append(timer.lap(metrics) * 1e3)
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    events_ms = [s.elapsed_time(e) for s, e in marks]
+    lap_med, event_med = statistics.median(laps), statistics.median(events_ms)
+    check(abs(lap_med - event_med) <= TIMER_AGREEMENT * event_med,
+          f"StepTimer's median lap {lap_med} ms against CUDA events' {event_med} ms")
+
+    model = surface["float_model"]
+    x = m.normalize(images[:2].float() / 255.0)
+    bad = x.clone()
+    bad[0, 10, 10, 0] = float("nan")
+    raised = None
+    with profiling.enable_debug_checks():
+        with torch.inference_mode():
+            model(x)  # clean: silent
+            try:
+                model(bad)
+            except FloatingPointError as exc:
+                raised = str(exc)
+    check(raised is not None, "enable_debug_checks let a NaN through a forward on the card")
+    check(not torch.is_anomaly_enabled() and not torch.nn.modules.module._global_forward_hooks,
+          "the debug checks' handle left global state behind")
+    print(json.dumps({"phase": "profiling", "traced_calls": TRACED_CALLS,
+                      "trace_kernel_events_by_kernel": named,
+                      "trace_kernel_events": len(names), "traced_launches": got,
+                      "step_timer_median_ms": lap_med, "cuda_events_median_ms": event_med,
+                      "step_timer_vs_events": lap_med / event_med - 1.0, "steps": TIMER_STEPS,
+                      "debug_checks_raised": raised, **where}))
+
+
+def host_cpu() -> str:
+    """The host CPU's model name from /proc/cpuinfo, with its vendor, family
+    and model numbers (which name it where the model name is "unknown")."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip().lower(), value.strip())
+    except OSError:
+        pass
+    if "model name" not in fields:
+        return f"{platform.machine()} (no model name in /proc/cpuinfo)"
+    return (f"{fields['model name']} ({fields.get('vendor_id', '?')} family "
+            f"{fields.get('cpu family', '?')} model {fields.get('model', '?')})")
+
+
+def write_jpegs(np, directory: str, n: int, seed: int) -> list:
+    """n seeded smooth JPEGs (a sinusoid a channel, noise of stddev 2) at
+    VOC's 500x375 and 375x500; returns (path, width, height) each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    specs = [((500, 375) if i % 2 == 0 else (375, 500), rng.uniform(0.5, 2.0, (3, 2)),
+              rng.uniform(60, 190, 3), int(rng.integers(2**31))) for i in range(n)]
+
+    def write(i):
+        (w, h), freq, base, noise_seed = specs[i]
+        x = np.sin(np.arange(w, dtype=np.float32)[None, :, None] * freq[:, 0] * 2 * np.pi / w)
+        y = np.sin(np.arange(h, dtype=np.float32)[:, None, None] * freq[:, 1] * 2 * np.pi / h)
+        noise = np.random.default_rng(noise_seed).normal(0, 2, (h, w, 3))
+        img = np.clip(base + 35 * x + 35 * y + noise, 0, 255).astype(np.uint8)
+        path = os.path.join(directory, f"{i:05d}.jpg")
+        Image.fromarray(img).save(path, quality=90)
+        return path, w, h
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        return list(pool.map(write, range(n)))
+
+
+def jpeg_dataset(np, files):
+    from object_detector_tpu_torch.data.types import Dataset, ImageRecord
+
+    box = np.array([[0.1, 0.2, 0.6, 0.7]], np.float32)
+    records = [ImageRecord(image_id=os.path.basename(p), path=p, width=w, height=h, boxes=box,
+                           labels=np.ones(1, np.int32), difficult=np.zeros(1, bool))
+               for p, w, h in files]
+    return Dataset("jpeg_smoke", ["object"], records)
+
+
+def _digest(np, images) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(images).tobytes()).hexdigest()
+
+
+def cache_rank(torch, rank: int, world: int, files: list, spill_dir: str) -> dict:
+    """Phase 44 on one rank: DecodedCache of the JPEGs spilled to a shared
+    directory under a mesh of the gloo group."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from object_detector_tpu_torch.data.pipeline import DecodedCache
+    from object_detector_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(dist.group.WORLD, rank, world, torch.device("cuda", 0))
+    t0 = time.perf_counter()
+    cache = DecodedCache(jpeg_dataset(np, files), CACHE_SIZE, 100, max(1, os.cpu_count() // world),
+                         max_ram_bytes=0, spill_dir=spill_dir, mesh=mesh)
+    return {"rank": rank, "reused": cache.reused, "decoder": cache.decoder,
+            "seconds": time.perf_counter() - t0, "file": os.path.basename(cache.memmap_path),
+            "digest": _digest(np, cache.images)}
+
+
+def cache_phase(torch, np, where) -> None:
+    """Phase 44 (host work): CACHE_IMAGES seeded JPEGs decoded into a
+    DecodedCache at CACHE_SIZE px by the native pool and by PIL (forced),
+    each's images/s and thread count beside the host's CPU; the two within
+    the reference's bound on smooth content; then two gloo ranks on the card
+    sharing one spill directory: both finish, with the same images as the
+    in-process cache, and exactly one decoded. Where the pool cannot be
+    built, prints why and the PIL numbers only."""
+    import ctypes.util
+
+    from object_detector_tpu_torch.data import native_decode
+    from object_detector_tpu_torch.data.pipeline import DecodedCache
+
+    work = tempfile.TemporaryDirectory(prefix="odt_jpegs_")
+    t0 = time.perf_counter()
+    files = write_jpegs(np, work.name, CACHE_IMAGES, seed=44)
+    write_s = time.perf_counter() - t0
+    ds = jpeg_dataset(np, files)
+    threads = os.cpu_count() or 1
+    # A libjpeg to link against: a library of the pool built elsewhere (the
+    # reference's prebuilt one) loads on this host only where there is one.
+    report = {"phase": "decode_cache", "images": CACHE_IMAGES, "size": CACHE_SIZE,
+              "threads": threads, "host_cpu": host_cpu(), "host_cores": os.cpu_count(),
+              "libjpeg": ctypes.util.find_library("jpeg"),
+              "jpeg_write_seconds": write_s, "measured_on": "host"}
+    real = native_decode.decode_batch
+    native_decode.decode_batch = lambda *args, **kwargs: None  # PIL decodes everything
+    try:
+        t0 = time.perf_counter()
+        pil = DecodedCache(ds, CACHE_SIZE, 100, threads)
+        pil_s = time.perf_counter() - t0
+    finally:
+        native_decode.decode_batch = real
+    check(pil.decoder == "pil", f"the forced PIL cache says {pil.decoder}")
+    report["pil_images_per_s"] = CACHE_IMAGES / pil_s
+    t0 = time.perf_counter()
+    cache = DecodedCache(ds, CACHE_SIZE, 100, threads)
+    cache_s = time.perf_counter() - t0
+    reason = native_decode.load_error()
+    report["decoder"] = cache.decoder
+    if reason is None:
+        check(cache.decoder == "native", f"the library loaded but the cache says {cache.decoder}")
+        diff = np.abs(cache.images.astype(np.int16) - pil.images.astype(np.int16))
+        per_image = diff.reshape(CACHE_IMAGES, -1).mean(axis=1)
+        check(per_image.max() < NATIVE_VS_PIL_MEAN_LIMIT,
+              f"native against PIL: mean absolute difference {per_image.max()} on an image")
+        report.update(native_images_per_s=CACHE_IMAGES / cache_s,
+                      native_vs_pil_mean_abs_max=float(per_image.max()),
+                      native_vs_pil_mean_abs=float(per_image.mean()))
+    else:
+        check(cache.decoder == "pil", f"no library ({reason}) but the cache says {cache.decoder}")
+        report["native_unavailable"] = reason
+    ranks = dp_spawn(torch, 2, "cache_rank", (files, f"{work.name}/spill"), f"{work.name}/ranks")
+    check([r["reused"] for r in ranks] == [False, True],
+          f"the ranks sharing a spill: {[(r['rank'], r['reused']) for r in ranks]}")
+    check({r["digest"] for r in ranks} == {_digest(np, cache.images)},
+          "the ranks sharing a spill hold other images than the in-process cache")
+    report["shared_spill_ranks"] = [{k: r[k] for k in ("rank", "reused", "decoder", "seconds")}
+                                    for r in ranks]
+    print(json.dumps({**report, **where}))
+    work.cleanup()
 
 
 def _same_detections(torch, a, b) -> bool:

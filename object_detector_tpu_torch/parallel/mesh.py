@@ -118,13 +118,20 @@ class _AllReduceSum(torch.autograd.Function):
 class Mesh:
     """A 1-D data-parallel mesh seen from one rank: the process group, this
     process's rank in it, the world size and the device the rank computes
-    on. ``bytes_reduced`` counts the bytes this rank has all-reduced."""
+    on. ``bytes_reduced`` counts the bytes this rank has all-reduced.
+    ``local_rank`` is the rank among the processes of this host (the
+    launch's ``LOCAL_RANK``; the rank itself where it is not given)."""
 
     group: Any
     rank: int
     world: int
     device: torch.device
     bytes_reduced: int = 0
+    local_rank: Optional[int] = None
+
+    def __post_init__(self):
+        if self.local_rank is None:
+            self.local_rank = self.rank
 
     def all_reduce_(self, x: Tensor) -> Tensor:
         """SUM of the dense tensor ``x`` over the ranks, in place; returns it."""
@@ -188,9 +195,10 @@ def make_mesh(data_parallel: int = -1, device: str | torch.device = "cuda") -> O
             )
         return None
     dev = torch.device(device)
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
     if dev.type == "cuda":
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", dist.get_rank())))
-    return Mesh(dist.group.WORLD, dist.get_rank(), n, dev)
+        dev = torch.device("cuda", local)
+    return Mesh(dist.group.WORLD, dist.get_rank(), n, dev, local_rank=local)
 
 
 def shard_batch(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, Any]:

@@ -8,7 +8,8 @@ per kept step, ``step_<n>.pt``, written synchronously to a temporary name
 and renamed (so there is nothing to wait for or close). A checkpoint
 written before the statistics were kept holds none: it restores a model
 without BatchNorm (SSD-300/VGG16) and is refused for one with. The
-reference's orbax checkpoints are not read.
+reference's orbax checkpoints are converted to this format by
+``tools/convert_orbax_checkpoint.py``, where JAX is installed.
 
 Under data parallelism every rank holds the same state, so only rank 0
 writes (``mesh``), every rank waits for it at a barrier after each save,

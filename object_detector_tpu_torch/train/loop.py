@@ -7,7 +7,8 @@ JSONL metrics, with the host-to-device boundary crossed once per step.
 Data parallelism (``mesh.data_parallel``, `parallel.mesh`) runs one process
 a device. Every rank builds the same batch stream from the same seed, keeps
 its rows and the global batch's boxes (`parallel.mesh.shard_batch`), and
-holds its own decoded cache of the whole dataset. Rank 0 alone writes the
+holds its own decoded cache of the whole dataset (a spilled cache is
+decoded once a host and shared, `DecodedCache`). Rank 0 alone writes the
 metrics log and the checkpoints and decides the refusal of a directory that
 already holds one; every rank restores.
 """
@@ -36,6 +37,7 @@ from object_detector_tpu_torch.parallel import mesh as mesh_lib
 from object_detector_tpu_torch.train.checkpoint import CheckpointManager
 from object_detector_tpu_torch.train.state import TrainState, create_train_state
 from object_detector_tpu_torch.train.step import make_train_step
+from object_detector_tpu_torch.utils import profiling
 from object_detector_tpu_torch.utils.logging import MetricsLogger, setup_logging
 
 
@@ -124,7 +126,7 @@ def train(
     cache = DecodedCache(
         dataset, cfg.model.image_size, cfg.data.max_boxes, cfg.data.num_workers,
         max_ram_bytes=int(cfg.data.max_cache_ram_gb * 2**30),
-        spill_dir=cfg.data.cache_spill_dir or None,
+        spill_dir=cfg.data.cache_spill_dir or None, mesh=mesh,
     )
     batches = epoch_batches(
         cache, cfg.train.batch_size, cfg.train.seed, start_step=data_step
@@ -139,43 +141,31 @@ def train(
     start_step = state.step
     last_logged_step = start_step
 
-    profiler = None
-    if profile_dir:
-        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-        activities = [ProfilerActivity.CPU]
-        if dev.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(
-            activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)
-        )
-        profiler.start()
     try:
-        for step_i in range(start_step, num_steps):
-            batch = next(prefetcher)
-            state, metrics = step_fn(state, batch, generator)
-            data_step += 1
-            if ckpt_mgr is not None:
-                ckpt_mgr.save(state, generator, data_step, step=step_i + 1)
-            if (step_i + 1) % cfg.train.log_every == 0 or step_i + 1 == num_steps:
-                metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
-                now = time.perf_counter()
-                # Steps really done since the last log: right after a resume
-                # at step N and for the final partial window.
-                steps_done = step_i + 1 - last_logged_step
-                imgs_per_sec = cfg.train.batch_size * steps_done / max(now - t_last, 1e-9)
-                t_last = now
-                last_logged_step = step_i + 1
-                metrics_log.log(
-                    "train",
-                    step=step_i + 1,
-                    imgs_per_sec=imgs_per_sec,
-                    imgs_per_sec_chip=imgs_per_sec / world,
-                    **metrics,
-                )
+        with profiling.trace(profile_dir):
+            for step_i in range(start_step, num_steps):
+                batch = next(prefetcher)
+                state, metrics = step_fn(state, batch, generator)
+                data_step += 1
+                if ckpt_mgr is not None:
+                    ckpt_mgr.save(state, generator, data_step, step=step_i + 1)
+                if (step_i + 1) % cfg.train.log_every == 0 or step_i + 1 == num_steps:
+                    metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
+                    now = time.perf_counter()
+                    # Steps really done since the last log: right after a resume
+                    # at step N and for the final partial window.
+                    steps_done = step_i + 1 - last_logged_step
+                    imgs_per_sec = cfg.train.batch_size * steps_done / max(now - t_last, 1e-9)
+                    t_last = now
+                    last_logged_step = step_i + 1
+                    metrics_log.log(
+                        "train",
+                        step=step_i + 1,
+                        imgs_per_sec=imgs_per_sec,
+                        imgs_per_sec_chip=imgs_per_sec / world,
+                        **metrics,
+                    )
     finally:
-        if profiler is not None:
-            profiler.stop()
         prefetcher.close()
         if ckpt_mgr is not None:
             ckpt_mgr.save(state, generator, data_step, force=True)

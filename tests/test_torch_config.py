@@ -227,6 +227,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 names.remove("object_detector_tpu_torch.__main__")
 assert "object_detector_tpu_torch.models.retinanet" in names
 assert "object_detector_tpu_torch.parallel.mesh" in names
+for new in ("utils.weights", "cli.convert_weights", "utils.profiling", "data.native_decode"):
+    assert "object_detector_tpu_torch." + new in names, new
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -242,8 +244,9 @@ def test_port_imports_no_jax_and_no_reference():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # The training, ResNet, RetinaNet and data-parallel modules among them.
-    assert int(out.stdout.strip()) >= 46
+    # The training, ResNet, RetinaNet and data-parallel modules among them,
+    # and the weights, profiling and native decode modules.
+    assert int(out.stdout.strip()) >= 59
 
 
 def test_entry_points_default_to_cuda():
