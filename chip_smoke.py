@@ -485,7 +485,10 @@ def profile_window(torch, fn, iters: int) -> dict:
     kernels = {}
     launched = 0
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # A span (the program's ``odt.*`` ranges) is also listed on the
+        # device, over the kernels it launched: not a kernel of its own.
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:

@@ -8,6 +8,7 @@ serving path: SSD on VGG16 or ResNet-50, and RetinaNet/FPN) and
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
@@ -24,6 +25,10 @@ from object_detector_tpu_torch.ops.augment import normalize
 from object_detector_tpu_torch.ops.nms import Detections
 from object_detector_tpu_torch.ops.postprocess import postprocess, postprocess_levels
 from object_detector_tpu_torch.quant import engine
+from object_detector_tpu_torch.utils import profiling
+
+# Counts the calls of every predict function while a profiler records.
+PREDICT_CALLS = "odt.predict.calls"
 
 
 def make_predict_fn(
@@ -41,24 +46,36 @@ def make_predict_fn(
     dev = resolve_device(device)
     model.to(dev).eval()
     anchors = torch.as_tensor(np.asarray(anchors_center, np.float32), device=dev)
+    calls = itertools.count()
 
     @torch.inference_mode()
     def predict(images_u8) -> Detections:
-        cls_logits, box_offsets = model(_normalized(images_u8, dev))
-        return postprocess(cls_logits, box_offsets, anchors, cfg, use_pallas)
+        with _predict_span(calls):
+            cls_logits, box_offsets = model(_normalized(images_u8, dev))
+            return postprocess(cls_logits, box_offsets, anchors, cfg, use_pallas)
 
     return predict
+
+
+def _predict_span(calls: itertools.count):
+    """The ``odt.predict`` span of one call, its sequence number as the
+    span's args, and one more on `PREDICT_CALLS`."""
+    n = next(calls)
+    profiling.count(PREDICT_CALLS, 1)
+    return profiling.span("odt.predict", n)
 
 
 def _normalized(images_u8, dev: torch.device) -> torch.Tensor:
     """(B, H, W, 3) uint8 images (numpy or tensor) -> normalized float32 on
     ``dev``."""
-    images = torch.as_tensor(images_u8).to(dev)
+    with profiling.span("odt.upload"):
+        images = torch.as_tensor(images_u8).to(dev)
     if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
         raise ValueError(
             f"expected (B, H, W, 3) uint8 images, got {images.dtype} {tuple(images.shape)}"
         )
-    return normalize(images.float() / 255.0)
+    with profiling.span("odt.normalize"):
+        return normalize(images.float() / 255.0)
 
 
 def make_int8_predict_fn(
@@ -99,15 +116,17 @@ def make_int8_predict_fn(
     qp = qp.to(dev)
     anchors = torch.as_tensor(np.asarray(anchors_center, np.float32), device=dev)
     per_level = cfg.eval.per_level_heads and pallas and int8_fpn
+    calls = itertools.count()
 
     @torch.inference_mode()
     def predict(images_u8) -> Detections:
-        images = _normalized(images_u8, dev)
-        if per_level:
-            cls_levels, box_levels = forward(qp, spec, cfg, images, concat_heads=False)
-            return postprocess_levels(cls_levels, box_levels, anchors, cfg)
-        cls_logits, box_offsets = forward(qp, spec, cfg, images)
-        return postprocess(cls_logits, box_offsets, anchors, cfg, use_pallas)
+        with _predict_span(calls):
+            images = _normalized(images_u8, dev)
+            if per_level:
+                cls_levels, box_levels = forward(qp, spec, cfg, images, concat_heads=False)
+                return postprocess_levels(cls_levels, box_levels, anchors, cfg)
+            cls_logits, box_offsets = forward(qp, spec, cfg, images)
+            return postprocess(cls_logits, box_offsets, anchors, cfg, use_pallas)
 
     predict.qp, predict.spec = qp, spec
     return predict

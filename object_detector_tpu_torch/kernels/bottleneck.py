@@ -35,6 +35,7 @@ import torch
 
 from object_detector_tpu_torch.kernels import build, int8_pack
 from object_detector_tpu_torch.ops import int8 as int8_ops
+from object_detector_tpu_torch.utils.profiling import spanned
 
 Tensor = torch.Tensor
 
@@ -98,6 +99,7 @@ def _check(x, w1, deq1, bias1, w2, deq2, bias2, w3, deq3, bias3) -> None:
             raise ValueError(f"all operands must be on {x.device}, got one on {t.device}")
 
 
+@spanned("odt.kernel.bottleneck")
 def fused_bottleneck(
     x: Tensor, w1: Tensor, deq1: Tensor, bias1: Tensor, w2: Tensor, deq2: Tensor, bias2: Tensor,
     w3: Tensor, deq3: Tensor, bias3: Tensor, *, s1: float, s2: float, s3: float,

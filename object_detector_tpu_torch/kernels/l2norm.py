@@ -25,6 +25,7 @@ import torch
 
 from object_detector_tpu_torch.kernels import build
 from object_detector_tpu_torch.ops import int8 as int8_ops
+from object_detector_tpu_torch.utils.profiling import spanned
 
 Tensor = torch.Tensor
 
@@ -54,6 +55,7 @@ def _check(q0: Tensor, gamma: Tensor) -> None:
         raise ValueError(f"q0 on {q0.device}, gamma on {gamma.device}")
 
 
+@spanned("odt.kernel.l2norm")
 def l2norm_requant(q0: Tensor, gamma: Tensor, out_scale: float) -> Tensor:
     """Launches the CUDA kernel for CUDA tensors and runs
     `l2norm_requant_reference` for CPU tensors. ``l2norm_requant.launches``

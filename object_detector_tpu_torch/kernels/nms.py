@@ -36,6 +36,7 @@ from object_detector_tpu_torch.kernels import build
 from object_detector_tpu_torch.ops import boxes as box_ops
 from object_detector_tpu_torch.ops.nms import Detections, as_f32, top_k
 from object_detector_tpu_torch.ops.packsort import top_k_packed_idx
+from object_detector_tpu_torch.utils.profiling import spanned
 
 Tensor = torch.Tensor
 RowsFn = Callable[..., Tuple[Tensor, Tensor]]
@@ -135,6 +136,7 @@ def nms_rows_reference(
     return out_s, out_c
 
 
+@spanned("odt.kernel.nms")
 def nms_rows(
     coords: Tensor,
     scores: Tensor,

@@ -42,6 +42,7 @@ import torch
 
 from object_detector_tpu_torch.kernels import build, int8_pack
 from object_detector_tpu_torch.ops import int8 as int8_ops
+from object_detector_tpu_torch.utils.profiling import spanned
 
 Tensor = torch.Tensor
 
@@ -109,6 +110,7 @@ def _check(images: Tensor, w_q: Tensor, deq: Tensor, bias: Tensor) -> None:
             raise ValueError(f"all operands must be on {images.device}, got one on {t.device}")
 
 
+@spanned("odt.kernel.resnet_stem")
 def resnet_stem(
     images: Tensor, w_q: Tensor, deq: Tensor, bias: Tensor, in_scale: float, out_scale: float,
     packed: Optional[Tensor] = None,

@@ -33,6 +33,7 @@ import torch
 
 from object_detector_tpu_torch.kernels import build, int8_pack
 from object_detector_tpu_torch.ops import int8 as int8_ops
+from object_detector_tpu_torch.utils.profiling import spanned
 
 Tensor = torch.Tensor
 
@@ -88,6 +89,7 @@ def _check(q1: Tensor, w2: Tensor, deq: Tensor, bias: Tensor,
             raise ValueError(f"all operands must be on {q1.device}, got one on {t.device}")
 
 
+@spanned("odt.kernel.stem")
 def stem_conv12_pool(q1: Tensor, w2: Tensor, deq: Tensor, bias: Tensor, out_scale: float,
                      packed: Optional[Tensor] = None) -> Tensor:
     """Launches the CUDA kernel for CUDA tensors and runs

@@ -31,6 +31,7 @@ import torch
 
 from object_detector_tpu_torch.kernels import build, int8_pack, stem
 from object_detector_tpu_torch.ops import int8 as int8_ops
+from object_detector_tpu_torch.utils.profiling import spanned
 
 Tensor = torch.Tensor
 
@@ -85,6 +86,7 @@ def _check(x_q: Tensor, w1: Tensor, deq1: Tensor, bias1: Tensor,
             raise ValueError(f"all operands must be on {x_q.device}, got one on {t.device}")
 
 
+@spanned("odt.kernel.stem_fp")
 def stem_fused_producer(
     x_q: Tensor, w1: Tensor, deq1: Tensor, bias1: Tensor, s1: float,
     w2: Tensor, deq2: Tensor, bias2: Tensor, s2: float,

@@ -10,6 +10,11 @@ int32, exact on both devices) and everything else is plain PyTorch.
 Every requant divides by the scale held as a float32 tensor on the data's
 device: ATen's CUDA true-divide turns a CPU-scalar divisor into a multiply
 by its reciprocal, which flips codes at rounding boundaries.
+
+The steps run under the spans of `utils.profiling.span`, recorded while a
+profiler records: ``odt.int8.im2col`` (pads and the window copy),
+``odt.int8.gemm`` (``torch._int_mm``), ``odt.int8.epilogue`` (the requant)
+and ``odt.int8.pool`` (pools and the edge pad).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from object_detector_tpu_torch.models.vgg import same_pads
+from object_detector_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 Padding = Union[str, int]
@@ -64,13 +70,16 @@ def int_matmul(a: Tensor, b: Tensor, n: int) -> Tensor:
     """(M, K) int8 @ `gemm_operand` ``b`` -> (M, n) int32, exact; ``n`` is
     the kernel's output width (``b`` may be wider on the card)."""
     if a.device.type != "cuda":
-        return torch._int_mm(a, b)
+        with span("odt.int8.gemm"):
+            return torch._int_mm(a, b)
     m, k = a.shape
     mp, kp = _round_up(m, _MM_ROW_MULTIPLE), b.shape[0]
     if (mp, kp) != (m, k):
-        a = F.pad(a, (0, kp - k, 0, mp - m))
-    out = torch._int_mm(a, b)
-    return out[:m, :n] if (mp, b.shape[1]) != (m, n) else out
+        with span("odt.int8.im2col"):
+            a = F.pad(a, (0, kp - k, 0, mp - m))
+    with span("odt.int8.gemm"):
+        out = torch._int_mm(a, b)
+        return out[:m, :n] if (mp, b.shape[1]) != (m, n) else out
 
 
 def conv_pads(size: int, kernel: int, stride: int, dilation: int,
@@ -104,23 +113,24 @@ def conv_int8(
     pw = conv_pads(w_in, kw, stride, dilation, padding)
     ho = (h + ph[0] + ph[1] - dilation * (kh - 1) - 1) // stride + 1
     wo = (w_in + pw[0] + pw[1] - dilation * (kw - 1) - 1) // stride + 1
-    if ph != (0, 0) or pw != (0, 0):
-        x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
-    if kh == kw == 1 and stride == 1:
-        patches = x.reshape(b * ho * wo, cin)
-    else:
-        # (B, Ho, Wo, kh, kw, Cin) window view, copied once into (M, K) in
-        # the (ky, kx, cin) order of the HWIO kernel's rows. The copy moves
-        # each pixel's codes as the widest words that divide Cin.
-        word = next(dt for dt in (torch.int64, torch.int32, torch.int8)
-                    if cin % dt.itemsize == 0)
-        xw = x.contiguous().view(word)
-        sb, sh, sw, sc = xw.stride()
-        windows = xw.as_strided(
-            (b, ho, wo, kh, kw, xw.shape[-1]),
-            (sb, sh * stride, sw * stride, sh * dilation, sw * dilation, sc),
-        )
-        patches = windows.reshape(b * ho * wo, -1).view(torch.int8)
+    with span("odt.int8.im2col"):
+        if ph != (0, 0) or pw != (0, 0):
+            x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+        if kh == kw == 1 and stride == 1:
+            patches = x.reshape(b * ho * wo, cin)
+        else:
+            # (B, Ho, Wo, kh, kw, Cin) window view, copied once into (M, K)
+            # in the (ky, kx, cin) order of the HWIO kernel's rows. The copy
+            # moves each pixel's codes as the widest words that divide Cin.
+            word = next(dt for dt in (torch.int64, torch.int32, torch.int8)
+                        if cin % dt.itemsize == 0)
+            xw = x.contiguous().view(word)
+            sb, sh, sw, sc = xw.stride()
+            windows = xw.as_strided(
+                (b, ho, wo, kh, kw, xw.shape[-1]),
+                (sb, sh * stride, sw * stride, sh * dilation, sw * dilation, sc),
+            )
+            patches = windows.reshape(b * ho * wo, -1).view(torch.int8)
     acc = int_matmul(patches, gemm_operand(w) if operand is None else operand, cout)
     return acc.reshape(b, ho, wo, cout)
 
@@ -145,10 +155,11 @@ def requant_epilogue(
     does (the residual product is rounded before it is added). The ReLU is
     the clip's lower bound 0: dividing by a positive scale and rounding keep
     the sign, so clipping the code at 0 equals clipping y at 0 first."""
-    y = torch.mul(acc, deq).add_(bias)  # acc -> float32 rounds to nearest, as astype does
-    if resid is not None:
-        y.add_(resid.to(torch.float32).mul_(resid_scale))
-    return quantize(y, out_scale, 0.0 if relu else -127.0)
+    with span("odt.int8.epilogue"):
+        y = torch.mul(acc, deq).add_(bias)  # acc -> float32 rounds to nearest, as astype does
+        if resid is not None:
+            y.add_(resid.to(torch.float32).mul_(resid_scale))
+        return quantize(y, out_scale, 0.0 if relu else -127.0)
 
 
 def max_pool(
@@ -168,24 +179,26 @@ def max_pool(
         ph, pw = same_pads(h, size, stride, 1), same_pads(w, size, stride, 1)
     else:
         ph = pw = (0, 0)
-    if ph != (0, 0) or pw != (0, 0):
-        low = torch.iinfo(x.dtype).min if not x.dtype.is_floating_point else float("-inf")
-        x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]), value=low)
     ho = (h + ph[0] + ph[1] - size) // stride + 1
     wo = (w + pw[0] + pw[1] - size) // stride + 1
-    out = None
-    for dy in range(size):
-        for dx in range(size):
-            win = x[:, dy : dy + (ho - 1) * stride + 1 : stride,
-                    dx : dx + (wo - 1) * stride + 1 : stride, :]
-            out = win if out is None else torch.maximum(out, win)
-    return out.contiguous()
+    with span("odt.int8.pool"):
+        if ph != (0, 0) or pw != (0, 0):
+            low = torch.iinfo(x.dtype).min if not x.dtype.is_floating_point else float("-inf")
+            x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]), value=low)
+        out = None
+        for dy in range(size):
+            for dx in range(size):
+                win = x[:, dy : dy + (ho - 1) * stride + 1 : stride,
+                        dx : dx + (wo - 1) * stride + 1 : stride, :]
+                out = win if out is None else torch.maximum(out, win)
+        return out.contiguous()
 
 
 def pad_to_even(x: Tensor) -> Tensor:
     """Replicate the last row / column where H / W is odd (75 -> 76)."""
-    if x.shape[1] % 2:
-        x = torch.cat([x, x[:, -1:]], dim=1)
-    if x.shape[2] % 2:
-        x = torch.cat([x, x[:, :, -1:]], dim=2)
-    return x
+    with span("odt.int8.pool"):
+        if x.shape[1] % 2:
+            x = torch.cat([x, x[:, -1:]], dim=1)
+        if x.shape[2] % 2:
+            x = torch.cat([x, x[:, :, -1:]], dim=2)
+        return x

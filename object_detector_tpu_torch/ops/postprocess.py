@@ -18,6 +18,7 @@ from object_detector_tpu_torch.core.config import DetectorConfig
 from object_detector_tpu_torch.kernels.nms import decode_nms, decode_nms_levels
 from object_detector_tpu_torch.ops import boxes as box_ops
 from object_detector_tpu_torch.ops import nms as nms_ops
+from object_detector_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -41,27 +42,28 @@ def postprocess(
     """Batched decode -> per-class NMS. Returns batch-stacked Detections."""
     if use_pallas is None:
         use_pallas = cfg.eval.use_pallas_nms
-    if use_pallas:
-        # The logits keep their dtype (bf16 from the int8 heads with
-        # eval.int8_logits_bf16): the prefilter selects on them as they are.
-        return decode_nms(cls_logits, box_offsets.float(), anchors_center, **nms_kwargs(cfg))
+    with span("odt.postprocess"):
+        if use_pallas:
+            # The logits keep their dtype (bf16 from the int8 heads with
+            # eval.int8_logits_bf16): the prefilter selects on them as they are.
+            return decode_nms(cls_logits, box_offsets.float(), anchors_center, **nms_kwargs(cfg))
 
-    scores = scores_from_logits(cls_logits.float(), cfg.model.family)
-    decoded = box_ops.decode(
-        box_offsets.float(),
-        anchors_center,
-        cfg.anchors.center_variance,
-        cfg.anchors.size_variance,
-        clip=True,
-    )  # (B, A, 4)
-    return nms_ops.per_class_nms(
-        decoded,
-        scores,
-        score_threshold=cfg.eval.score_threshold,
-        iou_threshold=cfg.eval.nms_iou_threshold,
-        pre_nms_top_k=cfg.eval.pre_nms_top_k,
-        max_detections=cfg.eval.max_detections,
-    )
+        scores = scores_from_logits(cls_logits.float(), cfg.model.family)
+        decoded = box_ops.decode(
+            box_offsets.float(),
+            anchors_center,
+            cfg.anchors.center_variance,
+            cfg.anchors.size_variance,
+            clip=True,
+        )  # (B, A, 4)
+        return nms_ops.per_class_nms(
+            decoded,
+            scores,
+            score_threshold=cfg.eval.score_threshold,
+            iou_threshold=cfg.eval.nms_iou_threshold,
+            pre_nms_top_k=cfg.eval.pre_nms_top_k,
+            max_detections=cfg.eval.max_detections,
+        )
 
 
 def nms_kwargs(cfg: DetectorConfig) -> dict:
@@ -92,10 +94,11 @@ def postprocess_levels(
     as `postprocess` with use_pallas=True (the two-stage exact prefilter of
     `decode_nms_levels`). Kernel path only; pair with
     ``eval.per_level_heads``."""
-    return decode_nms_levels(
-        tuple(level_logits),
-        tuple(t.float() for t in level_offsets),
-        anchors_center,
-        tuple(cfg.anchors.anchors_per_level),
-        **nms_kwargs(cfg),
-    )
+    with span("odt.postprocess"):
+        return decode_nms_levels(
+            tuple(level_logits),
+            tuple(t.float() for t in level_offsets),
+            anchors_center,
+            tuple(cfg.anchors.anchors_per_level),
+            **nms_kwargs(cfg),
+        )

@@ -36,6 +36,11 @@ RetinaNet runs the ResNet trunk, then its FPN and shared heads in int8
 (`run_int8_fpn_heads`; `quantize_retinanet`, `retinanet_int8_forward`),
 calibrated by `run_float_fpn_heads`, which records the absmax at each of
 their requant points.
+
+While a profiler records, the int8 forwards run under ``odt.forward`` and
+each of their steps under one ``odt.int8.*`` or ``odt.kernel.*`` span
+(`utils.profiling`), and every epilogue adds its least bytes to the counter
+`EPILOGUE_BYTES`.
 """
 
 from __future__ import annotations
@@ -61,9 +66,13 @@ from object_detector_tpu_torch.kernels.stem import stem_conv12_pool
 from object_detector_tpu_torch.kernels.stem_fp import stem_fused_producer
 from object_detector_tpu_torch.models.retinanet import ANCHORS_PER_LOCATION, RetinaNetModel
 from object_detector_tpu_torch.ops import int8 as int8_ops
+from object_detector_tpu_torch.utils import profiling
+from object_detector_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 KernelFn = Callable[..., Tensor]
+# The least bytes of the int8 forward's epilogues (`_count_epilogue`).
+EPILOGUE_BYTES = "odt.int8.epilogue_bytes"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -589,6 +598,15 @@ def quantize_ssd(
 # Int8 inference pass
 # --------------------------------------------------------------------------
 
+def _count_epilogue(*tensors: Optional[Tensor]) -> None:
+    """Adds to `EPILOGUE_BYTES` the least bytes of one epilogue step: each
+    of ``tensors`` (its int32 accumulator, an addend, its output; None
+    skipped) moved once. Shapes only, while a profiler records."""
+    if profiling.enabled():
+        profiling.count(EPILOGUE_BYTES, sum(t.numel() * t.element_size()
+                                            for t in tensors if t is not None))
+
+
 def run_int8(
     qp: QuantParams,
     spec: Spec,
@@ -612,10 +630,11 @@ def run_int8(
     `resnet_stem_reference`, `fused_bottleneck_reference`)."""
     dev = images.device
     cur_scale = qp.act_scale["__input__"]
-    if spec and isinstance(spec[0], StemPoolPallasOp):
-        x = images.to(torch.float32)  # the stem kernel quantizes its input itself
-    else:
-        x = int8_ops.quantize(images.to(torch.float32, copy=True), qp.scale(cur_scale, dev))
+    with span("odt.int8.input"):
+        if spec and isinstance(spec[0], StemPoolPallasOp):
+            x = images.to(torch.float32)  # the stem kernel quantizes its input itself
+        else:
+            x = int8_ops.quantize(images.to(torch.float32, copy=True), qp.scale(cur_scale, dev))
     regs: Dict[str, Tuple[Tensor, float]] = {}
     taps: List[Any] = [None] * _num_taps(spec)
 
@@ -626,9 +645,11 @@ def run_int8(
         if op.add_register is not None:
             resid, rs = regs[op.add_register]
             resid_scale = qp.scale(rs, dev)
-        return int8_ops.requant_epilogue(acc, qp.deq(op.path, in_scale, dev), qp.bias[op.path],
-                                         qp.scale(qp.act_scale[op.path], dev), op.relu,
-                                         resid, resid_scale)
+        out = int8_ops.requant_epilogue(acc, qp.deq(op.path, in_scale, dev), qp.bias[op.path],
+                                        qp.scale(qp.act_scale[op.path], dev), op.relu,
+                                        resid, resid_scale)
+        _count_epilogue(acc, resid, out)
+        return out
 
     for op in spec:
         if isinstance(op, ConvOp):
@@ -680,8 +701,9 @@ def run_int8(
             x = int8_ops.pad_to_even(x)
         elif isinstance(op, TapOp):
             if dequantize_taps:
-                s = torch.full((), cur_scale, dtype=torch.bfloat16, device=dev)
-                taps[op.index] = x.to(torch.bfloat16) * s
+                with span("odt.int8.concat"):
+                    s = torch.full((), cur_scale, dtype=torch.bfloat16, device=dev)
+                    taps[op.index] = x.to(torch.bfloat16) * s
             else:
                 taps[op.index] = (x, cur_scale)
         else:
@@ -724,13 +746,16 @@ def apply_heads_int8(
             path = f"head{level}/{kind}"
             acc = int8_ops.conv_int8(tap, qp.w_int8[path], 1, "SAME", 1,
                                      operand=qp.gemm_operand(path))
-            y = acc.to(torch.float32).mul_(qp.deq(path, s_tap, tap.device)).add_(qp.bias[path])
-            if kind == "cls":
-                y = y.to(logits_dtype)
+            with span("odt.int8.epilogue"):
+                y = acc.to(torch.float32).mul_(qp.deq(path, s_tap, tap.device)).add_(qp.bias[path])
+                if kind == "cls":
+                    y = y.to(logits_dtype)
+            _count_epilogue(acc, y)
             out.append(y.reshape(b, h * w * a, width) if concat else y)
     if not concat:
         return tuple(cls_out), tuple(box_out)
-    return torch.cat(cls_out, dim=1), torch.cat(box_out, dim=1)
+    with span("odt.int8.concat"):
+        return torch.cat(cls_out, dim=1), torch.cat(box_out, dim=1)
 
 
 def _head_conv(x: Tensor, weight: Tensor, bias: Tensor, dtype: torch.dtype) -> Tensor:
@@ -785,13 +810,14 @@ def int8_forward(
     `run_int8` and `apply_heads_int8`."""
     fns = dict(stem_fn=stem_fn, resnet_stem_fn=resnet_stem_fn, bottleneck_fn=bottleneck_fn,
                stem_fp_fn=stem_fp_fn)
-    if int8_heads:
-        taps_q = run_int8(qp, spec, images, dequantize_taps=False, **fns)
-        logits_dtype = torch.bfloat16 if cfg.eval.int8_logits_bf16 else torch.float32
-        return apply_heads_int8(qp, taps_q, cfg, logits_dtype=logits_dtype, concat=concat_heads,
-                                l2norm_fn=l2norm_fn)
-    taps = run_int8(qp, spec, images, **fns)
-    return apply_heads(qp.float_params, taps, cfg)
+    with span("odt.forward"):
+        if int8_heads:
+            taps_q = run_int8(qp, spec, images, dequantize_taps=False, **fns)
+            logits_dtype = torch.bfloat16 if cfg.eval.int8_logits_bf16 else torch.float32
+            return apply_heads_int8(qp, taps_q, cfg, logits_dtype=logits_dtype,
+                                    concat=concat_heads, l2norm_fn=l2norm_fn)
+        taps = run_int8(qp, spec, images, **fns)
+        return apply_heads(qp.float_params, taps, cfg)
 
 
 # --------------------------------------------------------------------------
@@ -881,7 +907,9 @@ def _conv_f32(qp: QuantParams, x_q: Tensor, s_in: float, path: str, stride: int 
     reference's op order."""
     acc = int8_ops.conv_int8(x_q, qp.w_int8[path], stride, "SAME", 1,
                              operand=qp.gemm_operand(path))
-    return torch.mul(acc, qp.deq(path, s_in, x_q.device)).add_(qp.bias[path])
+    _count_epilogue(acc)
+    with span("odt.int8.epilogue"):
+        return torch.mul(acc, qp.deq(path, s_in, x_q.device)).add_(qp.bias[path])
 
 
 def _requant(qp: QuantParams, y: Tensor, key: str, codes: Optional[Dict[str, Tensor]],
@@ -890,7 +918,9 @@ def _requant(qp: QuantParams, y: Tensor, key: str, codes: Optional[Dict[str, Ten
     even, clipped (at 0 with ``relu``: the requant keeps the sign). The
     codes go into ``codes`` where it is given."""
     s = qp.act_scale[key]
-    q = int8_ops.quantize(y, qp.scale(s, y.device), 0.0 if relu else -127.0)
+    with span("odt.int8.epilogue"):
+        q = int8_ops.quantize(y, qp.scale(s, y.device), 0.0 if relu else -127.0)
+    _count_epilogue(q)
     if codes is not None:
         codes[key] = q
     return q, s
@@ -904,9 +934,15 @@ def run_int8_fpn(
     scales) -> {"P3".."P7": (codes, scale)}. The lateral sums are float32
     and requanted before the smooth convs; ReLU runs on P6's codes."""
     (q3, s3), (q4, s4), (q5, s5) = taps_q
+
+    def upsample_add(y: Tensor, coarse: Tensor) -> Tensor:
+        _count_epilogue(coarse)
+        with span("odt.int8.epilogue"):
+            return y + fpn_upsample2x(coarse)
+
     pre5 = _conv_f32(qp, q5, s5, "fpn/lateral5")
-    pre4 = _conv_f32(qp, q4, s4, "fpn/lateral4") + fpn_upsample2x(pre5)
-    pre3 = _conv_f32(qp, q3, s3, "fpn/lateral3") + fpn_upsample2x(pre4)
+    pre4 = upsample_add(_conv_f32(qp, q4, s4, "fpn/lateral4"), pre5)
+    pre3 = upsample_add(_conv_f32(qp, q3, s3, "fpn/lateral3"), pre4)
     pyramid: Dict[str, Tuple[Tensor, float]] = {}
     for lvl, pre in (("P3", pre3), ("P4", pre4), ("P5", pre5)):
         q_pre, s_pre = _requant(qp, pre, f"fpn/pre{lvl[1]}", codes)
@@ -914,8 +950,11 @@ def run_int8_fpn(
                                 f"fpn/{lvl}", codes)
     q_p6, s_p6 = pyramid["P6"] = _requant(qp, _conv_f32(qp, q5, s5, "fpn/p6", stride=2),
                                           "fpn/P6", codes)
-    pyramid["P7"] = _requant(qp, _conv_f32(qp, torch.clamp_min(q_p6, 0), s_p6, "fpn/p7",
-                                           stride=2), "fpn/P7", codes)
+    with span("odt.int8.epilogue"):
+        relu_p6 = torch.clamp_min(q_p6, 0)
+    _count_epilogue(q_p6, relu_p6)
+    pyramid["P7"] = _requant(qp, _conv_f32(qp, relu_p6, s_p6, "fpn/p7", stride=2), "fpn/P7",
+                             codes)
     return pyramid
 
 
@@ -939,13 +978,16 @@ def run_int8_heads(
                                     f"{head}/conv{i}@{lvl}", codes, relu=True)
             y = _conv_f32(qp, x_q, s_x, f"{head}/out")
             if head == "cls_head":
-                y = y.to(logits_dtype)
+                with span("odt.int8.epilogue"):
+                    y = y.to(logits_dtype)
+            _count_epilogue(y)
             b, h, w, _ = y.shape
             outs[head].append(y.reshape(b, h * w * ANCHORS_PER_LOCATION, _head_width(cfg, head))
                               if concat else y)
     if not concat:
         return tuple(outs["cls_head"]), tuple(outs["box_head"])
-    return torch.cat(outs["cls_head"], dim=1), torch.cat(outs["box_head"], dim=1)
+    with span("odt.int8.concat"):
+        return torch.cat(outs["cls_head"], dim=1), torch.cat(outs["box_head"], dim=1)
 
 
 def run_int8_fpn_heads(
@@ -1017,13 +1059,15 @@ def retinanet_int8_forward(
     per-level tuples (`run_int8_heads`). The two kernel functions as in
     `run_int8`."""
     fns = dict(resnet_stem_fn=resnet_stem_fn, bottleneck_fn=bottleneck_fn)
-    if "fpn/lateral3" in qp.w_int8:
-        taps_q = run_int8(qp, spec, images, dequantize_taps=False, **fns)
-        logits_dtype = torch.bfloat16 if cfg.eval.int8_logits_bf16 else torch.float32
-        return run_int8_fpn_heads(qp, cfg, taps_q, logits_dtype=logits_dtype, concat=concat_heads)
-    taps = run_int8(qp, spec, images, **fns)
-    fpn, cls_head, box_head = _float_fpn_heads(qp, cfg, images.device)
-    pyramid = fpn([t.to(dtype).permute(0, 3, 1, 2) for t in taps])
-    cls = [cls_head(p).float() for p in pyramid]
-    box = [box_head(p).float() for p in pyramid]
-    return torch.cat(cls, dim=1), torch.cat(box, dim=1)
+    with span("odt.forward"):
+        if "fpn/lateral3" in qp.w_int8:
+            taps_q = run_int8(qp, spec, images, dequantize_taps=False, **fns)
+            logits_dtype = torch.bfloat16 if cfg.eval.int8_logits_bf16 else torch.float32
+            return run_int8_fpn_heads(qp, cfg, taps_q, logits_dtype=logits_dtype,
+                                      concat=concat_heads)
+        taps = run_int8(qp, spec, images, **fns)
+        fpn, cls_head, box_head = _float_fpn_heads(qp, cfg, images.device)
+        pyramid = fpn([t.to(dtype).permute(0, 3, 1, 2) for t in taps])
+        cls = [cls_head(p).float() for p in pyramid]
+        box = [box_head(p).float() for p in pyramid]
+        return torch.cat(cls, dim=1), torch.cat(box, dim=1)

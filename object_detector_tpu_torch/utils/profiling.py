@@ -4,16 +4,67 @@ The port of ``object_detector_tpu/utils/profiling.py``: `trace` is a
 ``torch.profiler`` scope in place of ``jax.profiler``'s, `StepTimer` fences
 with ``torch.cuda.synchronize`` in place of ``block_until_ready``, and
 `enable_debug_checks` raises on NaNs as ``jax_debug_nans`` does.
+
+`span` and `count` are the program's own named ranges and counters
+(``odt.*``). They record only while a ``torch.profiler`` session records,
+`trace` or any other: the ranges are the session's ``user_annotation``
+events, on the clock of the launches that its device records correlate to;
+the counters add up in memory until `reset_counters`. With no session a
+span costs one check of the profiler's state.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 import time
-from typing import Any, Iterator, Mapping, Optional
+from typing import Any, Callable, ContextManager, Dict, Iterator, Mapping, Optional
 
 import torch
+
+_OFF = contextlib.nullcontext()
+_COUNTERS: Dict[str, int] = collections.defaultdict(int)
+
+
+def enabled() -> bool:
+    """Whether a ``torch.profiler`` session is recording in this process."""
+    return torch.autograd._profiler_enabled()
+
+
+def span(name: str, args: Any = None) -> ContextManager:
+    """A ``record_function`` range named ``name`` (``args``, where given,
+    as its string) while a profiler records; one shared no-op otherwise."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name, None if args is None else str(args))
+
+
+def spanned(name: str) -> Callable[[Callable], Callable]:
+    """A decorator: each call of the function runs inside ``span(name)``."""
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def count(name: str, n: int) -> None:
+    """Adds ``n`` to the counter ``name`` while a profiler records."""
+    if torch.autograd._profiler_enabled():
+        _COUNTERS[name] += n
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of the counters."""
+    return dict(_COUNTERS)
+
+
+def reset_counters() -> None:
+    _COUNTERS.clear()
 
 
 @contextlib.contextmanager

@@ -1,0 +1,182 @@
+"""The program's own spans and counters (`utils.profiling.span`, `count`) on
+the int8 serving path, on the CPU: nothing recorded without a profiler,
+every span of the path and its nesting under one, the epilogue's byte count
+against the shapes of the float path, and the same detections either way."""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from object_detector_tpu_torch.anchors.priors import anchors_for_model
+from object_detector_tpu_torch.convert import init_params
+from object_detector_tpu_torch.core import config
+from object_detector_tpu_torch.eval.evaluator import PREDICT_CALLS, make_int8_predict_fn
+from object_detector_tpu_torch.models.retinanet import build_model
+from object_detector_tpu_torch.quant import engine
+from object_detector_tpu_torch.utils import profiling
+
+torch.set_num_threads(2)
+
+CHILDREN = ("odt.int8.", "odt.kernel.")
+# The spans one int8 predict of each family reaches on the CPU. The hand
+# kernels' wrappers run their plain versions here: RetinaNet's pool is the
+# ResNet stem's.
+COMMON = {"odt.predict", "odt.upload", "odt.normalize", "odt.forward", "odt.int8.input",
+          "odt.int8.im2col", "odt.int8.gemm", "odt.int8.epilogue", "odt.int8.pool",
+          "odt.int8.concat", "odt.postprocess", "odt.kernel.nms"}
+SPANS = {
+    "ssd": COMMON | {"odt.kernel.stem_fp", "odt.kernel.l2norm"},
+    "retinanet": COMMON | {"odt.kernel.resnet_stem", "odt.kernel.bottleneck"},
+}
+# Operations that only make a view, or return their input as it is.
+VIEWS = {"aten::view", "aten::reshape", "aten::_reshape_alias", "aten::to"}
+CONFIGS = {"ssd": config.tiny_test_config, "retinanet": config.tiny_retinanet_config}
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def served(request):
+    """One family's int8 predict fn, called once to warm it, then once
+    without a profiler (``plain``, ``counters_off``: the counters after it)
+    and once under one (``traced``, ``events``, ``counters``)."""
+    cfg = CONFIGS[request.param]()
+    s = cfg.model.image_size
+    params = init_params(build_model(cfg), seed=3, random_batch_stats=True).state_dict()
+    rng = np.random.default_rng(4)
+    calib = rng.integers(0, 256, (4, s, s, 3), dtype=np.uint8)
+    images = rng.integers(0, 256, (2, s, s, 3), dtype=np.uint8)
+    anchors = anchors_for_model(cfg.model.family, cfg.anchors, s)
+    predict = make_int8_predict_fn(cfg, params, anchors, calib, use_pallas=True, device="cpu")
+    predict(images)
+    profiling.reset_counters()
+    plain = predict(images)
+    counters_off = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = predict(images)
+    counters = profiling.counters()
+    profiling.reset_counters()
+    return types.SimpleNamespace(
+        family=request.param, cfg=cfg, params=params, predict=predict, plain=plain,
+        counters_off=counters_off, traced=traced, events=list(prof.events()), counters=counters)
+
+
+def _ranges(events, name):
+    return [(e.time_range.start, e.time_range.end) for e in events if e.name == name]
+
+
+def _inside(rng, ranges) -> int:
+    """How many of ``ranges`` hold ``rng``."""
+    return sum(a <= rng[0] and rng[1] <= b for a, b in ranges)
+
+
+def test_a_span_is_the_shared_noop_without_a_profiler(served):
+    assert served.counters_off == {}
+    assert profiling.span("odt.a") is profiling.span("odt.b", args=3)
+    with profiling.span("odt.a") as entered:
+        assert entered is None
+    profiling.count("odt.a", 5)
+    assert profiling.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert profiling.span("odt.a") is not profiling.span("odt.a")
+        profiling.count("odt.a", 5)
+        profiling.count("odt.a", 2)
+    assert profiling.counters() == {"odt.a": 7}
+    profiling.reset_counters()
+    assert profiling.counters() == {}
+
+
+def test_a_traced_predict_emits_every_span_of_its_path_nested_once(served):
+    family, events = served.family, served.events
+    names = {e.name for e in events if e.name.startswith("odt.")}
+    assert names == SPANS[family]
+    assert served.counters[PREDICT_CALLS] == 1
+    (predict_range,) = _ranges(events, "odt.predict")
+    (forward_range,) = _ranges(events, "odt.forward")
+    for name in names:
+        ranges = _ranges(events, name)
+        for rng in ranges:
+            assert _inside(rng, [predict_range]), name
+            assert _inside(rng, ranges) == 1, f"{name} nests inside itself"
+    # Every operation of the forward that can move data lies under one engine
+    # step, or under a hand kernel's wrapper (whose plain version runs engine
+    # steps inside it on the CPU only). A reshape or a cast that copies does
+    # so in an operation of its own, which is held here too.
+    steps = {n: _ranges(events, n) for n in names if n.startswith(CHILDREN)}
+    kernels = [r for n, rs in steps.items() if n.startswith("odt.kernel.") for r in rs]
+    engine_steps = [r for n, rs in steps.items() if n.startswith("odt.int8.") for r in rs]
+    ops = [(e.name, (e.time_range.start, e.time_range.end)) for e in events
+           if e.name.startswith("aten::") and e.name not in VIEWS]
+    ops = [(op, rng) for op, rng in ops if _inside(rng, [forward_range])]
+    assert len(ops) > 20
+    for op, rng in ops:
+        assert _inside(rng, kernels) or _inside(rng, engine_steps) == 1, op
+
+
+def _float_conv_sizes(family, cfg, params, predict, batch):
+    """(path, output elements) of every conv the float trunk, FPN and heads
+    run on a batch of ``batch`` images, in order: the shapes of the int8
+    path's epilogues, found on another path."""
+    sizes = []
+    conv = engine._conv_float
+
+    def recording(x, weight, op):
+        y = conv(x, weight, op)
+        sizes.append((op.path, y.numel()))
+        return y
+
+    s = cfg.model.image_size
+    images = torch.zeros((batch, s, s, 3))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(engine, "_conv_float", recording)
+    try:
+        with torch.inference_mode():
+            if family == "retinanet":
+                folded = engine.fold_resnet50(params)
+                taps, _ = engine.run_float(folded, predict.spec, images)
+                engine.run_float_fpn_heads(folded, cfg, taps)
+            else:
+                taps, _ = engine.run_float(params, predict.spec, images)
+                engine.apply_heads(params, taps, cfg)
+    finally:
+        mp.undo()
+    return sizes
+
+
+def test_the_epilogue_byte_count_is_the_least_bytes_of_the_shapes(served):
+    """The accumulator read once (4 B), a residual (1 B) or an upsampled
+    coarser level (4 B) read once, the output written once (codes 1 B,
+    logits in their dtype, offsets 4 B), at every epilogue of the engine
+    (those inside the hand kernels are theirs)."""
+    family, cfg = served.family, served.cfg
+    sizes = _float_conv_sizes(family, cfg, served.params, served.predict,
+                              served.plain.scores.shape[0])
+    logit = (torch.bfloat16 if cfg.eval.int8_logits_bf16 else torch.float32).itemsize
+    trunk = {op.path: op for op in served.predict.spec if isinstance(op, engine.ConvOp)}
+    want = 0
+    for path, n in sizes:
+        if path in trunk:
+            want += n * (4 + 1 + (trunk[path].add_register is not None))
+    if family == "ssd":
+        heads = [n for path, n in sizes if path == "head"]  # cls, box of each level
+        assert len(heads) == 2 * len(cfg.anchors.feature_sizes)
+        for i, n in enumerate(heads):
+            want += n * (4 + (logit if i % 2 == 0 else 4))
+    else:
+        fpn = {path: n for path, n in sizes if path.startswith("fpn/")}
+        want += sum(5 * fpn[f"fpn/{p}"] for p in (
+            "lateral3", "lateral4", "lateral5", "smooth3", "smooth4", "smooth5", "p6", "p7"))
+        want += 4 * (fpn["fpn/lateral5"] + fpn["fpn/lateral4"])  # the upsampled addends
+        want += 2 * fpn["fpn/p6"]  # ReLU on P6's codes, in and out
+        for path, n in ((p, n) for p, n in sizes if "_head/" in p):
+            if path.endswith("/out"):
+                want += n * (4 + (logit if path.startswith("cls_head") else 4))
+            else:
+                want += 5 * n
+    assert want > 0 and served.counters[engine.EPILOGUE_BYTES] == want
+
+
+def test_detections_are_bit_identical_with_and_without_a_profiler(served):
+    for got, want in zip(served.traced, served.plain):
+        assert got.dtype == want.dtype and torch.equal(got, want)
