@@ -268,7 +268,18 @@ Phases, each fatal on failure:
      two within the reference's mean absolute difference of 8; two gloo
      ranks on the card sharing one spill directory: both finish with the
      in-process cache's images and exactly one decodes. Without the pool's
-     library, the reason, decoder "pil" and the PIL numbers only.
+     library, the reason, decoder "pil" and the PIL numbers only;
+ 45. the requant epilogue kernel (csrc/requant_epilogue.cu): its cases
+     against its plain version (quotients at half-integers, ragged widths,
+     unaligned and padded accumulators, every output kind); full-width
+     int8 SSD-300 (B4) and RetinaNet at bs=64 and bs=1 with one launch an
+     epilogue step (33 and 74 a forward), every launch held bit-equal to
+     the plain version on its own inputs and the forward's logits (and
+     RetinaNet's codes at every requant point) bit-equal to the same
+     forward with the plain version swapped in; a forward's launches timed
+     by CUDA-graph replay beside their bound and the plain version (also
+     by graph replay, and eager). Every serving phase's launch counts hold
+     the kernel's launches a forward (the dicts below).
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -327,10 +338,15 @@ OVERFIT_STEPS, OVERFIT_LR, OVERFIT_FALL = 60, 2e-3, 0.8
 # The kernels the two int8 SSD-300 serving paths must launch on the B2 route
 # (ODT_STEM_FP=0): conv1_1 through the engine's int8 conv, then B2.
 INT8_PATH_KERNELS = ("nms_rows", "stem_conv12_pool", "l2norm_requant")
-# Launches of one int8 SSD-300 forward with B4 selected (ODT_STEM_FP=1).
+# Launches of one int8 SSD-300 forward with B4 selected (ODT_STEM_FP=1): the
+# requant epilogue once a conv outside B4 (13 trunk convs, 8 extras, 6 levels
+# x cls and box).
 STEM_FP_LAUNCHES = {"nms_rows": 1, "nms_rows_bf16": 0, "stem_conv12_pool": 0,
                     "l2norm_requant": 1, "max_pool_bwd": 0, "resnet_stem": 0,
-                    "fused_bottleneck": 0, "stem_fused_producer": 1}
+                    "fused_bottleneck": 0, "stem_fused_producer": 1, "requant_epilogue": 33}
+# Requant epilogues of one int8 SSD-300 forward on the B2 route
+# (ODT_STEM_FP=0), which runs conv1_1 through the engine's conv too.
+B2_ROUTE_EPILOGUES = 34
 # The evaluate phase: the synthetic set's 64 images at eval.batch_size=48 are
 # two batches, the second overlapping the first by 32 rows.
 EVAL_BATCH, EVAL_IMAGES = 48, 64
@@ -338,10 +354,20 @@ EVAL_BATCH, EVAL_IMAGES = 48, 64
 EVAL_TRAIN_STEPS = 100
 # Launches of one int8 SSD-512/ResNet-50 forward: the stem once, the
 # bottleneck kernel for blocks 2 and later of the four stages (2 + 3 + 5 + 2),
-# the NMS scan once; no kernel of the VGG path.
-RESNET_INT8_LAUNCHES = {"resnet_stem": 1, "fused_bottleneck": 12, "nms_rows": 1,
+# the NMS scan once, the requant epilogue once a conv outside B6 and B7 (the
+# four projection blocks' 16, 8 extras, 7 levels x cls and box); no kernel of
+# the VGG path.
+SSD512_INT8_LAUNCHES = {"resnet_stem": 1, "fused_bottleneck": 12, "nms_rows": 1,
                         "nms_rows_bf16": 0, "stem_conv12_pool": 0, "l2norm_requant": 0,
-                        "max_pool_bwd": 0, "stem_fused_producer": 0}
+                        "max_pool_bwd": 0, "stem_fused_producer": 0, "requant_epilogue": 38}
+# Of one int8 RetinaNet forward: the same trunk; the requant epilogue for its
+# 16, the FPN's 8 and 2 heads x 5 levels x 5 convs.
+RETINANET_INT8_LAUNCHES = {**SSD512_INT8_LAUNCHES, "requant_epilogue": 74}
+# Requant epilogues of one forward on the unfused ResNet-50 spec (no B6, no
+# B7: the stem conv and 52 block convs), SSD-512 and RetinaNet; and of one
+# tiny_retinanet_config forward (head_depth 1: 2 heads x 5 levels x 2 convs).
+SSD512_UNFUSED_EPILOGUES, RETINANET_UNFUSED_EPILOGUES = 75, 111
+TINY_RETINANET_EPILOGUES = 44
 # (C, Cm, H = W) of the bottleneck kernel's inputs at 512 px, with the number
 # of blocks of each stage that run it.
 RESNET_BLOCKS = ((256, 64, 128, 2), (512, 128, 64, 3), (1024, 256, 32, 5), (2048, 512, 16, 2))
@@ -462,6 +488,7 @@ PROFILE_GROUPS = (
     ("pool_bwd_kernel", ("pool_bwd_kernel",)),
     ("resnet_stem_kernel", ("resnet_stem_kernel",)),
     ("bottleneck_kernel", ("bottleneck_kernel",)),
+    ("requant_epilogue_kernel", ("requant_epilogue_kernel",)),
     ("conv_or_gemm", ("conv", "cudnn", "gemm", "xmma", "implicit", "wgrad", "dgrad", "cutlass",
                       "imma", "sm90")),
 )
@@ -807,7 +834,7 @@ def main() -> int:
         from object_detector_tpu_torch.cli.main import main as cli_main
         from object_detector_tpu_torch.eval.evaluator import evaluate_dataset
         from object_detector_tpu_torch.kernels import (
-            bottleneck, build, l2norm, pool_bwd, resnet_stem, stem, stem_fp,
+            bottleneck, build, l2norm, pool_bwd, requant_epilogue, resnet_stem, stem, stem_fp,
         )
         from object_detector_tpu_torch.kernels import nms as nms_kernel
         from object_detector_tpu_torch.anchors.priors import anchors_for_model, retinanet_anchors
@@ -1016,6 +1043,9 @@ def main() -> int:
     for name in INT8_PATH_KERNELS:
         check(launches["int8_bs64"][name] >= 1,
               f"the int8 bs=64 path never launched the {name} kernel")
+    check(launches["int8_bs64"]["requant_epilogue"] == B2_ROUTE_EPILOGUES,
+          f"the int8 bs=64 path launched {launches['int8_bs64']['requant_epilogue']} requant "
+          f"epilogues, expected {B2_ROUTE_EPILOGUES}")
     check(det8.boxes.shape == (64, cfg64.eval.max_detections, 4)
           and bool(torch.isfinite(det8.boxes).all()) and bool(torch.isfinite(det8.scores).all())
           and bool(det8.valid.any()), "int8 bs=64 detections are not finite or are empty")
@@ -1044,6 +1074,9 @@ def main() -> int:
     for name in INT8_PATH_KERNELS:
         check(launches["int8_bs1"][name] >= 1,
               f"the int8 bs=1 Predictor path never launched the {name} kernel")
+    check(launches["int8_bs1"]["requant_epilogue"] == B2_ROUTE_EPILOGUES,
+          f"the int8 bs=1 Predictor path launched {launches['int8_bs1']['requant_epilogue']} "
+          f"requant epilogues, expected {B2_ROUTE_EPILOGUES}")
     check(len(dets8) > 0 and all(np.all(np.isfinite(d.box)) and 0 < d.score <= 1 for d in dets8),
           "the int8 bs=1 Predictor returned no or bad detections")
     # The kernels against their plain versions on the inputs this path gave
@@ -1296,9 +1329,9 @@ def main() -> int:
     quantize512_s = time.perf_counter() - t0
     predict512_8(images512)
     det512_8, launches["ssd512_int8_bs64"] = counted(lambda: predict512_8(images512))
-    check(launches["ssd512_int8_bs64"] == RESNET_INT8_LAUNCHES,
+    check(launches["ssd512_int8_bs64"] == SSD512_INT8_LAUNCHES,
           f"SSD-512 int8 bs=64 launches {launches['ssd512_int8_bs64']}, "
-          f"expected {RESNET_INT8_LAUNCHES}")
+          f"expected {SSD512_INT8_LAUNCHES}")
     check(det512_8.boxes.shape == (64, cfg512.eval.max_detections, 4)
           and bool(torch.isfinite(det512_8.boxes).all())
           and bool(torch.isfinite(det512_8.scores).all()) and bool(det512_8.valid.any()),
@@ -1354,7 +1387,8 @@ def main() -> int:
           f"SSD-512: the kernel spec's taps are {mean_diff} codes from the unfused spec's on "
           f"average, over the limits {TAP_MEAN_CODE_DIFF_LIMITS}")
     det_unfused, launches_unfused = counted(lambda: predict_unfused(images512))
-    check(launches_unfused == {**{k: 0 for k in wrappers}, "nms_rows": 1},
+    check(launches_unfused == {**{k: 0 for k in wrappers}, "nms_rows": 1,
+                               "requant_epilogue": SSD512_UNFUSED_EPILOGUES},
           f"the unfused spec launched {launches_unfused}")
     unfused_ms = host_ms(torch, lambda: predict_unfused(images512), 10)
     unfused_img_per_s = 64 / (statistics.median(unfused_ms) / 1e3)
@@ -1456,9 +1490,9 @@ def main() -> int:
     predictor512_8 = Predictor(cfg512, params512, class_names, device="cuda", int8=True)
     dets512_8, launches["ssd512_int8_bs1"] = counted(
         lambda: predictor512_8.predict_array(image, score_threshold=0.0))
-    check(launches["ssd512_int8_bs1"] == RESNET_INT8_LAUNCHES,
+    check(launches["ssd512_int8_bs1"] == SSD512_INT8_LAUNCHES,
           f"SSD-512 int8 bs=1 launches {launches['ssd512_int8_bs1']}, "
-          f"expected {RESNET_INT8_LAUNCHES}")
+          f"expected {SSD512_INT8_LAUNCHES}")
     check(len(dets512_8) > 0
           and all(np.all(np.isfinite(d.box)) and 0 < d.score <= 1 for d in dets512_8),
           "the SSD-512 int8 bs=1 Predictor returned no or bad detections")
@@ -1533,7 +1567,8 @@ def main() -> int:
     max_abs_err = max(max_abs_err, held_fp["nms_err"])
     os.environ["ODT_STEM_FP"] = "0"
     det_b2, launches_b2 = counted(lambda: predict_fp(images))
-    check(launches_b2["stem_conv12_pool"] == 1 and launches_b2["stem_fused_producer"] == 0,
+    check(launches_b2["stem_conv12_pool"] == 1 and launches_b2["stem_fused_producer"] == 0
+          and launches_b2["requant_epilogue"] == B2_ROUTE_EPILOGUES,
           f"the B2 route launched {launches_b2}")
     check(_same_detections(torch, det_b2, det_fp),
           "int8 bs=64: the detections with B4 differ from the B2 route's on the same QuantParams")
@@ -1564,7 +1599,7 @@ def main() -> int:
     def conv11():
         acc = int8_ops.conv_int8(sa[0], qp_fp.w_int8["backbone/conv1_1"], 1, "SAME", 1,
                                  operand=qp_fp.gemm_operand("backbone/conv1_1"))
-        return int8_ops.requant_epilogue(acc, sa[2], sa[3], qp_fp.scale(sa[4], sa[0].device))
+        return requant_epilogue.epilogue(acc, sa[2], sa[3], sa[4], relu=True).codes
 
     q1_chain = conv11()
     fp_out = stem_fp.stem_fused_producer(*sa, **skw)
@@ -1660,12 +1695,12 @@ def main() -> int:
         evals[name] = {"result": result, "launches": launches[name], "seconds": seconds,
                        "img_per_s": EVAL_IMAGES / seconds}
     batches = -(-EVAL_IMAGES // EVAL_BATCH)
-    want_fp = {**{k: 0 for k in wrappers}, "stem_fused_producer": batches,
-               "l2norm_requant": batches, "nms_rows": batches}
+    want_fp = {k: v * batches for k, v in STEM_FP_LAUNCHES.items()}
     check(launches["evaluate_int8_stem_fp"] == want_fp,
           f"evaluate --int8 with B4 launched {launches['evaluate_int8_stem_fp']}, expected {want_fp}")
     check(launches["evaluate_int8_b2"] == {**want_fp, "stem_fused_producer": 0,
-                                           "stem_conv12_pool": batches},
+                                           "stem_conv12_pool": batches,
+                                           "requant_epilogue": B2_ROUTE_EPILOGUES * batches},
           f"evaluate --int8 on the B2 route launched {launches['evaluate_int8_b2']}")
     check(launches["evaluate_float"] == {**{k: 0 for k in wrappers}, "nms_rows": batches},
           f"float evaluate launched {launches['evaluate_float']}")
@@ -1772,6 +1807,8 @@ def main() -> int:
     mark_seconds("43")
     cache_phase(torch, np, where)
     mark_seconds("44")
+    epi = requant_epilogue_phase(torch, np, counted, where)
+    mark_seconds("45")
     bf16_at = {preset: {name: t[name] for name in ("default", "coord_bf16", "all")}
                for preset, t in kn["timing"].items()}
     bf16_300 = kn["timing"]["ssd300_infer_bs64"]["coord_bf16"]
@@ -1948,6 +1985,29 @@ def main() -> int:
             "replaced_chain_ms": chain_ms,
             "replaced_chain": "conv1_1 as the engine's int8 conv and requant epilogue, then "
                               "stem_conv12_pool",
+        },
+        {
+            "name": "requant_epilogue",
+            "route": "cuda",
+            "source": "object_detector_tpu_torch/csrc/requant_epilogue.cu",
+            "replaces": None,
+            "replaces_none_because": "the reference left the requant epilogue to XLA, which "
+                                     "fused it; the port's eager float32 chain was 54 to 65% "
+                                     "of the int8 forward",
+            **counts("requant_epilogue"),
+            "max_abs_err": 0,
+            "ms": epi["paths"]["ssd300_int8_bs64"]["ms"],
+            "plain_ms": epi["paths"]["ssd300_int8_bs64"]["plain_ms"],
+            "bound_ms": epi["paths"]["ssd300_int8_bs64"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "library_none_because": "no single PyTorch call computes a dequant, a residual or "
+                                    "upsampled addend and a requant",
+            "by_path": epi["paths"],
+            "times_are": "sums over one forward's launches at each path's own inputs (the "
+                         "SSD-300 bs=64 path's at the top); plain_ms: the plain version (the "
+                         "former eager chain) on the same inputs; both by CUDA graph replay, "
+                         "by_path's plain_eager_ms by CUDA events around eager calls",
         },
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -2506,26 +2566,29 @@ def stem_fp_kernel_cases(torch, stem_fp):
 def unfused_stem(int8_ops, qp, op, images):
     """The engine's unfused chain for the ResNet stem on the QuantParams'
     laid-out constants: input quantize, int8 conv, requant epilogue, pool."""
+    from object_detector_tpu_torch.kernels import requant_epilogue as ep
+
     dev = images.device
     s_in = qp.act_scale["__input__"]
     x = int8_ops.quantize(images.clone(), qp.scale(s_in, dev))
     acc = int8_ops.conv_int8(x, qp.w_int8[op.path], 2, 3, 1, operand=qp.gemm_operand(op.path))
-    q = int8_ops.requant_epilogue(acc, qp.deq(op.path, s_in, dev), qp.bias[op.path],
-                                  qp.scale(qp.act_scale[op.path], dev))
+    q = ep.epilogue(acc, qp.deq(op.path, s_in, dev), qp.bias[op.path],
+                    qp.act_scale[op.path], relu=True).codes
     return int8_ops.max_pool(q, 3, 2, explicit_pad=1)
 
 
 def unfused_block(int8_ops, qp, op, x, in_scale):
     """The engine's unfused chain for one bottleneck block on the
     QuantParams' laid-out constants, as `run_int8` runs the expanded op."""
+    from object_detector_tpu_torch.kernels import requant_epilogue as ep
+
     dev = x.device
     resid, cur = x, in_scale
     for i, path in enumerate(op.conv_paths):
         acc = int8_ops.conv_int8(x, qp.w_int8[path], 1, "SAME", 1, operand=qp.gemm_operand(path))
         last = i == 2
-        x = int8_ops.requant_epilogue(
-            acc, qp.deq(path, cur, dev), qp.bias[path], qp.scale(qp.act_scale[path], dev), True,
-            resid if last else None, qp.scale(in_scale, dev) if last else None)
+        x = ep.epilogue(acc, qp.deq(path, cur, dev), qp.bias[path], qp.act_scale[path], True,
+                        resid if last else None, in_scale if last else None).codes
         cur = qp.act_scale[path]
     return x
 
@@ -2801,9 +2864,9 @@ def retinanet_phases(torch, np, m, counted, wrappers, launches, gen, rng, image,
           "the RetinaNet QuantParams hold no int8 FPN and heads")
     predict8(images)
     det8, launches["retinanet_int8_bs64"] = counted(lambda: predict8(images))
-    check(launches["retinanet_int8_bs64"] == RESNET_INT8_LAUNCHES,
+    check(launches["retinanet_int8_bs64"] == RETINANET_INT8_LAUNCHES,
           f"RetinaNet int8 bs=64 launches {launches['retinanet_int8_bs64']}, "
-          f"expected {RESNET_INT8_LAUNCHES}")
+          f"expected {RETINANET_INT8_LAUNCHES}")
     check(det8.boxes.shape == (64, cfg.eval.max_detections, 4)
           and bool(torch.isfinite(det8.boxes).all()) and bool(torch.isfinite(det8.scores).all())
           and bool(det8.valid.any()), "RetinaNet int8 bs=64 detections are not finite or empty")
@@ -2860,7 +2923,8 @@ def retinanet_phases(torch, np, m, counted, wrappers, launches, gen, rng, image,
           f"the limits {RETINANET_MEAN_CODE_DIFF_LIMITS}")
     del codes
     det_unfused, launches_unfused = counted(lambda: predict_unfused(images))
-    check(launches_unfused == {**{k: 0 for k in wrappers}, "nms_rows": 1},
+    check(launches_unfused == {**{k: 0 for k in wrappers}, "nms_rows": 1,
+                               "requant_epilogue": RETINANET_UNFUSED_EPILOGUES},
           f"the RetinaNet unfused spec launched {launches_unfused}")
     unfused_ms = host_ms(torch, lambda: predict_unfused(images), 10)
     print(json.dumps({"phase": "retinanet_int8_predict_bs64", "quantize_s": quantize_s,
@@ -2925,9 +2989,9 @@ def retinanet_phases(torch, np, m, counted, wrappers, launches, gen, rng, image,
     predictor8 = m.Predictor(cfg, params, class_names, device="cuda", int8=True)
     dets8, launches["retinanet_int8_bs1"] = counted(
         lambda: predictor8.predict_array(image, score_threshold=0.0))
-    check(launches["retinanet_int8_bs1"] == RESNET_INT8_LAUNCHES,
+    check(launches["retinanet_int8_bs1"] == RETINANET_INT8_LAUNCHES,
           f"RetinaNet int8 bs=1 launches {launches['retinanet_int8_bs1']}, "
-          f"expected {RESNET_INT8_LAUNCHES}")
+          f"expected {RETINANET_INT8_LAUNCHES}")
     check(len(dets8) > 0 and all(np.all(np.isfinite(d.box)) and 0 < d.score <= 1 for d in dets8),
           "the RetinaNet int8 bs=1 Predictor returned no or bad detections")
     held1 = hold_resnet_int8_path(torch, engine, resnet_stem, bottleneck, postprocess, normalize,
@@ -3037,7 +3101,8 @@ def retinanet_reference_check(torch, np, m, counted, wrappers, launches) -> dict
     check(launches["evaluate_retinanet_float"] == {**{k: 0 for k in wrappers}, "nms_rows": batches}
           and launches["evaluate_retinanet_int8"] == {
               **{k: 0 for k in wrappers}, "nms_rows": batches, "resnet_stem": batches,
-              "fused_bottleneck": 12 * batches},
+              "fused_bottleneck": 12 * batches,
+              "requant_epilogue": TINY_RETINANET_EPILOGUES * batches},
           f"RetinaNet evaluate launched {launches['evaluate_retinanet_float']} (float), "
           f"{launches['evaluate_retinanet_int8']} (int8)")
     return {"f32_logits_max_abs_err": err_f32,
@@ -3247,7 +3312,7 @@ def serve_trained(torch, np, m, counted, wrappers, launches, preset: str, ck: st
         with contextlib.redirect_stdout(buf):
             rc, launches[name] = counted(lambda: m.cli_main(argv + (["--int8"] if int8 else [])))
         check(rc == 0, f"{name}: main returned {rc}")
-        want = RESNET_INT8_LAUNCHES if int8 else {**{k: 0 for k in wrappers}, "nms_rows": 1}
+        want = int8_launches(cfg) if int8 else {**{k: 0 for k in wrappers}, "nms_rows": 1}
         check(launches[name] == want, f"{name} launched {launches[name]}, expected {want}")
         lines = [json.loads(line) for line in buf.getvalue().splitlines()]
         predictor = m.Predictor(cfg, served, device="cuda", int8=int8)
@@ -3293,7 +3358,7 @@ def serve_trained(torch, np, m, counted, wrappers, launches, preset: str, ck: st
         check({"mAP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100"} <= set(result)
               and all(np.isfinite(v) for v in result.values()),
               f"{name}: not a COCO dict of finite values: {result}")
-        per_batch = RESNET_INT8_LAUNCHES if int8 else {**{k: 0 for k in wrappers}, "nms_rows": 1}
+        per_batch = int8_launches(cfg) if int8 else {**{k: 0 for k in wrappers}, "nms_rows": 1}
         want = {k: v * batches for k, v in per_batch.items()}
         check(launches[name] == want, f"{name} launched {launches[name]}, expected {want}")
         report[name] = {"result": result, "launches": launches[name], "seconds": seconds}
@@ -3454,14 +3519,23 @@ def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches (the NMS
     scan's two instantiations apart)."""
     from object_detector_tpu_torch.kernels import (
-        bottleneck, l2norm, nms, pool_bwd, resnet_stem, stem, stem_fp,
+        bottleneck, l2norm, nms, pool_bwd, requant_epilogue, resnet_stem, stem, stem_fp,
     )
 
     return {"nms_rows": nms.nms_rows, "nms_rows_bf16": nms.nms_rows.bf16,
             "stem_conv12_pool": stem.stem_conv12_pool,
             "l2norm_requant": l2norm.l2norm_requant, "max_pool_bwd": pool_bwd.max_pool_bwd,
             "resnet_stem": resnet_stem.resnet_stem, "fused_bottleneck": bottleneck.fused_bottleneck,
-            "stem_fused_producer": stem_fp.stem_fused_producer}
+            "stem_fused_producer": stem_fp.stem_fused_producer,
+            "requant_epilogue": requant_epilogue.epilogue}
+
+
+def int8_launches(cfg) -> dict:
+    """The kernel launches of one int8 forward of ``cfg``'s model (B4
+    selected on VGG)."""
+    if cfg.model.family == "retinanet":
+        return RETINANET_INT8_LAUNCHES
+    return SSD512_INT8_LAUNCHES if cfg.model.backbone == "resnet50" else STEM_FP_LAUNCHES
 
 
 def dp_spawn(torch, world: int, fn_name: str, args: tuple, work_dir: str) -> list:
@@ -4117,7 +4191,7 @@ def knob_phases(torch, np, m, counted, launches, where) -> dict:
         calib = rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)
         images = torch.from_numpy(rng.integers(0, 256, (64, size, size, 3), dtype=np.uint8)).cuda()
         anchors_np = m.anchors_for_model(cfg0.model.family, cfg0.anchors, size)
-        want_base = RESNET_INT8_LAUNCHES if resnet else STEM_FP_LAUNCHES
+        want_base = int8_launches(cfg0)
         report, dets, paths = {}, {}, {}
         for name, overrides in KNOB_VARIANTS:
             cfg = cfg0.override(overrides)
@@ -4378,7 +4452,7 @@ def converted_backbone_phase(torch, np, m, counted, launches, where) -> dict:
         predict8(images)
         det8, got8 = counted(lambda: predict8(images))
         launches[f"converted_{arch}_int8_bs64"] = got8
-        want8 = RESNET_INT8_LAUNCHES if resnet else STEM_FP_LAUNCHES
+        want8 = int8_launches(cfg)
         check(got8 == want8, f"converted {arch} int8 bs=64 launched {got8}, expected {want8}")
         check(bool(torch.isfinite(det8.scores).all()) and bool(det8.valid.any()),
               f"converted {arch} int8: detections not finite or empty")
@@ -4653,6 +4727,171 @@ def cache_phase(torch, np, where) -> None:
                                     for r in ranks]
     print(json.dumps({**report, **where}))
     work.cleanup()
+
+
+def epilogue_bound_ms(calls) -> float:
+    """Least time of the captured epilogue calls (arguments by name,
+    outputs): each accumulator, residual and addend (the coarser level,
+    once) read, each output (codes, ReLU'd codes, sum) written once, at HBM
+    bandwidth."""
+    moved = 0
+    for kw, out in calls:
+        ins = [kw["acc"], kw.get("resid"), kw.get("addend")]
+        moved += sum(t.numel() * t.element_size() for t in ins + list(out) if t is not None)
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def epilogue_cases(torch, ep) -> int:
+    """The kernel against its plain version on synthetic cases: quotients
+    at half-integers of both signs and past the clip (deq 2^-4, out_scale
+    2^-3), accumulators past 2^22, ragged widths, an unaligned and a padded
+    accumulator view, every output kind. Returns the number of cases."""
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    n = 0
+    for shape in ((64, 38, 38, 512), (4, 19, 19, 126), (2, 16, 16, 256), (1, 1, 1, 3)):
+        c, rows = shape[-1], shape[0] * shape[1] * shape[2]
+        for ties in (False, True):
+            if ties:
+                acc = (torch.arange(rows * c, device="cuda", dtype=torch.int32) % 601
+                       - 300).reshape(shape)
+                deq, bias, s = (torch.full((c,), 0.0625, device="cuda"),
+                                torch.zeros(c, device="cuda"), 0.125)
+            else:
+                acc = torch.randint(-(1 << 20), 1 << 20, shape, generator=gen, device="cuda",
+                                    dtype=torch.int32) * 37
+                deq = (torch.rand(c, generator=gen, device="cuda") + 0.5) * 4e-6
+                bias = torch.randn(c, generator=gen, device="cuda") * 0.1
+                s = float((acc.float() * deq + bias).abs().max().item() / 200)
+            resid = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                  dtype=torch.int8)
+            addend = (torch.randn(shape[0], shape[1] // 2, shape[2] // 2, c, generator=gen,
+                                  device="cuda") if shape[1] % 2 == 0 and shape[2] % 2 == 0
+                      else None)
+            wide = torch.zeros(shape[:-1] + (c + 1,), dtype=torch.int32, device="cuda")
+            wide[..., 1:] = acc
+            # int_matmul's result: rows padded to 32 and columns to 8, sliced.
+            padded = torch.zeros((-(-rows // 32) * 32, -(-c // 8) * 8), dtype=torch.int32,
+                                 device="cuda")
+            padded[:rows, :c] = acc.reshape(-1, c)
+            views = (acc, wide[..., 1:], padded[:rows, :c].reshape(shape))
+            kinds = (dict(out_scale=s, relu=True), dict(out_scale=s, relu_codes=True),
+                     dict(out_scale=s, resid=resid, resid_scale=0.0173),
+                     dict(sum_dtype=torch.float32), dict(sum_dtype=torch.bfloat16),
+                     dict(out_scale=s, sum_dtype=torch.float32, addend=addend))
+            for view in views:
+                for kw in kinds:
+                    if "addend" in kw and addend is None:
+                        continue
+                    got = ep.epilogue(view, deq, bias, **kw)
+                    torch.cuda.synchronize()
+                    want = ep.epilogue_reference(view, deq, bias, **kw)
+                    for g, w in zip(got, want):
+                        check((g is None) == (w is None) and (g is None or torch.equal(g, w)),
+                              f"requant epilogue differs from its plain version at {shape} "
+                              f"(ties {ties}, {sorted(kw)})")
+                    n += 1
+    return n
+
+
+def requant_epilogue_phase(torch, np, counted, where) -> dict:
+    """Phase 45: the requant epilogue kernel on its cases and on the four
+    int8 serving paths' own inputs (see the module docstring)."""
+    import inspect
+
+    from object_detector_tpu_torch.convert import init_params
+    from object_detector_tpu_torch.core.config import get_config
+    from object_detector_tpu_torch.kernels import requant_epilogue as ep
+    from object_detector_tpu_torch.models.retinanet import build_model
+    from object_detector_tpu_torch.quant import engine
+
+    signature = inspect.signature(ep.epilogue_reference)
+    cases = epilogue_cases(torch, ep)
+    print(json.dumps({"phase": "requant_epilogue_cases", "cases": cases, "bit_equal": True}))
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    paths = {}
+    for preset in ("ssd300_infer_bs64", "retinanet_fpn_coco"):
+        cfg = get_config(preset)
+        size = cfg.model.image_size
+        params = init_params(build_model(cfg), seed=0, random_batch_stats=True).state_dict()
+        params = {k: v.cuda() for k, v in params.items()}
+        calib = torch.randn(4, size, size, 3, generator=gen, device="cuda")
+        if cfg.model.family == "retinanet":
+            qp, spec = engine.quantize_retinanet(cfg, params, [calib])
+            forward, family = engine.retinanet_int8_forward, "retinanet"
+        else:
+            os.environ["ODT_STEM_FP"] = "1"
+            qp, spec = engine.quantize_ssd(cfg, params, [calib])
+            forward, family = engine.int8_forward, "ssd300"
+        qp = qp.to("cuda")
+        del params
+        for batch in (64, 1):
+            images = torch.randn(batch, size, size, 3, generator=gen, device="cuda")
+            wrapper, calls = ep.epilogue, []
+
+            def recording(*args, **kw):
+                """The wrapper, with each call's arguments (by name) and
+                outputs kept. The wrapper counts its launches on the
+                function its module's name holds: this one's, while it
+                stands in."""
+                named = dict(signature.bind(*args, **kw).arguments)
+                out = wrapper(**named)
+                calls.append((named, out))
+                return out
+
+            recording.launches = 0
+            steps = int8_launches(cfg)["requant_epilogue"]
+            with torch.inference_mode():
+                forward(qp, spec, cfg, images)
+                got, launches = counted(lambda: forward(qp, spec, cfg, images))
+                launches = launches["requant_epilogue"]
+                ep.epilogue = recording
+                try:
+                    forward(qp, spec, cfg, images)
+                finally:
+                    ep.epilogue = wrapper
+                check(launches == len(calls) == steps,
+                      f"{preset} bs={batch}: {launches} epilogue launches, {len(calls)} calls, "
+                      f"expected {steps}")
+                for kw, out in calls:
+                    for g, w in zip(out, ep.epilogue_reference(**kw)):
+                        check(g is None or torch.equal(g, w),
+                              f"{preset} bs={batch}: an epilogue launch differs from the plain "
+                              f"version at {tuple(kw['acc'].shape)} {sorted(kw)}")
+                ep.epilogue = ep.epilogue_reference
+                try:
+                    want = forward(qp, spec, cfg, images)
+                finally:
+                    ep.epilogue = wrapper
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"{preset} bs={batch}: the forward differs from the plain epilogue's")
+                if family == "retinanet":
+                    taps = engine.run_int8(qp, spec, images, dequantize_taps=False)
+                    codes, codes_plain = {}, {}
+                    engine.run_int8_fpn_heads(qp, cfg, taps, codes=codes)
+                    ep.epilogue = ep.epilogue_reference
+                    try:
+                        engine.run_int8_fpn_heads(qp, cfg, taps, codes=codes_plain)
+                    finally:
+                        ep.epilogue = wrapper
+                    check(list(codes) == list(codes_plain) and all(
+                        torch.equal(codes[k], codes_plain[k]) for k in codes),
+                        f"RetinaNet bs={batch}: requant codes differ from the plain epilogue's")
+                launched = [kw for kw, _ in calls]
+                ms = graph_ms(torch, lambda: [ep.epilogue(**kw) for kw in launched], 3)
+                plain = lambda: [ep.epilogue_reference(**kw) for kw in launched]  # noqa: E731
+                plain_ms = graph_ms(torch, plain, 3)
+                plain_eager_ms = cuda_ms(torch, plain, 3)
+            name = f"{family}_int8_bs{batch}"
+            paths[name] = {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+                           "plain_eager_ms": plain_eager_ms,
+                           "bound_ms": epilogue_bound_ms(calls), "bound_by": "bytes",
+                           "forward_bit_equal": True}
+            print(json.dumps({"phase": "requant_epilogue_path", "path": name, **paths[name],
+                              **where}))
+            del calls, launched, got, want, images
+            torch.cuda.empty_cache()
+        del qp
+    return {"cases": cases, "paths": paths}
 
 
 def _same_detections(torch, a, b) -> bool:

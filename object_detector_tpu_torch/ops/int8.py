@@ -156,10 +156,24 @@ def requant_epilogue(
     the clip's lower bound 0: dividing by a positive scale and rounding keep
     the sign, so clipping the code at 0 equals clipping y at 0 first."""
     with span("odt.int8.epilogue"):
-        y = torch.mul(acc, deq).add_(bias)  # acc -> float32 rounds to nearest, as astype does
-        if resid is not None:
-            y.add_(resid.to(torch.float32).mul_(resid_scale))
-        return quantize(y, out_scale, 0.0 if relu else -127.0)
+        return quantize(dequant(acc, deq, bias, resid, resid_scale), out_scale,
+                        0.0 if relu else -127.0)
+
+
+def dequant(
+    acc: Tensor,  # int32 accumulator
+    deq: Tensor,  # (Cout,) float32
+    bias: Tensor,  # (Cout,) float32
+    resid: Optional[Tensor] = None,  # int8 residual codes, acc's shape
+    resid_scale: Optional[Tensor] = None,  # 0-dim float32, their scale
+) -> Tensor:
+    """``acc.f32 * deq + bias`` [``+ resid.f32 * resid_scale``] in float32,
+    each operation rounded (the residual product before it is added): the
+    arithmetic of every requant before its quantize."""
+    y = torch.mul(acc, deq).add_(bias)  # acc -> float32 rounds to nearest, as astype does
+    if resid is not None:
+        y.add_(resid.to(torch.float32).mul_(resid_scale))
+    return y
 
 
 def max_pool(

@@ -37,6 +37,10 @@ RetinaNet runs the ResNet trunk, then its FPN and shared heads in int8
 calibrated by `run_float_fpn_heads`, which records the absmax at each of
 their requant points.
 
+Every epilogue, from a GEMM's int32 accumulator to the codes, the FPN's
+float32 sums or the logits, is one launch of `kernels.requant_epilogue` on
+the card (its plain version on the CPU).
+
 While a profiler records, the int8 forwards run under ``odt.forward`` and
 each of their steps under one ``odt.int8.*`` or ``odt.kernel.*`` span
 (`utils.profiling`), and every epilogue adds its least bytes to the counter
@@ -56,11 +60,13 @@ import torch.nn.functional as F
 
 from object_detector_tpu_torch.core.config import DetectorConfig
 from object_detector_tpu_torch.kernels import bottleneck as bottleneck_kernel
+from object_detector_tpu_torch.kernels import requant_epilogue as epilogue_kernel
 from object_detector_tpu_torch.kernels import resnet_stem as resnet_stem_kernel
 from object_detector_tpu_torch.kernels import stem as stem_kernel
 from object_detector_tpu_torch.kernels import stem_fp as stem_fp_kernel
 from object_detector_tpu_torch.kernels.bottleneck import fused_bottleneck
 from object_detector_tpu_torch.kernels.l2norm import l2norm_requant
+from object_detector_tpu_torch.kernels.requant_epilogue import fpn_upsample2x
 from object_detector_tpu_torch.kernels.resnet_stem import resnet_stem
 from object_detector_tpu_torch.kernels.stem import stem_conv12_pool
 from object_detector_tpu_torch.kernels.stem_fp import stem_fused_producer
@@ -643,11 +649,11 @@ def run_int8(
                                  operand=qp.gemm_operand(op.path))
         resid = resid_scale = None
         if op.add_register is not None:
-            resid, rs = regs[op.add_register]
-            resid_scale = qp.scale(rs, dev)
-        out = int8_ops.requant_epilogue(acc, qp.deq(op.path, in_scale, dev), qp.bias[op.path],
-                                        qp.scale(qp.act_scale[op.path], dev), op.relu,
-                                        resid, resid_scale)
+            resid, resid_scale = regs[op.add_register]
+        with span("odt.int8.epilogue"):
+            out = epilogue_kernel.epilogue(acc, qp.deq(op.path, in_scale, dev), qp.bias[op.path],
+                                           qp.act_scale[op.path], op.relu, resid,
+                                           resid_scale).codes
         _count_epilogue(acc, resid, out)
         return out
 
@@ -747,9 +753,9 @@ def apply_heads_int8(
             acc = int8_ops.conv_int8(tap, qp.w_int8[path], 1, "SAME", 1,
                                      operand=qp.gemm_operand(path))
             with span("odt.int8.epilogue"):
-                y = acc.to(torch.float32).mul_(qp.deq(path, s_tap, tap.device)).add_(qp.bias[path])
-                if kind == "cls":
-                    y = y.to(logits_dtype)
+                y = epilogue_kernel.epilogue(
+                    acc, qp.deq(path, s_tap, tap.device), qp.bias[path],
+                    sum_dtype=logits_dtype if kind == "cls" else torch.float32).sum
             _count_epilogue(acc, y)
             out.append(y.reshape(b, h * w * a, width) if concat else y)
     if not concat:
@@ -839,12 +845,6 @@ def int8_forward(
 FPN_LEVELS = ("P3", "P4", "P5", "P6", "P7")
 
 
-def fpn_upsample2x(x: Tensor) -> Tensor:
-    """Nearest-neighbour 2x upsample of an NHWC tensor (broadcast, reshape)."""
-    b, h, w, c = x.shape
-    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
-
-
 def fpn_head_conv_paths(cfg: DetectorConfig) -> List[str]:
     """Every conv path of the FPN and the shared heads (their weights are
     quantized)."""
@@ -902,25 +902,25 @@ def run_float_fpn_heads(
     return torch.cat(outs["cls_head"], dim=1), torch.cat(outs["box_head"], dim=1), absmax
 
 
-def _conv_f32(qp: QuantParams, x_q: Tensor, s_in: float, path: str, stride: int = 1) -> Tensor:
-    """Int8 conv, then ``acc.f32 * (s_in * w_scale) + bias`` in the
-    reference's op order."""
-    acc = int8_ops.conv_int8(x_q, qp.w_int8[path], stride, "SAME", 1,
-                             operand=qp.gemm_operand(path))
-    _count_epilogue(acc)
-    with span("odt.int8.epilogue"):
-        return torch.mul(acc, qp.deq(path, s_in, x_q.device)).add_(qp.bias[path])
+def _conv_acc(qp: QuantParams, x_q: Tensor, path: str, stride: int = 1) -> Tensor:
+    """The int8 conv's int32 accumulator (SAME padding)."""
+    return int8_ops.conv_int8(x_q, qp.w_int8[path], stride, "SAME", 1,
+                              operand=qp.gemm_operand(path))
 
 
-def _requant(qp: QuantParams, y: Tensor, key: str, codes: Optional[Dict[str, Tensor]],
-             relu: bool = False) -> Tuple[Tensor, float]:
-    """``y`` divided by the 0-dim device scale of ``key``, rounded half to
-    even, clipped (at 0 with ``relu``: the requant keeps the sign). The
-    codes go into ``codes`` where it is given."""
+def _conv_requant(qp: QuantParams, x_q: Tensor, s_in: float, path: str, key: str,
+                  codes: Optional[Dict[str, Tensor]], relu: bool = False,
+                  stride: int = 1) -> Tuple[Tensor, float]:
+    """Int8 conv, then ``acc.f32 * (s_in * w_scale) + bias`` requanted by the
+    scale of ``key`` (ReLU as the clip's lower bound 0: the requant keeps the
+    sign) in one epilogue, in the reference's op order. The codes go into
+    ``codes`` where it is given."""
+    acc = _conv_acc(qp, x_q, path, stride)
     s = qp.act_scale[key]
     with span("odt.int8.epilogue"):
-        q = int8_ops.quantize(y, qp.scale(s, y.device), 0.0 if relu else -127.0)
-    _count_epilogue(q)
+        q = epilogue_kernel.epilogue(acc, qp.deq(path, s_in, x_q.device), qp.bias[path], s,
+                                     relu).codes
+    _count_epilogue(acc, q)
     if codes is not None:
         codes[key] = q
     return q, s
@@ -932,29 +932,45 @@ def run_int8_fpn(
 ) -> Dict[str, Tuple[Tensor, float]]:
     """The int8 FPN over the trunk's taps (C3, C4, C5 codes and their
     scales) -> {"P3".."P7": (codes, scale)}. The lateral sums are float32
-    and requanted before the smooth convs; ReLU runs on P6's codes."""
+    and requanted before the smooth convs, each lateral's epilogue adding
+    the coarser sum's upsample and writing the float32 sum only where the
+    next level reads it; P6's epilogue also writes its ReLU'd codes, P7's
+    input."""
     (q3, s3), (q4, s4), (q5, s5) = taps_q
 
-    def upsample_add(y: Tensor, coarse: Tensor) -> Tensor:
-        _count_epilogue(coarse)
+    def lateral(x_q: Tensor, s_in: float, level: int, coarse: Optional[Tensor] = None,
+                keep_sum: bool = False) -> epilogue_kernel.Epilogue:
+        path = f"fpn/lateral{level}"
+        acc = _conv_acc(qp, x_q, path)
         with span("odt.int8.epilogue"):
-            return y + fpn_upsample2x(coarse)
+            out = epilogue_kernel.epilogue(
+                acc, qp.deq(path, s_in, x_q.device), qp.bias[path],
+                qp.act_scale[f"fpn/pre{level}"], addend=coarse,
+                sum_dtype=torch.float32 if keep_sum else None)
+        _count_epilogue(acc, coarse, out.codes)
+        return out
 
-    pre5 = _conv_f32(qp, q5, s5, "fpn/lateral5")
-    pre4 = upsample_add(_conv_f32(qp, q4, s4, "fpn/lateral4"), pre5)
-    pre3 = upsample_add(_conv_f32(qp, q3, s3, "fpn/lateral3"), pre4)
+    pre5 = lateral(q5, s5, 5, keep_sum=True)
+    pre4 = lateral(q4, s4, 4, pre5.sum, keep_sum=True)
+    pre3 = lateral(q3, s3, 3, pre4.sum)
     pyramid: Dict[str, Tuple[Tensor, float]] = {}
     for lvl, pre in (("P3", pre3), ("P4", pre4), ("P5", pre5)):
-        q_pre, s_pre = _requant(qp, pre, f"fpn/pre{lvl[1]}", codes)
-        pyramid[lvl] = _requant(qp, _conv_f32(qp, q_pre, s_pre, f"fpn/smooth{lvl[1]}"),
-                                f"fpn/{lvl}", codes)
-    q_p6, s_p6 = pyramid["P6"] = _requant(qp, _conv_f32(qp, q5, s5, "fpn/p6", stride=2),
-                                          "fpn/P6", codes)
+        key = f"fpn/pre{lvl[1]}"
+        if codes is not None:
+            codes[key] = pre.codes
+        pyramid[lvl] = _conv_requant(qp, pre.codes, qp.act_scale[key], f"fpn/smooth{lvl[1]}",
+                                     f"fpn/{lvl}", codes)
+    acc = _conv_acc(qp, q5, "fpn/p6", stride=2)
+    s_p6 = qp.act_scale["fpn/P6"]
     with span("odt.int8.epilogue"):
-        relu_p6 = torch.clamp_min(q_p6, 0)
-    _count_epilogue(q_p6, relu_p6)
-    pyramid["P7"] = _requant(qp, _conv_f32(qp, relu_p6, s_p6, "fpn/p7", stride=2), "fpn/P7",
-                             codes)
+        p6 = epilogue_kernel.epilogue(acc, qp.deq("fpn/p6", s5, q5.device), qp.bias["fpn/p6"],
+                                      s_p6, relu_codes=True)
+    _count_epilogue(acc, p6.codes)
+    _count_epilogue(p6.codes, p6.relu_codes)  # the ReLU on P6's codes, in and out
+    if codes is not None:
+        codes["fpn/P6"] = p6.codes
+    pyramid["P6"] = (p6.codes, s_p6)
+    pyramid["P7"] = _conv_requant(qp, p6.relu_codes, s_p6, "fpn/p7", "fpn/P7", codes, stride=2)
     return pyramid
 
 
@@ -974,13 +990,15 @@ def run_int8_heads(
         for lvl in FPN_LEVELS:
             x_q, s_x = pyramid[lvl]
             for i in range(cfg.model.head_depth):
-                x_q, s_x = _requant(qp, _conv_f32(qp, x_q, s_x, f"{head}/conv{i}"),
-                                    f"{head}/conv{i}@{lvl}", codes, relu=True)
-            y = _conv_f32(qp, x_q, s_x, f"{head}/out")
-            if head == "cls_head":
-                with span("odt.int8.epilogue"):
-                    y = y.to(logits_dtype)
-            _count_epilogue(y)
+                x_q, s_x = _conv_requant(qp, x_q, s_x, f"{head}/conv{i}",
+                                         f"{head}/conv{i}@{lvl}", codes, relu=True)
+            path = f"{head}/out"
+            acc = _conv_acc(qp, x_q, path)
+            with span("odt.int8.epilogue"):
+                y = epilogue_kernel.epilogue(
+                    acc, qp.deq(path, s_x, x_q.device), qp.bias[path],
+                    sum_dtype=logits_dtype if head == "cls_head" else torch.float32).sum
+            _count_epilogue(acc, y)
             b, h, w, _ = y.shape
             outs[head].append(y.reshape(b, h * w * ANCHORS_PER_LOCATION, _head_width(cfg, head))
                               if concat else y)

@@ -1,7 +1,9 @@
 """The program's own spans and counters (`utils.profiling.span`, `count`) on
 the int8 serving path, on the CPU: nothing recorded without a profiler,
-every span of the path and its nesting under one, the epilogue's byte count
-against the shapes of the float path, and the same detections either way."""
+every span of the path and its nesting under one, one call of the epilogue
+wrapper under each epilogue span and nothing beside it, the epilogue's byte
+count against the shapes of the float path and against its fixed total, and
+the same detections either way."""
 
 import types
 
@@ -14,6 +16,7 @@ from object_detector_tpu_torch.anchors.priors import anchors_for_model
 from object_detector_tpu_torch.convert import init_params
 from object_detector_tpu_torch.core import config
 from object_detector_tpu_torch.eval.evaluator import PREDICT_CALLS, make_int8_predict_fn
+from object_detector_tpu_torch.kernels import requant_epilogue
 from object_detector_tpu_torch.models.retinanet import build_model
 from object_detector_tpu_torch.quant import engine
 from object_detector_tpu_torch.utils import profiling
@@ -34,13 +37,20 @@ SPANS = {
 # Operations that only make a view, or return their input as it is.
 VIEWS = {"aten::view", "aten::reshape", "aten::_reshape_alias", "aten::to"}
 CONFIGS = {"ssd": config.tiny_test_config, "retinanet": config.tiny_retinanet_config}
+# A range the traced call opens around each call of the epilogue wrapper.
+EPILOGUE_CALL = "test.requant_epilogue"
+# `EPILOGUE_BYTES` of one traced predict of two images, as the engine's
+# eager epilogue chain counted it before the one-pass epilogue: tiny_test
+# (64 px) and tiny_retinanet_config (128 px).
+EPILOGUE_BYTES_OF_TWO = {"ssd": 6179840, "retinanet": 15790960}
 
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def served(request):
     """One family's int8 predict fn, called once to warm it, then once
     without a profiler (``plain``, ``counters_off``: the counters after it)
-    and once under one (``traced``, ``events``, ``counters``)."""
+    and once under one (``traced``, ``events``, ``counters``), with each call
+    of the epilogue wrapper inside an `EPILOGUE_CALL` range."""
     cfg = CONFIGS[request.param]()
     s = cfg.model.image_size
     params = init_params(build_model(cfg), seed=3, random_batch_stats=True).state_dict()
@@ -53,8 +63,19 @@ def served(request):
     profiling.reset_counters()
     plain = predict(images)
     counters_off = profiling.counters()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        traced = predict(images)
+    wrapper = requant_epilogue.epilogue
+
+    def marked(*args, **kwargs):
+        with torch.profiler.record_function(EPILOGUE_CALL):
+            return wrapper(*args, **kwargs)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(requant_epilogue, "epilogue", marked)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            traced = predict(images)
+    finally:
+        mp.undo()
     counters = profiling.counters()
     profiling.reset_counters()
     return types.SimpleNamespace(
@@ -112,6 +133,31 @@ def test_a_traced_predict_emits_every_span_of_its_path_nested_once(served):
     assert len(ops) > 20
     for op, rng in ops:
         assert _inside(rng, kernels) or _inside(rng, engine_steps) == 1, op
+
+
+def test_each_epilogue_span_holds_one_wrapper_call_and_nothing_beside_it(served):
+    """On the card the wrapper is one kernel launch, so this is that launch
+    alone under ``odt.int8.epilogue``. The hand kernels' plain versions,
+    which run on the CPU only, have epilogue spans of their own."""
+    kernels = [r for e in served.events if e.name.startswith("odt.kernel.")
+               for r in _ranges([e], e.name)]
+    epilogues = [r for r in _ranges(served.events, "odt.int8.epilogue")
+                 if not _inside(r, kernels)]
+    calls = _ranges(served.events, EPILOGUE_CALL)
+    assert len(epilogues) == len(calls) > 0
+    assert all(_inside(rng, calls) == 0 for rng in epilogues)
+    assert all(_inside(rng, epilogues) == 1 for rng in calls)
+    assert all(sum(_inside(call, [rng]) for call in calls) == 1 for rng in epilogues)
+    ops = [(e.name, (e.time_range.start, e.time_range.end)) for e in served.events
+           if e.name.startswith("aten::")]
+    for op, rng in ops:
+        if _inside(rng, epilogues):
+            assert _inside(rng, calls) == 1, op
+
+
+def test_the_epilogue_byte_count_is_the_eager_chains_at_a_fixed_shape(served):
+    assert served.plain.scores.shape[0] == 2
+    assert served.counters[engine.EPILOGUE_BYTES] == EPILOGUE_BYTES_OF_TWO[served.family]
 
 
 def _float_conv_sizes(family, cfg, params, predict, batch):
