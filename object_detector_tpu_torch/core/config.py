@@ -4,6 +4,11 @@ The port's own copy of ``object_detector_tpu/core/config.py``: the same
 fields, defaults and presets, so a preset resolves to the same values in
 both packages (``tests/test_torch_config.py`` compares them). The reasons
 behind each default are documented beside the reference's copy.
+
+The port adds what the reference does not have: the DETR family
+(``family="detr"``, `TransformerConfig`, the preset ``detr_r50_dc5_coco``
+and `tiny_detr_config`). Its section sits in a field of its own,
+``transformer``, so every section the reference has resolves as before.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ class MatcherConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    family: str = "ssd"  # "ssd" | "retinanet"
+    family: str = "ssd"  # "ssd" | "retinanet" | "detr"
     backbone: str = "vgg16"  # "vgg16" | "resnet50"
     image_size: int = 300
     num_classes: int = 20  # foreground classes (VOC=20, COCO=80)
@@ -157,6 +162,24 @@ class EvalConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """DETR's transformer and the trunk variant it sits on (arXiv:2005.12872
+    section 3.2): post-norm encoder and decoder layers of width ``d_model``
+    with ``heads`` attention heads and a ReLU feed-forward of ``ffn``,
+    ``queries`` learned object queries, and with ``dilate_c5`` the DC5
+    trunk (stage 4 at stride 1, its blocks 2 and 3 dilated by 2). Read only
+    by the DETR family."""
+
+    d_model: int = 256
+    heads: int = 8
+    ffn: int = 2048
+    enc_layers: int = 6
+    dec_layers: int = 6
+    queries: int = 100
+    dilate_c5: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class MeshConfig:
     data_axis: str = "data"
     data_parallel: int = -1
@@ -172,6 +195,7 @@ class DetectorConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    transformer: TransformerConfig = dataclasses.field(default_factory=TransformerConfig)
 
     def replace(self, **kw: Any) -> "DetectorConfig":
         return dataclasses.replace(self, **kw)
@@ -281,6 +305,20 @@ def _retinanet_fpn_coco() -> DetectorConfig:
     )
 
 
+def _detr_r50_dc5_coco() -> DetectorConfig:
+    """DETR-DC5 on ResNet-50 (arXiv:2005.12872 Table 1), served on 1088 x
+    1088 canvases: section 4's images (shortest side 800, longest at most
+    1333) padded to the canvas, each with its extent. 91 COCO ids, so 92
+    logits with "no object"."""
+    return DetectorConfig(
+        name="detr_r50_dc5_coco",
+        model=ModelConfig(family="detr", backbone="resnet50", image_size=1088, num_classes=91),
+        data=DataConfig(dataset="coco"),
+        eval=EvalConfig(batch_size=32, map_style="coco"),
+        transformer=TransformerConfig(),
+    )
+
+
 _PRESETS = {
     "tiny_test": lambda: tiny_test_config(),
     "ssd300_vgg16_voc": _ssd300_vgg16_voc,
@@ -288,6 +326,7 @@ _PRESETS = {
     "ssd512_resnet50_coco": _ssd512_resnet50_coco,
     "ssd300_voc_train_dp8": _ssd300_voc_train_dp8,
     "retinanet_fpn_coco": _retinanet_fpn_coco,
+    "detr_r50_dc5_coco": _detr_r50_dc5_coco,
 }
 
 
@@ -328,6 +367,20 @@ def tiny_retinanet_config(num_classes: int = 3) -> DetectorConfig:
                           checkpoint_every=10**9, log_every=10),
         eval=EvalConfig(batch_size=8, pre_nms_top_k=64, max_detections=16,
                         use_pallas_nms=False),
+    )
+
+
+def tiny_detr_config(num_classes: int = 5) -> DetectorConfig:
+    """Small DETR-DC5 (128 px canvas, C5 of 8 x 8, d_model 64, 4 heads,
+    2 + 2 layers, 10 queries) for CPU tests."""
+    return DetectorConfig(
+        name="tiny_detr",
+        model=ModelConfig(family="detr", backbone="resnet50", image_size=128,
+                          num_classes=num_classes, compute_dtype="float32"),
+        data=DataConfig(dataset="synthetic", max_boxes=4),
+        eval=EvalConfig(batch_size=4, map_style="coco"),
+        transformer=TransformerConfig(d_model=64, heads=4, ffn=128, enc_layers=2,
+                                      dec_layers=2, queries=10),
     )
 
 

@@ -4,6 +4,12 @@ The port of ``object_detector_tpu/eval/evaluator.py``: ``make_predict_fn``
 (:19, the float serving path), ``make_int8_predict_fn`` (:33, the int8 PTQ
 serving path: SSD on VGG16 or ResNet-50, and RetinaNet/FPN) and
 ``evaluate_dataset`` (:79, the val sweep into `MeanAPEvaluator`).
+
+Both predict functions also serve the port's DETR family
+(``family="detr"``), which the reference lacks: ``predict(images_u8,
+extents)`` on padded canvases, each image at the top left of its canvas
+with its (h, w) extent, no anchors and one detection an object query
+(`ops.postprocess.detr_postprocess`, boxes in pixels of the image).
 """
 
 from __future__ import annotations
@@ -20,10 +26,12 @@ from object_detector_tpu_torch.core.device import resolve_device
 from object_detector_tpu_torch.data.pipeline import DecodedCache
 from object_detector_tpu_torch.data.types import Dataset
 from object_detector_tpu_torch.eval.map import MeanAPEvaluator
+from object_detector_tpu_torch.models import detr
 from object_detector_tpu_torch.models.retinanet import build_model
 from object_detector_tpu_torch.ops.augment import normalize
 from object_detector_tpu_torch.ops.nms import Detections
-from object_detector_tpu_torch.ops.postprocess import postprocess, postprocess_levels
+from object_detector_tpu_torch.ops.postprocess import (detr_postprocess, postprocess,
+                                                       postprocess_levels)
 from object_detector_tpu_torch.quant import engine
 from object_detector_tpu_torch.utils import profiling
 
@@ -41,12 +49,22 @@ def make_predict_fn(
     """Returns predict(images_u8) for (B, H, W, 3) uint8 images (a numpy
     array or a tensor) -> batch-stacked Detections on ``device``.
 
-    Moves ``model`` to ``device`` in place and puts it in eval mode.
+    Moves ``model`` to ``device`` in place and puts it in eval mode. For
+    the DETR family ``anchors_center`` may be None and the function is
+    predict(images_u8, extents) (module docstring).
     """
     dev = resolve_device(device)
     model.to(dev).eval()
-    anchors = torch.as_tensor(np.asarray(anchors_center, np.float32), device=dev)
     calls = itertools.count()
+    if cfg.model.family == "detr":
+        @torch.inference_mode()
+        def predict_detr(images_u8, extents) -> Detections:
+            with _predict_span(calls):
+                images, ext = _normalized_canvases(cfg, images_u8, extents, dev)
+                return detr_postprocess(*model(images, ext), ext)
+
+        return predict_detr
+    anchors = torch.as_tensor(np.asarray(anchors_center, np.float32), device=dev)
 
     @torch.inference_mode()
     def predict(images_u8) -> Detections:
@@ -78,13 +96,41 @@ def _normalized(images_u8, dev: torch.device) -> torch.Tensor:
         return normalize(images.float() / 255.0)
 
 
+def _normalized_canvases(cfg: DetectorConfig, images_u8, extents, dev: torch.device,
+                         count: bool = True):
+    """(B, S, S, 3) uint8 canvases and their (B, 2) extents (h, w), host
+    arrays or tensors -> (normalized float32 canvases on ``dev``, zero
+    beyond each extent as DETR's ``NestedTensor`` pads; the extents as
+    int64 on ``dev``). With ``count``, adds the call's unmasked C5 tokens
+    to `models.detr.VALID_TOKENS` while a profiler records, from the
+    extents' host copy."""
+    images = _normalized(images_u8, dev)
+    ext = torch.as_tensor(np.asarray(extents), dtype=torch.int64)
+    b, h, w, _ = images.shape
+    if (ext.shape != (b, 2) or bool((ext < 1).any()) or bool((ext[:, 0] > h).any())
+            or bool((ext[:, 1] > w).any())):
+        raise ValueError(f"expected ({b}, 2) extents (h, w) within the {h} x {w} canvas, "
+                         f"got {tuple(ext.shape)}: {ext.tolist()}")
+    if count and profiling.enabled():
+        f = (detr.trunk_feature_size(h, cfg.transformer.dilate_c5),
+             detr.trunk_feature_size(w, cfg.transformer.dilate_c5))
+        profiling.count(detr.VALID_TOKENS, detr.valid_tokens(ext, (h, w), f))
+    with profiling.span("odt.upload"):
+        ext = ext.to(dev)
+    with profiling.span("odt.normalize"):
+        rows = torch.arange(h, device=dev) < ext[:, :1]
+        cols = torch.arange(w, device=dev) < ext[:, 1:]
+        return images.mul_((rows[:, :, None] & cols[:, None, :])[..., None]), ext
+
+
 def make_int8_predict_fn(
     cfg: DetectorConfig,
     params: Mapping[str, torch.Tensor],
-    anchors_center: np.ndarray,
+    anchors_center: Optional[np.ndarray],
     calibration_images_u8,
     use_pallas: Optional[bool] = None,
     device: str | torch.device = "cuda",
+    calibration_extents=None,
 ) -> Callable[..., Detections]:
     """Quantize once (PTQ) and return predict(images_u8) -> batch-stacked
     Detections on ``device``: int8 trunk, int8 heads (RetinaNet: int8 FPN
@@ -100,10 +146,35 @@ def make_int8_predict_fn(
     With ``eval.per_level_heads`` on the kernel NMS path and int8 heads (for
     RetinaNet: an int8 FPN, as `quantize_retinanet` makes by default), the
     heads' native per-level outputs go to `postprocess_levels`; the
-    concatenated logits are never built."""
+    concatenated logits are never built.
+
+    The DETR family (module docstring) calibrates on canvases with their
+    ``calibration_extents`` (the whole canvas where None), needs no
+    anchors, and serves predict(images_u8, extents) through
+    `engine.detr_int8_forward`."""
     dev = resolve_device(device)
     pallas = cfg.eval.use_pallas_nms if use_pallas is None else use_pallas
     device_params = {k: v.to(dev) for k, v in params.items()}
+    calls = itertools.count()
+    if cfg.model.family == "detr":
+        if calibration_extents is None:
+            n, h, w = np.shape(calibration_images_u8)[:3]
+            calibration_extents = np.tile([h, w], (n, 1))
+        calib, _ = _normalized_canvases(cfg, calibration_images_u8, calibration_extents, dev,
+                                        count=False)
+        qp, spec = engine.quantize_detr(cfg, device_params, [calib])
+        qp = qp.to(dev)
+        del calib
+
+        @torch.inference_mode()
+        def predict_detr(images_u8, extents) -> Detections:
+            with _predict_span(calls):
+                images, ext = _normalized_canvases(cfg, images_u8, extents, dev)
+                logits, boxes = engine.detr_int8_forward(qp, spec, cfg, images, ext)
+                return detr_postprocess(logits, boxes, ext)
+
+        predict_detr.qp, predict_detr.spec = qp, spec
+        return predict_detr
     calib = _normalized(calibration_images_u8, dev)
     if cfg.model.family == "retinanet":
         qp, spec = engine.quantize_retinanet(cfg, device_params, [calib])
@@ -116,7 +187,6 @@ def make_int8_predict_fn(
     qp = qp.to(dev)
     anchors = torch.as_tensor(np.asarray(anchors_center, np.float32), device=dev)
     per_level = cfg.eval.per_level_heads and pallas and int8_fpn
-    calls = itertools.count()
 
     @torch.inference_mode()
     def predict(images_u8) -> Detections:

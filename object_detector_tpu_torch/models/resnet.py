@@ -1,7 +1,10 @@
 """ResNet-50 backbone, bottleneck v1.5 (stride on the 3x3), NCHW inside.
 
 The port of ``object_detector_tpu/models/resnet.py``. Returns the C3, C4, C5
-pyramid (strides 8, 16, 32) that the SSD-512 heads tap. Module and parameter
+pyramid (strides 8, 16, 32) that the SSD-512 heads tap. With ``dilate_c5``
+(DETR's DC5, torchvision's ``replace_stride_with_dilation=[False, False,
+True]``) stage 4 keeps stride 16: its first block's 3x3 and projection run
+at stride 1, and its later blocks' 3x3 convs at dilation 2. Module and parameter
 names follow the flax trees (``backbone/stage1_block1/bn1/scale`` is
 ``backbone.stage1_block1.bn1.weight``; the ``batch_stats`` collection's
 ``mean`` and ``var`` are ``running_mean`` and ``running_var`` of the same
@@ -84,12 +87,12 @@ class BottleneckBlock(nn.Module):
     """1x1 -> 3x3 (carries the stride) -> 1x1, each with BatchNorm, plus the
     shortcut: a projection where the shape changes, else the input."""
 
-    def __init__(self, in_channels: int, filters: int, stride: int = 1):
+    def __init__(self, in_channels: int, filters: int, stride: int = 1, dilation: int = 1):
         super().__init__()
         out = filters * 4
         self.conv1 = Conv(in_channels, filters, 1, bias=False)
         self.bn1 = BatchNorm(filters)
-        self.conv2 = Conv(filters, filters, 3, stride=stride, bias=False)
+        self.conv2 = Conv(filters, filters, 3, stride=stride, dilation=dilation, bias=False)
         self.bn2 = BatchNorm(filters)
         self.conv3 = Conv(filters, out, 1, bias=False)
         self.bn3 = BatchNorm(out)
@@ -106,10 +109,19 @@ class BottleneckBlock(nn.Module):
         return F.relu(out + shortcut)
 
 
+def block_geometry(stage: int, block: int, dilate_c5: bool = False):
+    """(stride, dilation) of a block's 3x3 conv (and its projection's
+    stride): stride 2 on the first block of stages 2 to 4, except stage 4
+    under DC5, whose later blocks dilate by 2."""
+    if dilate_c5 and stage == 4:
+        return 1, 1 if block == 1 else 2
+    return (2 if (block == 1 and stage > 1) else 1), 1
+
+
 class ResNet50Backbone(nn.Module):
     """ResNet-50. Returns [C3, C4, C5] feature maps, NCHW."""
 
-    def __init__(self, stage_sizes: Sequence[int] = STAGE_SIZES):
+    def __init__(self, stage_sizes: Sequence[int] = STAGE_SIZES, dilate_c5: bool = False):
         super().__init__()
         self.stem_conv = Conv(3, 64, 7, stride=2, padding=3, bias=False)
         self.stem_bn = BatchNorm(64)
@@ -118,9 +130,9 @@ class ResNet50Backbone(nn.Module):
         for stage, (n_blocks, width) in enumerate(zip(stage_sizes, STAGE_WIDTHS), start=1):
             names = []
             for block in range(1, n_blocks + 1):
-                stride = 2 if (block == 1 and stage > 1) else 1
+                stride, dilation = block_geometry(stage, block, dilate_c5)
                 name = f"stage{stage}_block{block}"
-                self.add_module(name, BottleneckBlock(cin, width, stride))
+                self.add_module(name, BottleneckBlock(cin, width, stride, dilation))
                 names.append(name)
                 cin = width * 4
             self.block_names.append(names)

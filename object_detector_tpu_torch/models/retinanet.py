@@ -117,7 +117,11 @@ class RetinaNetModel(nn.Module):
 
 
 def build_model(cfg: DetectorConfig) -> nn.Module:
-    """Config -> the model of its family (RetinaNet or SSD)."""
+    """Config -> the model of its family (RetinaNet, DETR or SSD)."""
     if cfg.model.family == "retinanet":
         return RetinaNetModel(cfg)
+    if cfg.model.family == "detr":
+        from object_detector_tpu_torch.models.detr import DETRModel
+
+        return DETRModel(cfg)
     return SSDModel(cfg)

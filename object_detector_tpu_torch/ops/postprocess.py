@@ -5,7 +5,8 @@ The port of ``object_detector_tpu/ops/postprocess.py``. With ``use_pallas``
 hand-written kernel path (`kernels.nms.decode_nms`); without it, through
 the plain per-class NMS of `ops.nms`. `postprocess_levels` takes the int8
 heads' native per-level tensors (``eval.per_level_heads``) to the same
-kernel path through `kernels.nms.decode_nms_levels`.
+kernel path through `kernels.nms.decode_nms_levels`. `detr_postprocess` is
+DETR's own (no anchors, no NMS).
 """
 
 from __future__ import annotations
@@ -102,3 +103,19 @@ def postprocess_levels(
             tuple(cfg.anchors.anchors_per_level),
             **nms_kwargs(cfg),
         )
+
+
+def detr_postprocess(logits: Tensor, boxes: Tensor, extents: Tensor) -> nms_ops.Detections:
+    """DETR's ``PostProcess``: (B, Q, C + 1) logits (the last "no object")
+    and (B, Q, 4) cx, cy, w, h boxes in [0, 1] of each image's (B, 2) extent
+    (h, w) -> one detection a query: the softmax's best class but the last
+    (its probability the score, its index the class), the box in corner
+    form and pixels of the image. Every query's detection is valid."""
+    with span("odt.detr.postprocess"):
+        scores, labels = torch.softmax(logits.float(), dim=-1)[..., :-1].max(dim=-1)
+        cx, cy, w, h = boxes.float().unbind(-1)
+        corners = torch.stack([cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1)
+        size = extents.to(device=corners.device, dtype=torch.float32)
+        scale = torch.stack([size[:, 1], size[:, 0], size[:, 1], size[:, 0]], dim=-1)
+        return nms_ops.Detections(corners * scale[:, None], scores, labels.to(torch.int32),
+                                  torch.ones_like(scores, dtype=torch.bool))

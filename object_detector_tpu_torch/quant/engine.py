@@ -1,5 +1,6 @@
 """Int8 post-training-quantization inference engine, SSD-300/VGG16,
-SSD-512/ResNet-50 and RetinaNet/FPN.
+SSD-512/ResNet-50 and RetinaNet/FPN, and the int8 trunk of the port's own
+DETR-DC5 (`quantize_detr`, `detr_int8_forward`).
 
 The port of ``object_detector_tpu/quant/engine.py``.
 The conv trunk is an op list built from the config (`build_spec`) and run
@@ -70,6 +71,8 @@ from object_detector_tpu_torch.kernels.requant_epilogue import fpn_upsample2x
 from object_detector_tpu_torch.kernels.resnet_stem import resnet_stem
 from object_detector_tpu_torch.kernels.stem import stem_conv12_pool
 from object_detector_tpu_torch.kernels.stem_fp import stem_fused_producer
+from object_detector_tpu_torch.models.detr import DETRModel
+from object_detector_tpu_torch.models.resnet import block_geometry
 from object_detector_tpu_torch.models.retinanet import ANCHORS_PER_LOCATION, RetinaNetModel
 from object_detector_tpu_torch.ops import int8 as int8_ops
 from object_detector_tpu_torch.utils import profiling
@@ -260,9 +263,14 @@ def build_resnet_ssd_spec(
 
 def build_resnet_trunk_spec(
     stem_algo: str = "direct", fused_bottleneck: Optional[bool] = None,
-    img_pack: Optional[bool] = None,
+    img_pack: Optional[bool] = None, dilate_c5: bool = False,
 ) -> Spec:
     """ResNet-50 C3/C4/C5 trunk.
+
+    ``dilate_c5``: DETR's DC5 trunk (`models.resnet.block_geometry`): stage
+    4 at stride 1, its blocks 2 and 3 with the 3x3 dilated by 2. The
+    bottleneck kernel has no dilation, so those two blocks run the unfused
+    chain (im2col of the dilated windows, the int8 GEMM, the epilogue).
 
     ``fused_bottleneck``: the stride-1 blocks without a projection (blocks 2
     and later of every stage) run as single kernels (`BottleneckOp`).
@@ -293,7 +301,7 @@ def build_resnet_trunk_spec(
     for stage, n_blocks in enumerate((3, 4, 6, 3), start=1):
         for block in range(1, n_blocks + 1):
             base = f"backbone/stage{stage}_block{block}"
-            stride = 2 if (block == 1 and stage > 1) else 1
+            stride, dilation = block_geometry(stage, block, dilate_c5)
             if block == 1:
                 spec += [
                     SaveOp("in"),
@@ -304,13 +312,13 @@ def build_resnet_trunk_spec(
                     ConvOp(f"{base}/conv2", kernel=3, stride=stride),
                     ConvOp(f"{base}/conv3", kernel=1, relu=True, add_register="sc"),
                 ]
-            elif fused_bottleneck:
+            elif fused_bottleneck and dilation == 1:
                 spec.append(BottleneckOp(base))
             else:
                 spec += [
                     SaveOp("sc"),
                     ConvOp(f"{base}/conv1", kernel=1),
-                    ConvOp(f"{base}/conv2", kernel=3, stride=stride),
+                    ConvOp(f"{base}/conv2", kernel=3, stride=stride, dilation=dilation),
                     ConvOp(f"{base}/conv3", kernel=1, relu=True, add_register="sc"),
                 ]
         if stage >= 2:
@@ -1089,3 +1097,86 @@ def retinanet_int8_forward(
         cls = [cls_head(p).float() for p in pyramid]
         box = [box_head(p).float() for p in pyramid]
         return torch.cat(cls, dim=1), torch.cat(box, dim=1)
+
+
+# --------------------------------------------------------------------------
+# DETR: int8 ResNet-50-DC5 trunk + bfloat16 transformer + float32 heads
+# --------------------------------------------------------------------------
+#
+# The trunk runs int8 as RetinaNet's does (B6 stem, B7 for the stride-1
+# undilated blocks, the unfused chain for DC5's dilated ones). Its C5 codes
+# go into ``input_proj`` as bfloat16 integers, the dequant scale folded into
+# the projection's weight; the transformer runs in bfloat16 (LayerNorm and
+# the attention's softmax keep their statistics in float32), the heads in
+# float32 (`models.detr.DETRModel.transform`).
+
+# The float modules of DETR after the trunk, which stay float.
+DETR_FLOAT_PARTS = ("input_proj", "transformer", "query_embed", "class_embed", "bbox_embed")
+# The dtype of ``input_proj`` and the transformer on the int8 path.
+DETR_DTYPE = torch.bfloat16
+
+
+def quantize_detr(
+    cfg: DetectorConfig,
+    params: Mapping[str, Tensor],
+    calibration_batches: Sequence[Tensor],
+) -> Tuple[QuantParams, Spec]:
+    """PTQ for DETR: fold the trunk's BatchNorm, calibrate the trunk on the
+    batches (normalized canvases, zero beyond each image's extent) and
+    quantize its convs. Everything after the trunk stays in
+    ``qp.float_params``."""
+    spec = build_resnet_trunk_spec(dilate_c5=cfg.transformer.dilate_c5)
+    folded = fold_resnet50(params)
+    scales = calibrate_scales(folded, spec, calibration_batches, use_l2norm=False)
+    return quantize_params(folded, spec, scales, head_paths=()), spec
+
+
+def _detr_float_model(qp: QuantParams, cfg: DetectorConfig, device: torch.device) -> DETRModel:
+    """The model's parts after the trunk on ``qp.float_params``, on
+    ``device``, the transformer in `DETR_DTYPE`; made once per QuantParams."""
+    def make():
+        with torch.device("meta"):
+            model = DETRModel(cfg)
+        model.backbone = None
+        for name in DETR_FLOAT_PARTS:
+            getattr(model, name).load_state_dict(
+                {k[len(name) + 1:]: v for k, v in qp.float_params.items()
+                 if k.startswith(name + ".")}, assign=True)
+        model.requires_grad_(False).to(device).eval()
+        model.transformer.to(DETR_DTYPE)
+        return model
+
+    return qp.derived(("detr_float", device), make)
+
+
+def _detr_input_proj(model: DETRModel, c5_scale: float):
+    """``input_proj`` on C5 codes: its (d, 2048) weight times the codes'
+    scale and its bias, in `DETR_DTYPE`."""
+    conv = model.input_proj
+    weight = conv.weight.reshape(conv.weight.shape[0], -1)
+    scale = int8_ops.scale_tensor(c5_scale, weight.device)
+    return (weight * scale).to(DETR_DTYPE), conv.bias.to(DETR_DTYPE)
+
+
+def detr_int8_forward(
+    qp: QuantParams,
+    spec: Spec,
+    cfg: DetectorConfig,
+    images: Tensor,
+    extents: Tensor,
+) -> Tuple[Tensor, Tensor]:
+    """Normalized canvases (B, S, S, 3), zero beyond each image's (B, 2)
+    extent (h, w), -> (logits (B, Q, C + 1), boxes (B, Q, 4) cx, cy, w, h
+    in [0, 1] of the extent), float32. The trunk under
+    ``odt.detr.backbone`` with ``input_proj``, then the transformer and
+    heads of `DETRModel.transform`."""
+    dev = images.device
+    model = _detr_float_model(qp, cfg, dev)
+    with span("odt.forward"):
+        with span("odt.detr.backbone"):
+            c5, s5 = run_int8(qp, spec, images, dequantize_taps=False)[-1]
+            weight, bias = qp.derived(("detr_input_proj", s5, dev),
+                                      lambda: _detr_input_proj(model, s5))
+            b, h, w, c = c5.shape
+            src = F.linear(c5.reshape(b, h * w, c).to(DETR_DTYPE), weight, bias)
+        return model.transform(src, extents, tuple(images.shape[1:3]), (h, w), DETR_DTYPE)

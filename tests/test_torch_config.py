@@ -24,21 +24,65 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# Sections of the port's DetectorConfig that the reference's lacks: the DETR
+# family's, which no reference preset sets.
+PORT_ONLY_SECTIONS = {"transformer"}
+
+
+def _reference_view(ported, ref) -> dict:
+    """``ported`` as a dict of the reference's fields alone, after checking
+    that the rest are the port's own sections at their defaults."""
+    got, want = dataclasses.asdict(ported), dataclasses.asdict(ref)
+    assert set(got) - set(want) == PORT_ONLY_SECTIONS
+    for section in PORT_ONLY_SECTIONS:
+        assert got[section] == dataclasses.asdict(config.DetectorConfig())[section]
+    return {k: v for k, v in got.items() if k in want}
+
+
 @pytest.mark.parametrize("name", ref_config.list_presets())
 def test_presets_match_reference(name):
-    assert config.list_presets() == ref_config.list_presets()
+    """Every reference preset is the port's and resolves identically in the
+    reference's sections; the port may have presets of its own (DETR)."""
+    assert set(ref_config.list_presets()) <= set(config.list_presets())
     ported = config.get_config(name)
     ref = ref_config.get_config(name)
-    assert dataclasses.asdict(ported) == dataclasses.asdict(ref)
+    assert _reference_view(ported, ref) == dataclasses.asdict(ref)
     assert ported.anchors.num_anchors == ref.anchors.num_anchors
     assert ported.model.num_levels == ref.model.num_levels
+
+
+def test_port_only_presets_are_the_detr_family():
+    extra = set(config.list_presets()) - set(ref_config.list_presets())
+    assert extra == {"detr_r50_dc5_coco"}
+    cfg = config.get_config("detr_r50_dc5_coco")
+    t = cfg.transformer
+    assert (cfg.model.family, cfg.model.backbone, cfg.model.image_size,
+            cfg.model.num_classes, cfg.eval.batch_size) == ("detr", "resnet50", 1088, 91, 32)
+    assert (t.d_model, t.heads, t.ffn, t.enc_layers, t.dec_layers, t.queries, t.dilate_c5) == (
+        256, 8, 2048, 6, 6, 100, True)
+
+
+def test_detr_preset_resolves_to_the_benchmark_configuration_file():
+    """``port_bench/configs/detr_r50_dc5_coco.json`` holds the preset's
+    sections as run; the benchmark refuses a preset that no longer
+    resolves to them."""
+    import json
+
+    with open(os.path.join(REPO, "port_bench", "configs", "detr_r50_dc5_coco.json")) as f:
+        spec = json.load(f)
+    assert spec["preset"] == "detr_r50_dc5_coco" and spec["set"] == {}
+    cfg = config.get_config(spec["preset"])
+    got = json.loads(json.dumps({k: dataclasses.asdict(getattr(cfg, k))
+                                 for k in spec["resolved"]}))
+    assert set(spec["resolved"]) == {"model", "eval", "transformer"}
+    assert got == spec["resolved"]
 
 
 def test_override_matches_reference():
     kw = {"eval.score_threshold": 0.2, "model.compute_dtype": "float32"}
     ported = config.get_config("ssd300_infer_bs64").override(kw)
     ref = ref_config.get_config("ssd300_infer_bs64").override(kw)
-    assert dataclasses.asdict(ported) == dataclasses.asdict(ref)
+    assert _reference_view(ported, ref) == dataclasses.asdict(ref)
     with pytest.raises(KeyError):
         config.get_config("tiny_test").override({"eval.no_such_field": 1})
 
@@ -61,10 +105,10 @@ def test_anchors_match_reference(name):
 
 def test_tiny_retinanet_config_matches_reference():
     ported, ref = config.tiny_retinanet_config(), ref_config.tiny_retinanet_config()
-    assert dataclasses.asdict(ported) == dataclasses.asdict(ref)
+    assert _reference_view(ported, ref) == dataclasses.asdict(ref)
     assert ported.anchors.num_anchors == ref.anchors.num_anchors == 3069
-    assert dataclasses.asdict(config.tiny_retinanet_config(5)) == dataclasses.asdict(
-        ref_config.tiny_retinanet_config(5))
+    ref5 = ref_config.tiny_retinanet_config(5)
+    assert _reference_view(config.tiny_retinanet_config(5), ref5) == dataclasses.asdict(ref5)
 
 
 def _corner_boxes(rng, n):

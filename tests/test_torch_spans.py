@@ -3,8 +3,11 @@ the int8 serving path, on the CPU: nothing recorded without a profiler,
 every span of the path and its nesting under one, one call of the epilogue
 wrapper under each epilogue span and nothing beside it, the epilogue's byte
 count against the shapes of the float path and against its fixed total, and
-the same detections either way."""
+the same detections either way; for DETR its ``odt.detr.*`` spans, each
+operation of its forward under one leaf, and its valid-token counter."""
 
+import dataclasses
+import json
 import types
 
 import numpy as np
@@ -17,6 +20,7 @@ from object_detector_tpu_torch.convert import init_params
 from object_detector_tpu_torch.core import config
 from object_detector_tpu_torch.eval.evaluator import PREDICT_CALLS, make_int8_predict_fn
 from object_detector_tpu_torch.kernels import requant_epilogue
+from object_detector_tpu_torch.models import detr
 from object_detector_tpu_torch.models.retinanet import build_model
 from object_detector_tpu_torch.quant import engine
 from object_detector_tpu_torch.utils import profiling
@@ -225,4 +229,103 @@ def test_the_epilogue_byte_count_is_the_least_bytes_of_the_shapes(served):
 
 def test_detections_are_bit_identical_with_and_without_a_profiler(served):
     for got, want in zip(served.traced, served.plain):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+# DETR (`models.detr`, `engine.detr_int8_forward`): the trunk's steps lie
+# under ``odt.detr.backbone``, the attention cores under ``odt.detr.attention``
+# inside the encoder or the decoder, and every operation of the forward under
+# exactly one of its four stages.
+DETR_STAGES = ("odt.detr.backbone", "odt.detr.encoder", "odt.detr.decoder", "odt.detr.heads")
+DETR_SPANS = {"odt.predict", "odt.upload", "odt.normalize", "odt.forward", "odt.int8.input",
+              "odt.int8.im2col", "odt.int8.gemm", "odt.int8.epilogue", "odt.int8.pool",
+              "odt.kernel.resnet_stem", "odt.kernel.bottleneck", "odt.detr.attention",
+              "odt.detr.postprocess", *DETR_STAGES}
+# (h, w) of the two images of the traced call on the 128 px canvas.
+DETR_EXTENTS = np.array([[96, 128], [40, 70]])
+
+
+@pytest.fixture(scope="module")
+def detr_served():
+    from port_bench.detr_weights import make_weights
+
+    cfg = config.tiny_detr_config()
+    arch = {k: json.loads(json.dumps(dataclasses.asdict(getattr(cfg, k))))
+            for k in ("model", "eval", "transformer")}
+    weights = make_weights(arch, {"cls_gain": 3.0, "box_gain": 1.0, "bias_std": 0.1,
+                                  "qk_gain": 2.0}, 5, "cpu")
+    rng = np.random.default_rng(6)
+    images = rng.integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    predict = make_int8_predict_fn(cfg, weights, None, images, device="cpu",
+                                   calibration_extents=DETR_EXTENTS)
+    predict(images, DETR_EXTENTS)
+    profiling.reset_counters()
+    plain = predict(images, DETR_EXTENTS)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = predict(images, DETR_EXTENTS)
+    counters = profiling.counters()
+    profiling.reset_counters()
+    return types.SimpleNamespace(plain=plain, traced=traced, events=list(prof.events()),
+                                 counters=counters)
+
+
+def test_a_traced_detr_predict_emits_its_spans_nested_as_stated(detr_served):
+    events = detr_served.events
+    names = {e.name for e in events if e.name.startswith("odt.")}
+    assert names == DETR_SPANS
+    (predict_range,) = _ranges(events, "odt.predict")
+    (forward_range,) = _ranges(events, "odt.forward")
+    stages = {n: _ranges(events, n) for n in DETR_STAGES}
+    assert all(len(r) == 1 and _inside(r[0], [forward_range]) for r in stages.values())
+    for name in names:
+        for rng in _ranges(events, name):
+            assert _inside(rng, [predict_range]), name
+            assert _inside(rng, _ranges(events, name)) == 1, f"{name} nests inside itself"
+            if name.startswith(CHILDREN):
+                assert _inside(rng, stages["odt.detr.backbone"]), name
+            if name == "odt.detr.attention":
+                assert _inside(rng, stages["odt.detr.encoder"] + stages["odt.detr.decoder"])
+    cfg = config.tiny_detr_config().transformer
+    assert len(_ranges(events, "odt.detr.attention")) == cfg.enc_layers + 2 * cfg.dec_layers
+    (post,) = _ranges(events, "odt.detr.postprocess")
+    assert not _inside(post, [forward_range])
+
+
+def test_every_detr_operation_lies_under_one_leaf(detr_served):
+    """Every operation of the forward that can move data lies under exactly
+    one of the four stages; in the backbone under one engine step, a hand
+    kernel's wrapper, or the input projection's product (the stage's own);
+    in the encoder and decoder under at most one attention core."""
+    events = detr_served.events
+    (forward_range,) = _ranges(events, "odt.forward")
+    stages = [r for n in DETR_STAGES for r in _ranges(events, n)]
+    backbone = _ranges(events, "odt.detr.backbone")
+    attention = _ranges(events, "odt.detr.attention")
+    kernels = [r for e in events if e.name.startswith("odt.kernel.") for r in _ranges([e], e.name)]
+    engine_steps = [r for e in events if e.name.startswith("odt.int8.")
+                    for r in _ranges([e], e.name)]
+    ops = [(e.name, (e.time_range.start, e.time_range.end)) for e in events
+           if e.name.startswith("aten::") and e.name not in VIEWS]
+    ops = [(op, rng) for op, rng in ops if _inside(rng, [forward_range])]
+    assert len(ops) > 50
+    in_proj = 0
+    for op, rng in ops:
+        assert _inside(rng, stages) == 1, op
+        assert _inside(rng, attention) <= 1, op
+        if _inside(rng, backbone) and not _inside(rng, kernels):
+            steps = _inside(rng, engine_steps)
+            in_proj += steps == 0
+            assert steps <= 1, op
+    assert in_proj > 0  # the projection of C5 into d_model, in the backbone's own range
+
+
+def test_the_valid_token_counter_is_the_extents_token_count(detr_served):
+    # A C5 cell samples the 128 px canvas at 16 i: 96 rows keep 6 of 8 and
+    # 128 columns 8; 40 rows keep 3, 70 columns 5.
+    assert detr_served.counters[detr.VALID_TOKENS] == 6 * 8 + 3 * 5
+    assert detr_served.counters[PREDICT_CALLS] == 1
+
+
+def test_detr_detections_are_bit_identical_with_and_without_a_profiler(detr_served):
+    for got, want in zip(detr_served.traced, detr_served.plain):
         assert got.dtype == want.dtype and torch.equal(got, want)
