@@ -279,7 +279,19 @@ Phases, each fatal on failure:
      forward with the plain version swapped in; a forward's launches timed
      by CUDA-graph replay beside their bound and the plain version (also
      by graph replay, and eager). Every serving phase's launch counts hold
-     the kernel's launches a forward (the dicts below).
+     the kernel's launches a forward (the dicts below);
+ 46. DETR's attention kernel (csrc/detr_attention.cu): int8 DETR-DC5 at
+     bs=32 on the benchmark cell's canvases (1088 px, landscape and
+     portrait extents 3:1, seeded weights of its configuration) with 18
+     launches a forward; each of the 18 calls (6 encoder self-attentions
+     over 4,624 tokens, 6 decoder self- and 6 cross-attentions) held against
+     the plain version on its own inputs within a bf16 tolerance; noise in
+     the padded keys changing no bit; the served detections against the
+     same forward with the plain version swapped in; the 18 launches timed
+     by CUDA-graph replay beside their bound (the larger of the bf16
+     tensor-core FLOPs and the exponentials at the MUFU's rate), the plain
+     version (blocks of 4 images) and the former SDPA call on the same
+     inputs.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -343,7 +355,8 @@ INT8_PATH_KERNELS = ("nms_rows", "stem_conv12_pool", "l2norm_requant")
 # x cls and box).
 STEM_FP_LAUNCHES = {"nms_rows": 1, "nms_rows_bf16": 0, "stem_conv12_pool": 0,
                     "l2norm_requant": 1, "max_pool_bwd": 0, "resnet_stem": 0,
-                    "fused_bottleneck": 0, "stem_fused_producer": 1, "requant_epilogue": 33}
+                    "fused_bottleneck": 0, "stem_fused_producer": 1, "requant_epilogue": 33,
+                    "detr_attention": 0}
 # Requant epilogues of one int8 SSD-300 forward on the B2 route
 # (ODT_STEM_FP=0), which runs conv1_1 through the engine's conv too.
 B2_ROUTE_EPILOGUES = 34
@@ -359,7 +372,8 @@ EVAL_TRAIN_STEPS = 100
 # the VGG path.
 SSD512_INT8_LAUNCHES = {"resnet_stem": 1, "fused_bottleneck": 12, "nms_rows": 1,
                         "nms_rows_bf16": 0, "stem_conv12_pool": 0, "l2norm_requant": 0,
-                        "max_pool_bwd": 0, "stem_fused_producer": 0, "requant_epilogue": 38}
+                        "max_pool_bwd": 0, "stem_fused_producer": 0, "requant_epilogue": 38,
+                        "detr_attention": 0}
 # Of one int8 RetinaNet forward: the same trunk; the requant epilogue for its
 # 16, the FPN's 8 and 2 heads x 5 levels x 5 convs.
 RETINANET_INT8_LAUNCHES = {**SSD512_INT8_LAUNCHES, "requant_epilogue": 74}
@@ -489,6 +503,7 @@ PROFILE_GROUPS = (
     ("resnet_stem_kernel", ("resnet_stem_kernel",)),
     ("bottleneck_kernel", ("bottleneck_kernel",)),
     ("requant_epilogue_kernel", ("requant_epilogue_kernel",)),
+    ("detr_attention_kernel", ("attention_kernel",)),
     ("conv_or_gemm", ("conv", "cudnn", "gemm", "xmma", "implicit", "wgrad", "dgrad", "cutlass",
                       "imma", "sm90")),
 )
@@ -542,10 +557,11 @@ def profile_window(torch, fn, iters: int) -> dict:
     }
 
 
-# SASS opcodes that show a kernel's design: tensor-core products (IMMA), the
-# CUDA cores' dot products (IDP4A), ldmatrix, cp.async, block barriers, warp
-# shuffles and reductions.
-SASS_OPS = ("IMMA", "IDP4A", "LDSM", "LDGSTS", "BAR", "SHFL", "REDUX")
+# SASS opcodes that show a kernel's design: tensor-core products (IMMA, and
+# HMMA in bf16), the multi-function unit (MUFU: DETR attention's
+# exponentials), the CUDA cores' dot products (IDP4A), ldmatrix, cp.async,
+# block barriers, warp shuffles and reductions.
+SASS_OPS = ("IMMA", "HMMA", "MUFU", "IDP4A", "LDSM", "LDGSTS", "BAR", "SHFL", "REDUX")
 
 
 def kernel_name(mangled: str) -> str:
@@ -903,6 +919,9 @@ def main() -> int:
         counts = sass[lib].get(fn, {})
         check(counts.get("IMMA", 0) > 0 and counts.get("IDP4A", 1) == 0,
               f"{fn}'s SASS is not the tensor-core design: {counts}")
+    counts = sass["detr_attention"].get("attention_kernel", {})
+    check(counts.get("HMMA", 0) > 0 and counts.get("MUFU", 0) > 0 and counts.get("LDGSTS", 0) > 0,
+          f"DETR attention's SASS is not the mma.sync / ex2 / cp.async design: {counts}")
     # The counter sees __dp4a where a kernel has it: the L2Norm's sum of squares.
     check(all(c["IDP4A"] > 0 for c in sass["l2norm"].values()),
           f"no IDP4A counted in the L2Norm's SASS: {sass['l2norm']}")
@@ -1809,6 +1828,8 @@ def main() -> int:
     mark_seconds("44")
     epi = requant_epilogue_phase(torch, np, counted, where)
     mark_seconds("45")
+    att = detr_attention_phase(torch, np, counted, launches, where)
+    mark_seconds("46")
     bf16_at = {preset: {name: t[name] for name in ("default", "coord_bf16", "all")}
                for preset, t in kn["timing"].items()}
     bf16_300 = kn["timing"]["ssd300_infer_bs64"]["coord_bf16"]
@@ -2008,6 +2029,28 @@ def main() -> int:
                          "SSD-300 bs=64 path's at the top); plain_ms: the plain version (the "
                          "former eager chain) on the same inputs; both by CUDA graph replay, "
                          "by_path's plain_eager_ms by CUDA events around eager calls",
+        },
+        {
+            "name": "detr_attention",
+            "route": "cuda",
+            "source": "object_detector_tpu_torch/csrc/detr_attention.cu",
+            "replaces": None,
+            "replaces_none_because": "the JAX package has no DETR; it replaces the port's call "
+                                     "of F.scaled_dot_product_attention with a key mask",
+            **counts("detr_attention"),
+            "max_abs_err": max(e["max_abs"] for e in att["errors"].values()),
+            "ms": att["timing"]["forward"]["ms"],
+            "plain_ms": att["timing"]["forward"]["plain_ms"],
+            "bound_ms": att["timing"]["forward"]["bound_ms"],
+            "bound_by": att["timing"]["forward"]["bound_by"],
+            "bound_flops_ms": att["timing"]["forward"]["flops_ms"],
+            "bound_ex2_ms": att["timing"]["forward"]["ex2_ms"],
+            "library_ms": att["timing"]["forward"]["library_ms"],
+            "by_call": att["timing"],
+            "times_are": "sums over the 18 launches of one int8 DETR-DC5 forward at bs=32 on the "
+                         "cell's canvases (by_call: the 6 of each kind), at the path's own "
+                         "inputs; kernel and library (the former SDPA call) ms by CUDA graph "
+                         "replay, plain ms by CUDA events over blocks of 4 images",
         },
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -3519,7 +3562,7 @@ def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches (the NMS
     scan's two instantiations apart)."""
     from object_detector_tpu_torch.kernels import (
-        bottleneck, l2norm, nms, pool_bwd, requant_epilogue, resnet_stem, stem, stem_fp,
+        attention, bottleneck, l2norm, nms, pool_bwd, requant_epilogue, resnet_stem, stem, stem_fp,
     )
 
     return {"nms_rows": nms.nms_rows, "nms_rows_bf16": nms.nms_rows.bf16,
@@ -3527,7 +3570,8 @@ def kernel_wrappers() -> dict:
             "l2norm_requant": l2norm.l2norm_requant, "max_pool_bwd": pool_bwd.max_pool_bwd,
             "resnet_stem": resnet_stem.resnet_stem, "fused_bottleneck": bottleneck.fused_bottleneck,
             "stem_fused_producer": stem_fp.stem_fused_producer,
-            "requant_epilogue": requant_epilogue.epilogue}
+            "requant_epilogue": requant_epilogue.epilogue,
+            "detr_attention": attention.masked_attention}
 
 
 def int8_launches(cfg) -> dict:
@@ -4892,6 +4936,185 @@ def requant_epilogue_phase(torch, np, counted, where) -> dict:
             torch.cuda.empty_cache()
         del qp
     return {"cases": cases, "paths": paths}
+
+
+# Phase 46: DETR's attention. The cell's canvases: landscape and portrait
+# extents (h, w), every fourth image portrait; 18 launches a forward (6
+# encoder self-attentions, 6 decoder self- and 6 cross-attentions).
+DETR_LANDSCAPE, DETR_PORTRAIT = (800, 1066), (1066, 800)
+DETR_ATTENTION_LAUNCHES = 18
+# ex2 results a clock an SM (the MUFU's rate on sm_90, the CUDA C++
+# programming guide's throughput table) and the tensor cores' bf16 peak.
+EX2_PER_SM_CLOCK = 16
+BF16_FLOPS_PER_S = 989e12
+# The kernel against the plain version on the path's own inputs
+# (tests/test_torch_detr_attention.py states the limits' reasons).
+ATTN_RTOL, ATTN_ATOL = 2 ** -7, 1.5 * 2 ** -8
+# The served detections with the kernel against the plain version's: the
+# cell's limits (port_bench/cells/detr_dc5_int8_batch32.json) on scores and
+# box corners, a guard against a gross fault only.
+DETR_SCORE_GAP, DETR_BOX_GAP_PX = 0.14, 47.0
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def attention_bound_ms(torch, calls, heads: int) -> dict:
+    """Least time of the captured attention calls (arguments by name): every
+    query row against each image's unmasked keys, each pair 4 * 32 bf16
+    tensor-core FLOPs (QK^T and PV) and one exponential; the larger of the
+    FLOPs at 989e12/s and the exponentials at 16 a clock an SM at the card's
+    largest SM clock."""
+    pairs = 0
+    for kw in calls:
+        q, k, pad = kw["q"], kw["k"], kw.get("key_pad")
+        keys = (k.shape[1] * q.shape[0] if pad is None else int((~pad).sum()))
+        pairs += q.shape[1] * keys * heads
+    flops = 4 * 32 * pairs
+    ex2_per_s = (EX2_PER_SM_CLOCK * torch.cuda.get_device_properties(0).multi_processor_count
+                 * max_sm_clock_hz())
+    flops_ms, ex2_ms = flops / BF16_FLOPS_PER_S * 1e3, pairs / ex2_per_s * 1e3
+    return {"bound_ms": max(flops_ms, ex2_ms), "bound_by": "ex2" if ex2_ms > flops_ms
+            else "flops", "flops_ms": flops_ms, "ex2_ms": ex2_ms, "pairs": pairs,
+            "ex2_per_s": ex2_per_s}
+
+
+def attention_plain(attention, kw, block: int = 4):
+    """The plain version image block by image block (its float32 scores of
+    four of the cell's images take 2.7 GB)."""
+    import torch
+
+    q, k, v, pad = kw["q"], kw["k"], kw["v"], kw.get("key_pad")
+    return torch.cat([attention.masked_attention_reference(
+        q[i:i + block], k[i:i + block], v[i:i + block], kw["heads"],
+        None if pad is None else pad[i:i + block]) for i in range(0, q.shape[0], block)])
+
+
+def attention_sdpa(torch, kw):
+    """The port's former `attend` on the same inputs: SDPA over (B, heads,
+    L, 32) with the boolean keep-mask; the port no longer calls it."""
+    import torch.nn.functional as F
+
+    q, k, v, pad, heads = kw["q"], kw["k"], kw["v"], kw.get("key_pad"), kw["heads"]
+    b, lq, d = q.shape
+    lk = k.shape[1]
+    split = lambda x, n: x.reshape(b, n, heads, d // heads).transpose(1, 2)  # noqa: E731
+    keep = None if pad is None else ~pad[:, None, None, :]
+    out = F.scaled_dot_product_attention(split(q, lq), split(k, lk), split(v, lk), attn_mask=keep)
+    return out.transpose(1, 2).reshape(b, lq, d)
+
+
+def attention_close(torch, got, want) -> dict:
+    """Largest differences of the kernel's output from the plain version's,
+    and whether every element lies within ATTN_RTOL and ATTN_ATOL."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return {"max_abs": float(diff.max()), "max_rel": float((diff / w.abs().clamp_min(1e-3)).max()),
+            "within": bool((diff <= ATTN_ATOL + ATTN_RTOL * w.abs()).all())}
+
+
+def detr_attention_phase(torch, np, counted, launches, where) -> dict:
+    """Phase 46: DETR's attention kernel on the int8 DETR-DC5 path at the
+    cell's shapes (see the module docstring)."""
+    import inspect
+
+    from object_detector_tpu_torch.core.config import get_config
+    from object_detector_tpu_torch.eval.evaluator import make_int8_predict_fn
+    from object_detector_tpu_torch.kernels import attention
+    from object_detector_tpu_torch.models import detr
+    from port_bench.detr_weights import make_weights
+
+    cell = json.loads(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "port_bench",
+                                        "configs", "detr_r50_dc5_coco.json")).read())
+    cfg = get_config("detr_r50_dc5_coco")
+    batch, size, heads = cfg.eval.batch_size, cfg.model.image_size, cfg.transformer.heads
+    extents = np.array([DETR_PORTRAIT if i % 4 == 3 else DETR_LANDSCAPE for i in range(batch)])
+    rng = np.random.default_rng(46)
+    images = rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8)
+    weights = make_weights(cell["resolved"], cell["weights"], 2 ** 33 + 46, "cuda")
+    predict = make_int8_predict_fn(cfg, weights, None, images[:8], device="cuda",
+                                   calibration_extents=extents[:8])
+    del weights
+    signature = inspect.signature(attention.masked_attention)
+    wrapper, calls = detr.masked_attention, []
+
+    def recording(*args, **kw):
+        named = dict(signature.bind(*args, **kw).arguments)
+        out = wrapper(**named)
+        calls.append(named)
+        return out
+
+    predict(images, extents)
+    got, counts = counted(lambda: predict(images, extents))
+    launches["detr_int8_bs32"] = counts
+    check(counts["detr_attention"] == DETR_ATTENTION_LAUNCHES,
+          f"DETR bs={batch}: {counts['detr_attention']} attention launches, expected "
+          f"{DETR_ATTENTION_LAUNCHES}")
+    detr.masked_attention = recording
+    try:
+        predict(images, extents)
+    finally:
+        detr.masked_attention = wrapper
+    check(len(calls) == DETR_ATTENTION_LAUNCHES, f"{len(calls)} attention calls a forward")
+    kinds = {"encoder": calls[:6], "decoder_self": calls[6::2], "cross": calls[7::2]}
+    check(all(kw["q"].shape[1] == 4624 for kw in kinds["encoder"])
+          and all(kw["q"].shape[1] == 100 and kw["key_pad"] is None
+                  for kw in kinds["decoder_self"])
+          and all(kw["k"].shape[1] == 4624 and kw["key_pad"] is not None
+                  for kw in kinds["cross"]), "the attention calls are not the forward's kinds")
+    errors = {}
+    with torch.inference_mode():
+        for name, group in kinds.items():
+            errs = []
+            for kw in group:
+                out = attention.masked_attention(**kw)
+                torch.cuda.synchronize()
+                errs.append(attention_close(torch, out, attention_plain(attention, kw)))
+                check(errs[-1]["within"], f"DETR {name} attention: the kernel is off its plain "
+                                          f"version: {errs[-1]}")
+            errors[name] = {"max_abs": max(e["max_abs"] for e in errs),
+                            "max_rel": max(e["max_rel"] for e in errs)}
+        # Padded keys are never read: noise there changes no bit.
+        kw = dict(kinds["encoder"][0])
+        pad = kw["key_pad"][..., None]
+        noise = torch.randn(kw["k"].shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(46)).to(kw["k"].dtype) * 100
+        noisy = {**kw, "k": torch.where(pad, noise, kw["k"]), "v": torch.where(pad, -noise,
+                                                                                 kw["v"])}
+        check(torch.equal(attention.masked_attention(**noisy), attention.masked_attention(**kw)),
+              "noise in the padded keys changed the attention's output")
+        # The forward with the plain version in the kernel's place.
+        detr.masked_attention = attention.masked_attention_reference
+        try:
+            plain = predict(images, extents)
+        finally:
+            detr.masked_attention = wrapper
+        score_gap = float((got.scores - plain.scores).abs().max())
+        box_gap = float((got.boxes - plain.boxes).abs().max())
+        check(score_gap < DETR_SCORE_GAP and box_gap < DETR_BOX_GAP_PX,
+              f"DETR served with the kernel is off the plain version's: scores {score_gap}, "
+              f"boxes {box_gap} px")
+
+        timing = {}
+        for name, group in (*kinds.items(), ("forward", calls)):
+            ms = graph_ms(torch, lambda: [attention.masked_attention(**kw) for kw in group], 3)
+            library_ms = graph_ms(torch, lambda: [attention_sdpa(torch, kw) for kw in group], 3)
+            plain_ms = cuda_ms(torch, lambda: [attention_plain(attention, kw) for kw in group], 1)
+            timing[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                            **attention_bound_ms(torch, group, heads)}
+            print(json.dumps({"phase": "detr_attention", "calls": name, "launches": len(group),
+                              **timing[name], **where}))
+    out = {"errors": errors, "score_gap": score_gap, "box_gap_px": box_gap, "timing": timing}
+    print(json.dumps({"phase": "detr_attention_path", **{k: v for k, v in out.items()
+                                                          if k != "timing"}, **where}))
+    del calls, kinds, got, plain, predict
+    torch.cuda.empty_cache()
+    return out
 
 
 def _same_detections(torch, a, b) -> bool:

@@ -25,7 +25,7 @@ BUILD_DIR = _PACKAGE / "build"
 SOURCES = {
     "nms": "nms.cu", "stem": "stem.cu", "l2norm": "l2norm.cu", "pool_bwd": "pool_bwd.cu",
     "resnet_stem": "resnet_stem.cu", "bottleneck": "bottleneck.cu", "stem_fp": "stem_fp.cu",
-    "requant_epilogue": "requant_epilogue.cu",
+    "requant_epilogue": "requant_epilogue.cu", "detr_attention": "detr_attention.cu",
 }
 
 # -fmad=false: no contraction of a * b + c into an FMA, so the kernels round

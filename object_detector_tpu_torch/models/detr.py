@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from object_detector_tpu_torch.core.config import DetectorConfig
+from object_detector_tpu_torch.kernels.attention import masked_attention
 from object_detector_tpu_torch.models.resnet import ResNet50Backbone
 from object_detector_tpu_torch.models.ssd import _dtype
 from object_detector_tpu_torch.models.vgg import Conv
@@ -122,17 +123,11 @@ def attend(q: Tensor, k: Tensor, v: Tensor, heads: int, key_pad: Optional[Tensor
     """The attention core of one multi-head attention: (B, Lq, d) queries
     and (B, Lk, d) keys and values, already projected, -> (B, Lq, d);
     scale 1/sqrt(d / heads); ``key_pad`` (B, Lk) True where a key is
-    padding and takes no part."""
-    b, lq, d = q.shape
-    lk = k.shape[1]
-    dh = d // heads
-    q = q.reshape(b, lq, heads, dh).transpose(1, 2)
-    k = k.reshape(b, lk, heads, dh).transpose(1, 2)
-    v = v.reshape(b, lk, heads, dh).transpose(1, 2)
-    keep = None if key_pad is None else ~key_pad[:, None, None, :]
+    padding and takes no part. `kernels.attention.masked_attention`: the
+    hand-written kernel over each image's unmasked keys on the card, its
+    plain version on the CPU."""
     with span("odt.detr.attention"):
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
-    return out.transpose(1, 2).reshape(b, lq, d)
+        return masked_attention(q, k, v, heads, key_pad)
 
 
 class MultiheadAttention(nn.Module):

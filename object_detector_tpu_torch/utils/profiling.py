@@ -20,12 +20,13 @@ import contextlib
 import dataclasses
 import functools
 import time
-from typing import Any, Callable, ContextManager, Dict, Iterator, Mapping, Optional
+from typing import Any, Callable, ContextManager, Dict, Iterator, List, Mapping, Optional, Union
 
 import torch
 
 _OFF = contextlib.nullcontext()
 _COUNTERS: Dict[str, int] = collections.defaultdict(int)
+_PENDING: Dict[str, List[torch.Tensor]] = collections.defaultdict(list)
 
 
 def enabled() -> bool:
@@ -52,19 +53,28 @@ def spanned(name: str) -> Callable[[Callable], Callable]:
     return wrap
 
 
-def count(name: str, n: int) -> None:
-    """Adds ``n`` to the counter ``name`` while a profiler records."""
+def count(name: str, n: Union[int, torch.Tensor]) -> None:
+    """Adds ``n`` to the counter ``name`` while a profiler records. ``n`` may
+    be an integer tensor on the card: it is read when `counters` is, so the
+    count takes no host sync where it is made."""
     if torch.autograd._profiler_enabled():
-        _COUNTERS[name] += n
+        if isinstance(n, torch.Tensor):
+            _PENDING[name].append(n)
+        else:
+            _COUNTERS[name] += n
 
 
 def counters() -> Dict[str, int]:
-    """A snapshot of the counters."""
+    """A snapshot of the counters (reading any pending tensor counts)."""
+    for name, pending in _PENDING.items():
+        _COUNTERS[name] += sum(int(t) for t in pending)
+    _PENDING.clear()
     return dict(_COUNTERS)
 
 
 def reset_counters() -> None:
     _COUNTERS.clear()
+    _PENDING.clear()
 
 
 @contextlib.contextmanager

@@ -112,6 +112,24 @@ def test_a_span_is_the_shared_noop_without_a_profiler(served):
     assert profiling.counters() == {}
 
 
+def test_a_tensor_count_is_read_with_the_counters():
+    """A count made as an integer tensor (on the card: no host sync where it
+    is made) adds up with the plain counts when the counters are read, and
+    only while a profiler records."""
+    profiling.count("odt.t", torch.tensor(4))
+    assert profiling.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count("odt.t", torch.tensor(4))
+        profiling.count("odt.t", 1)
+        profiling.count("odt.u", torch.ones(3, dtype=torch.bool).sum())
+    assert profiling.counters() == {"odt.t": 5, "odt.u": 3}
+    assert profiling.counters() == {"odt.t": 5, "odt.u": 3}
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count("odt.t", torch.tensor(2))
+    profiling.reset_counters()
+    assert profiling.counters() == {}
+
+
 def test_a_traced_predict_emits_every_span_of_its_path_nested_once(served):
     family, events = served.family, served.events
     names = {e.name for e in events if e.name.startswith("odt.")}
