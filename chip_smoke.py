@@ -160,7 +160,8 @@ Phases, each fatal on failure:
      taps and every FPN and head requant point, the spec with both kernels
      within stated mean code differences of it at the taps and P3 to P7;
      img/s with the kernels and on the unfused spec; B6, B7 and B1 timed on
-     the path's inputs; a profile of the call and of each stage;
+     the path's inputs; a profile of the call and of each stage (normalize,
+     trunk, the FPN and heads together, postprocess);
  29. serve one image through the Predictor in float and in int8 at bs=1:
      the same launch counts, the kernels held on the path's inputs (B1 on its
      80 rows), the served detections equal to the plain versions' run, the
@@ -2993,20 +2994,18 @@ def retinanet_phases(torch, np, m, counted, wrappers, launches, gen, rng, image,
     with torch.inference_mode():
         x = normalize(images.float() / 255.0)
         taps_q = engine.run_int8(qp, spec, x, dequantize_taps=False)
-        pyr_q = engine.run_int8_fpn(qp, taps_q)
-        cls8, box8 = engine.run_int8_heads(qp, cfg, pyr_q, torch.bfloat16)
+        cls8, box8 = engine.run_int8_fpn_heads(qp, cfg, taps_q, torch.bfloat16)
     int8_split = stage_profile(torch, {
         "normalize": lambda: normalize(images.float() / 255.0),
         "trunk": lambda: engine.run_int8(qp, spec, x, dequantize_taps=False),
-        "fpn": lambda: engine.run_int8_fpn(qp, taps_q),
-        "heads": lambda: engine.run_int8_heads(qp, cfg, pyr_q, torch.bfloat16),
+        "fpn_heads": lambda: engine.run_int8_fpn_heads(qp, cfg, taps_q, torch.bfloat16),
         "postprocess": lambda: postprocess(cls8, box8, anchors, cfg)}, 3)
     print(json.dumps({"phase": "profile_retinanet_int8_bs64",
                       **profile_window(torch, lambda: predict8(images), 3),
                       "by_stage": int8_split, **where}))
     print(json.dumps({"phase": "profile_retinanet_int8_bs64_unfused_spec",
                       **profile_window(torch, lambda: predict_unfused(images), 3), **where}))
-    del taps_q, pyr_q, cls8, box8, predict8, predict_unfused, x, x8, images, predict, model
+    del taps_q, cls8, box8, predict8, predict_unfused, x, x8, images, predict, model
     torch.cuda.empty_cache()
 
     # 29. One image through the Predictor at bs=1, float and int8.

@@ -143,9 +143,9 @@ def make_int8_predict_fn(
     carries the quantized weights and the op list as ``predict.qp`` and
     ``predict.spec``.
 
-    With ``eval.per_level_heads`` on the kernel NMS path and int8 heads (for
-    RetinaNet: an int8 FPN, as `quantize_retinanet` makes by default), the
-    heads' native per-level outputs go to `postprocess_levels`; the
+    With ``eval.per_level_heads`` on the kernel NMS path, the int8 heads'
+    native per-level outputs (RetinaNet's always run after an int8 FPN,
+    `quantize_retinanet`'s default) go to `postprocess_levels`; the
     concatenated logits are never built.
 
     The DETR family (module docstring) calibrates on canvases with their
@@ -179,14 +179,12 @@ def make_int8_predict_fn(
     if cfg.model.family == "retinanet":
         qp, spec = engine.quantize_retinanet(cfg, device_params, [calib])
         forward = engine.retinanet_int8_forward
-        int8_fpn = "fpn/lateral3" in qp.w_int8
     else:
         qp, spec = engine.quantize_ssd(cfg, device_params, [calib])
         forward = engine.int8_forward
-        int8_fpn = True
     qp = qp.to(dev)
     anchors = torch.as_tensor(np.asarray(anchors_center, np.float32), device=dev)
-    per_level = cfg.eval.per_level_heads and pallas and int8_fpn
+    per_level = cfg.eval.per_level_heads and pallas
 
     @torch.inference_mode()
     def predict(images_u8) -> Detections:

@@ -26,7 +26,6 @@ mask's device, read when the counters are, so a call takes no host sync.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional
 
@@ -98,8 +97,6 @@ def _check_kernel(q: Tensor, k: Tensor, v: Tensor, heads: int, key_pad: Optional
     if q.shape[0] > 65535 or heads > 65535:
         raise ValueError(f"the attention kernel takes at most 65535 images and heads, got "
                          f"{q.shape[0]} and {heads}")
-    if q.device.type != "cuda":
-        raise ValueError(f"masked_attention runs on cuda or cpu tensors, got {q.device}")
 
 
 def _rows(x: Tensor) -> Tensor:
@@ -119,9 +116,10 @@ def masked_attention(q: Tensor, k: Tensor, v: Tensor, heads: int,
     _check(q, k, v, heads, key_pad)
     if q.device.type != "cpu":
         _check_kernel(q, k, v, heads, key_pad)
+    plain = build.runs_plain("masked_attention", q.device)
     if key_pad is not None and profiling.enabled():
         profiling.count(SKIPPED_KEYS, key_pad.sum())
-    if q.device.type == "cpu":
+    if plain:
         return masked_attention_reference(q, k, v, heads, key_pad)
     b, lq, d = q.shape
     lk = k.shape[1]
@@ -130,27 +128,14 @@ def masked_attention(q: Tensor, k: Tensor, v: Tensor, heads: int,
         return out
     q, k, v = _rows(q), _rows(k), _rows(v)
     pad = None if key_pad is None else key_pad.contiguous()
-    with torch.cuda.device(q.device):
-        stream = torch._C._cuda_getCurrentRawStream(q.device.index)
-        err = _library().detr_attention(
-            q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), k.stride(0), k.stride(1),
-            v.data_ptr(), v.stride(0), v.stride(1), None if pad is None else pad.data_ptr(),
-            lk, out.data_ptr(), b, lq, lk, heads, _LOG2E / math.sqrt(HEAD_DIM), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"detr_attention kernel launch failed with CUDA error {err}")
+    build.launch(
+        "detr_attention", q.device,
+        q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), k.stride(0), k.stride(1),
+        v.data_ptr(), v.stride(0), v.stride(1), None if pad is None else pad.data_ptr(),
+        lk, out.data_ptr(), b, lq, lk, heads, _LOG2E / math.sqrt(HEAD_DIM),
+    )
     masked_attention.launches += 1
     return out
 
 
 masked_attention.launches = 0
-
-
-def _library() -> ctypes.CDLL:
-    lib = build.load("detr_attention")
-    fn = lib.detr_attention
-    if fn.argtypes is None:
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, ll, ll, p, ll, ll, p, ll, ll, p, ll, p, i, i, i, i, ctypes.c_float, p]
-        fn.restype = ctypes.c_int
-    return lib

@@ -28,12 +28,12 @@ The 3x3's SAME padding is zero codes of mid1 (not ``rq(relu(bias1))``).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
 from object_detector_tpu_torch.kernels import build, int8_pack
+from object_detector_tpu_torch.kernels.requant_epilogue import epilogue_reference
 from object_detector_tpu_torch.ops import int8 as int8_ops
 from object_detector_tpu_torch.utils.profiling import spanned
 
@@ -54,17 +54,18 @@ def fused_bottleneck_reference(
     resid_scale: float, packed: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
 ) -> Tensor:
     """Plain PyTorch version: the engine's unfused chain (three int8 convs,
-    each with the requant epilogue; the residual joins the third), on either
-    device. ``packed`` is the wrapper's argument, unused here."""
+    each with the requant epilogue's plain version; the residual joins the
+    third), on either device. ``packed`` is the wrapper's argument, unused
+    here."""
     del packed
     c, cm = w1.shape
-    scale = lambda s: int8_ops.scale_tensor(float(s), x.device)  # noqa: E731
-    mid1 = int8_ops.requant_epilogue(
-        int8_ops.conv_int8(x, w1.reshape(1, 1, c, cm)), deq1, bias1, scale(s1))
-    mid2 = int8_ops.requant_epilogue(int8_ops.conv_int8(mid1, w2), deq2, bias2, scale(s2))
-    return int8_ops.requant_epilogue(
-        int8_ops.conv_int8(mid2, w3.reshape(1, 1, cm, c)), deq3, bias3, scale(s3),
-        resid=x, resid_scale=scale(resid_scale))
+    mid1 = epilogue_reference(int8_ops.conv_int8(x, w1.reshape(1, 1, c, cm)), deq1, bias1,
+                              float(s1), relu=True).codes
+    mid2 = epilogue_reference(int8_ops.conv_int8(mid1, w2), deq2, bias2, float(s2),
+                              relu=True).codes
+    return epilogue_reference(int8_ops.conv_int8(mid2, w3.reshape(1, 1, cm, c)), deq3, bias3,
+                              float(s3), relu=True, resid=x,
+                              resid_scale=float(resid_scale)).codes
 
 
 def pack_weights(w1: Tensor, w2: Tensor, w3: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -110,11 +111,9 @@ def fused_bottleneck(
     ``pack_weights(w1, w2, w3)`` where the caller keeps it (it is made here
     otherwise). ``fused_bottleneck.launches`` counts kernel launches."""
     _check(x, w1, deq1, bias1, w2, deq2, bias2, w3, deq3, bias3)
-    if x.device.type == "cpu":
+    if build.runs_plain("fused_bottleneck", x.device):
         return fused_bottleneck_reference(x, w1, deq1, bias1, w2, deq2, bias2, w3, deq3, bias3,
                                           s1=s1, s2=s2, s3=s3, resid_scale=resid_scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_bottleneck runs on cuda or cpu tensors, got {x.device}")
     c, cm = w1.shape
     if c % CHANNEL_MULTIPLE or cm % CHANNEL_MULTIPLE or cm > MAX_MID_CHANNELS:
         raise ValueError(f"the kernel takes C and Cm multiples of {CHANNEL_MULTIPLE} and Cm up to "
@@ -129,29 +128,13 @@ def fused_bottleneck(
     if out.numel() == 0:
         return out
     b, h, w, _ = x.shape
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().fused_bottleneck(
-            x.data_ptr(), *(p.data_ptr() for p in packed), *(t.data_ptr() for t in vectors),
-            float(s1), float(s2), float(s3), float(resid_scale), b, h, w, c, cm,
-            out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_bottleneck kernel launch failed with CUDA error {err}")
+    build.launch(
+        "fused_bottleneck", x.device,
+        x.data_ptr(), *(p.data_ptr() for p in packed), *(t.data_ptr() for t in vectors),
+        float(s1), float(s2), float(s3), float(resid_scale), b, h, w, c, cm, out.data_ptr(),
+    )
     fused_bottleneck.launches += 1
     return out
 
 
 fused_bottleneck.launches = 0
-
-
-def _library() -> ctypes.CDLL:
-    lib = build.load("bottleneck")
-    fn = lib.fused_bottleneck
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_float] * 4 + [ctypes.c_int] * 5
-            + [ctypes.c_void_p, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    return lib

@@ -19,8 +19,6 @@ held to it within one code on < 1e-3 of the elements.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from object_detector_tpu_torch.kernels import build
@@ -61,10 +59,8 @@ def l2norm_requant(q0: Tensor, gamma: Tensor, out_scale: float) -> Tensor:
     `l2norm_requant_reference` for CPU tensors. ``l2norm_requant.launches``
     counts kernel launches."""
     _check(q0, gamma)
-    if q0.device.type == "cpu":
+    if build.runs_plain("l2norm_requant", q0.device):
         return l2norm_requant_reference(q0, gamma, out_scale)
-    if q0.device.type != "cuda":
-        raise ValueError(f"l2norm_requant runs on cuda or cpu tensors, got {q0.device}")
     c = q0.shape[-1]
     if c % 16 or not 0 < c <= MAX_CHANNELS:
         raise ValueError(f"the kernel takes C a multiple of 16 up to {MAX_CHANNELS}, got {c}")
@@ -74,28 +70,10 @@ def l2norm_requant(q0: Tensor, gamma: Tensor, out_scale: float) -> Tensor:
     pixels = q0.numel() // c
     if pixels == 0:
         return out
-    with torch.cuda.device(q0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().l2norm_requant(
-            q0.data_ptr(), gamma.data_ptr(), float(out_scale), pixels, c,
-            out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"l2norm_requant kernel launch failed with CUDA error {err}")
+    build.launch("l2norm_requant", q0.device, q0.data_ptr(), gamma.data_ptr(),
+                 float(out_scale), pixels, c, out.data_ptr())
     l2norm_requant.launches += 1
     return out
 
 
 l2norm_requant.launches = 0
-
-
-def _library() -> ctypes.CDLL:
-    lib = build.load("l2norm")
-    fn = lib.l2norm_requant
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return lib

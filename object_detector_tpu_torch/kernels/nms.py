@@ -26,7 +26,6 @@ sort (`ops.packsort`).
 
 from __future__ import annotations
 
-import ctypes
 import types
 from typing import Callable, Sequence, Tuple
 
@@ -151,13 +150,11 @@ def nms_rows(
     `nms_rows_reference`; ``nms_rows.launches`` counts launches of the
     float32 instantiation, ``nms_rows.bf16.launches`` of the bfloat16 one."""
     _check_coords(coords)
-    if scores.device.type == "cpu":
+    if build.runs_plain("nms_rows", scores.device):
         return nms_rows_reference(
             coords, scores, max_out=max_out, iou_threshold=iou_threshold,
             score_threshold=score_threshold,
         )
-    if scores.device.type != "cuda":
-        raise ValueError(f"nms_rows runs on cuda or cpu tensors, got {scores.device}")
     rows, k = scores.shape
     if coords.shape != (4, rows, k):
         raise ValueError(f"coords must be (4, {rows}, {k}), got {tuple(coords.shape)}")
@@ -176,16 +173,12 @@ def nms_rows(
     if rows == 0:
         return out_s, out_c
     bf16 = coords.dtype == torch.bfloat16
-    lib = _library()
-    with torch.cuda.device(scores.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = (lib.nms_rows_bf16 if bf16 else lib.nms_rows)(
-            coords.data_ptr(), scores.data_ptr(), rows, k, max_out,
-            _t_ratio(iou_threshold, coords.dtype), as_f32(score_threshold),
-            out_s.data_ptr(), out_c.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"nms_rows kernel launch failed with CUDA error {err}")
+    build.launch(
+        "nms_rows_bf16" if bf16 else "nms_rows", scores.device,
+        coords.data_ptr(), scores.data_ptr(), rows, k, max_out,
+        _t_ratio(iou_threshold, coords.dtype), as_f32(score_threshold),
+        out_s.data_ptr(), out_c.data_ptr(),
+    )
     if bf16:
         nms_rows.bf16.launches += 1
     else:
@@ -198,24 +191,10 @@ nms_rows.launches = 0
 nms_rows.bf16 = types.SimpleNamespace(launches=0)
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("nms")
-    if lib.nms_rows.argtypes is None:
-        for fn in (lib.nms_rows, lib.nms_rows_bf16):
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-        lib.nms_rows_warp_max_k.restype = ctypes.c_int
-    return lib
-
-
 def warp_route_max_k() -> int:
     """The widest row of the kernel's warp route, as the built library has it
     (builds it)."""
-    return int(_library().nms_rows_warp_max_k())
+    return int(build.entry("nms_rows_warp_max_k")())
 
 
 def _top_k_idx(x: Tensor, k: int, packed_sort: bool) -> Tensor:
@@ -527,4 +506,3 @@ def per_class_nms_batched(
         iou_threshold=iou_threshold, score_threshold=score_threshold,
         packed_sort=packed_sort, coord_bf16=coord_bf16, rows_fn=rows_fn,
     )
-

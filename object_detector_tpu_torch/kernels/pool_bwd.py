@@ -28,8 +28,6 @@ The kernel recomputes each window's maximum from x and does not read y.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from object_detector_tpu_torch.kernels import build
@@ -77,10 +75,8 @@ def max_pool_bwd(x: Tensor, y: Tensor, g: Tensor) -> Tensor:
     `max_pool_bwd_reference` for CPU tensors. ``max_pool_bwd.launches``
     counts kernel launches."""
     _check(x, y, g)
-    if x.device.type == "cpu":
+    if build.runs_plain("max_pool_bwd", x.device):
         return max_pool_bwd_reference(x, y, g)
-    if x.device.type != "cuda":
-        raise ValueError(f"max_pool_bwd runs on cuda or cpu tensors, got {x.device}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(
             "max_pool_bwd takes x dense in channels-last memory format "
@@ -91,28 +87,10 @@ def max_pool_bwd(x: Tensor, y: Tensor, g: Tensor) -> Tensor:
     b, c, h, w = x.shape
     if x.numel() == 0:
         return dx
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().pool_bwd(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(), b * (h // 2), w // 2, c,
-            int(x.dtype == torch.bfloat16), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"pool_bwd kernel launch failed with CUDA error {err}")
+    build.launch("pool_bwd", x.device, x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                 b * (h // 2), w // 2, c, int(x.dtype == torch.bfloat16))
     max_pool_bwd.launches += 1
     return dx
 
 
 max_pool_bwd.launches = 0
-
-
-def _library() -> ctypes.CDLL:
-    lib = build.load("pool_bwd")
-    fn = lib.pool_bwd
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return lib

@@ -31,7 +31,6 @@ Scales are Python floats, rounded to float32 on the host.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -116,11 +115,9 @@ def epilogue(
     """Launches the CUDA kernel for CUDA tensors and runs `epilogue_reference`
     for CPU tensors. ``epilogue.launches`` counts kernel launches."""
     _check(acc, deq, bias, out_scale, resid, resid_scale, addend, sum_dtype, relu_codes)
-    if acc.device.type == "cpu":
+    if build.runs_plain("epilogue", acc.device):
         return epilogue_reference(acc, deq, bias, out_scale, relu, resid, resid_scale, addend,
                                   sum_dtype, relu_codes)
-    if acc.device.type != "cuda":
-        raise ValueError(f"epilogue runs on cuda or cpu tensors, got {acc.device}")
     c = acc.shape[-1]
     try:
         rows2d = acc.view(-1, c)  # the rows at one stride, without a copy
@@ -142,31 +139,15 @@ def epilogue(
         return Epilogue(codes, total, relu_q)
     h, w = (acc.shape[1], acc.shape[2]) if addend is not None else (0, 0)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(acc.device):
-        # The current stream's handle, without the Stream object that
-        # torch.cuda.current_stream() builds (7 us of the card host's 40 a
-        # call): a forward makes 33 to 74 of these calls.
-        stream = torch._C._cuda_getCurrentRawStream(acc.device.index)
-        err = _library().requant_epilogue(
-            rows2d.data_ptr(), rows2d.stride(0), rows, c, deq.data_ptr(), bias.data_ptr(),
-            ptr(resid), 0.0 if resid_scale is None else float(resid_scale), ptr(addend), h, w,
-            1.0 if out_scale is None else float(out_scale), int(relu), ptr(codes), ptr(relu_q),
-            ptr(total), _SUM_KINDS[sum_dtype], stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"requant_epilogue kernel launch failed with CUDA error {err}")
+    build.launch(
+        "requant_epilogue", acc.device,
+        rows2d.data_ptr(), rows2d.stride(0), rows, c, deq.data_ptr(), bias.data_ptr(),
+        ptr(resid), 0.0 if resid_scale is None else float(resid_scale), ptr(addend), h, w,
+        1.0 if out_scale is None else float(out_scale), int(relu), ptr(codes), ptr(relu_q),
+        ptr(total), _SUM_KINDS[sum_dtype],
+    )
     epilogue.launches += 1
     return Epilogue(codes, total, relu_q)
 
 
 epilogue.launches = 0
-
-
-def _library() -> ctypes.CDLL:
-    lib = build.load("requant_epilogue")
-    fn = lib.requant_epilogue
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, f, p, i, i, f, i, p, p, p, i, p]
-        fn.restype = ctypes.c_int
-    return lib

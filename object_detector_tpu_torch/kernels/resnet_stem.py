@@ -35,7 +35,6 @@ zero-padded to 8x8, K = 192, the same integer sums as the 7x7/s2 conv.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -120,10 +119,8 @@ def resnet_stem(
     ``pack_weights(w_q)`` where the caller keeps it (it is made here
     otherwise). ``resnet_stem.launches`` counts kernel launches."""
     _check(images, w_q, deq, bias)
-    if images.device.type == "cpu":
+    if build.runs_plain("resnet_stem", images.device):
         return resnet_stem_reference(images, w_q, deq, bias, in_scale, out_scale)
-    if images.device.type != "cuda":
-        raise ValueError(f"resnet_stem runs on cuda or cpu tensors, got {images.device}")
     if not (images.is_contiguous() and deq.is_contiguous() and bias.is_contiguous()):
         raise ValueError("resnet_stem takes contiguous images, deq and bias")
     if images.data_ptr() % 16:
@@ -135,14 +132,11 @@ def resnet_stem(
     out = torch.empty((b, h // 4, w // 4, CHANNELS), dtype=torch.int8, device=images.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().resnet_stem(
-            images.data_ptr(), packed.data_ptr(), deq.data_ptr(), bias.data_ptr(),
-            float(in_scale), float(out_scale), b, h, w, out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"resnet_stem kernel launch failed with CUDA error {err}")
+    build.launch(
+        "resnet_stem", images.device,
+        images.data_ptr(), packed.data_ptr(), deq.data_ptr(), bias.data_ptr(),
+        float(in_scale), float(out_scale), b, h, w, out.data_ptr(),
+    )
     resnet_stem.launches += 1
     return out
 
@@ -150,20 +144,6 @@ def resnet_stem(
 resnet_stem.launches = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("resnet_stem")
-    fn = lib.resnet_stem
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        lib.resnet_stem_smem_bytes.restype = ctypes.c_int
-    return lib
-
-
 def smem_bytes() -> int:
     """The dynamic shared memory a block of the kernel takes (builds it)."""
-    return int(_library().resnet_stem_smem_bytes())
+    return int(build.entry("resnet_stem_smem_bytes")())

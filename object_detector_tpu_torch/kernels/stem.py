@@ -26,12 +26,12 @@ of ``csrc/conv12_pool.cuh``, and both read conv1_2's kernel as
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from object_detector_tpu_torch.kernels import build, int8_pack
+from object_detector_tpu_torch.kernels.requant_epilogue import epilogue_reference
 from object_detector_tpu_torch.ops import int8 as int8_ops
 from object_detector_tpu_torch.utils.profiling import spanned
 
@@ -49,12 +49,11 @@ def stem_conv12_pool_reference(
     packed: Optional[Tensor] = None,
 ) -> Tensor:
     """Plain PyTorch version: the reference's unfused chain (int8 conv,
-    requant epilogue, then the int8 max pool), on either device. ``packed``
-    is the wrapper's argument, unused here."""
+    the requant epilogue's plain version, then the int8 max pool), on either
+    device. ``packed`` is the wrapper's argument, unused here."""
     del packed
     acc = int8_ops.conv_int8(q1, w2, 1, "SAME", 1)
-    scale = int8_ops.scale_tensor(float(out_scale), q1.device)
-    q2 = int8_ops.requant_epilogue(acc, deq, bias, scale, relu=True)
+    q2 = epilogue_reference(acc, deq, bias, float(out_scale), relu=True).codes
     return int8_ops.max_pool(q2, 2, 2)
 
 
@@ -97,10 +96,8 @@ def stem_conv12_pool(q1: Tensor, w2: Tensor, deq: Tensor, bias: Tensor, out_scal
     ``pack_weights(w2)`` where the caller keeps it (it is made here
     otherwise). ``stem_conv12_pool.launches`` counts kernel launches."""
     _check(q1, w2, deq, bias, packed)
-    if q1.device.type == "cpu":
+    if build.runs_plain("stem_conv12_pool", q1.device):
         return stem_conv12_pool_reference(q1, w2, deq, bias, out_scale)
-    if q1.device.type != "cuda":
-        raise ValueError(f"stem_conv12_pool runs on cuda or cpu tensors, got {q1.device}")
     if not (q1.is_contiguous() and deq.is_contiguous() and bias.is_contiguous()) \
             or q1.data_ptr() % 16:
         raise ValueError("stem_conv12_pool takes contiguous, 16-byte aligned q1, deq and bias")
@@ -110,29 +107,10 @@ def stem_conv12_pool(q1: Tensor, w2: Tensor, deq: Tensor, bias: Tensor, out_scal
     out = torch.empty((b, h // 2, w // 2, CHANNELS), dtype=torch.int8, device=q1.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().stem_conv12_pool(
-            q1.data_ptr(), packed.data_ptr(), deq.data_ptr(), bias.data_ptr(),
-            float(out_scale), b, h, w, out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"stem_conv12_pool kernel launch failed with CUDA error {err}")
+    build.launch("stem_conv12_pool", q1.device, q1.data_ptr(), packed.data_ptr(),
+                 deq.data_ptr(), bias.data_ptr(), float(out_scale), b, h, w, out.data_ptr())
     stem_conv12_pool.launches += 1
     return out
 
 
 stem_conv12_pool.launches = 0
-
-
-def _library() -> ctypes.CDLL:
-    lib = build.load("stem")
-    fn = lib.stem_conv12_pool
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return lib

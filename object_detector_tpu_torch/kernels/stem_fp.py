@@ -24,12 +24,12 @@ division:
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
 from object_detector_tpu_torch.kernels import build, int8_pack, stem
+from object_detector_tpu_torch.kernels.requant_epilogue import epilogue_reference
 from object_detector_tpu_torch.ops import int8 as int8_ops
 from object_detector_tpu_torch.utils.profiling import spanned
 
@@ -44,12 +44,12 @@ def stem_fused_producer_reference(
     packed: Optional[Tuple[Tensor, Tensor]] = None,
 ) -> Tensor:
     """Plain PyTorch version, the engine's unfused route on either device:
-    conv1_1 through the int8 conv and the requant epilogue, then
-    `stem.stem_conv12_pool_reference`. ``packed`` is the wrapper's argument,
-    unused here."""
+    conv1_1 through the int8 conv and the requant epilogue's plain version,
+    then `stem.stem_conv12_pool_reference`. ``packed`` is the wrapper's
+    argument, unused here."""
     del packed
     acc = int8_ops.conv_int8(x_q, w1, 1, "SAME", 1)
-    q1 = int8_ops.requant_epilogue(acc, deq1, bias1, int8_ops.scale_tensor(float(s1), x_q.device))
+    q1 = epilogue_reference(acc, deq1, bias1, float(s1), relu=True).codes
     return stem.stem_conv12_pool_reference(q1, w2, deq2, bias2, s2)
 
 
@@ -97,10 +97,8 @@ def stem_fused_producer(
     ``pack_weights(w1, w2)`` where the caller keeps it (it is made here
     otherwise). ``stem_fused_producer.launches`` counts kernel launches."""
     _check(x_q, w1, deq1, bias1, w2, deq2, bias2)
-    if x_q.device.type == "cpu":
+    if build.runs_plain("stem_fused_producer", x_q.device):
         return stem_fused_producer_reference(x_q, w1, deq1, bias1, s1, w2, deq2, bias2, s2)
-    if x_q.device.type != "cuda":
-        raise ValueError(f"stem_fused_producer runs on cuda or cpu tensors, got {x_q.device}")
     if not all(t.is_contiguous() for t in (x_q, deq1, bias1, deq2, bias2)):
         raise ValueError("stem_fused_producer takes contiguous x_q, deq1, bias1, deq2 and bias2")
     w1_packed, w2_packed = pack_weights(w1, w2) if packed is None else packed
@@ -108,31 +106,14 @@ def stem_fused_producer(
     out = torch.empty((b, h // 2, w // 2, CHANNELS), dtype=torch.int8, device=x_q.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(x_q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().stem_fused_producer(
-            x_q.data_ptr(), w1_packed.data_ptr(), w2_packed.data_ptr(), deq1.data_ptr(),
-            bias1.data_ptr(), float(s1), deq2.data_ptr(), bias2.data_ptr(), float(s2),
-            b, h, w, out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"stem_fused_producer kernel launch failed with CUDA error {err}")
+    build.launch(
+        "stem_fused_producer", x_q.device,
+        x_q.data_ptr(), w1_packed.data_ptr(), w2_packed.data_ptr(), deq1.data_ptr(),
+        bias1.data_ptr(), float(s1), deq2.data_ptr(), bias2.data_ptr(), float(s2),
+        b, h, w, out.data_ptr(),
+    )
     stem_fused_producer.launches += 1
     return out
 
 
 stem_fused_producer.launches = 0
-
-
-def _library() -> ctypes.CDLL:
-    lib = build.load("stem_fp")
-    fn = lib.stem_fused_producer
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return lib

@@ -13,8 +13,9 @@ by its reciprocal, which flips codes at rounding boundaries.
 
 The steps run under the spans of `utils.profiling.span`, recorded while a
 profiler records: ``odt.int8.im2col`` (pads and the window copy),
-``odt.int8.gemm`` (``torch._int_mm``), ``odt.int8.epilogue`` (the requant)
-and ``odt.int8.pool`` (pools and the edge pad).
+``odt.int8.gemm`` (``torch._int_mm``) and ``odt.int8.pool`` (pools and the
+edge pad). The requant epilogue is `kernels.requant_epilogue`, under the
+engine's ``odt.int8.epilogue``.
 """
 
 from __future__ import annotations
@@ -141,25 +142,6 @@ def quantize(y: Tensor, scale: Tensor, low: float = -127.0) -> Tensor:
     return y.div_(scale).round_().clamp_(low, 127.0).to(torch.int8)
 
 
-def requant_epilogue(
-    acc: Tensor,  # int32 accumulator
-    deq: Tensor,  # (Cout,) float32: input scale * weight scale
-    bias: Tensor,  # (Cout,) float32
-    out_scale: Tensor,  # 0-dim float32
-    relu: bool = True,
-    resid: Optional[Tensor] = None,  # int8 residual codes, acc's shape
-    resid_scale: Optional[Tensor] = None,  # 0-dim float32, their scale
-) -> Tensor:
-    """``acc.f32 * deq + bias`` [``+ resid.f32 * resid_scale``] -> ReLU ->
-    requant, rounding after every operation as the reference's op-by-op form
-    does (the residual product is rounded before it is added). The ReLU is
-    the clip's lower bound 0: dividing by a positive scale and rounding keep
-    the sign, so clipping the code at 0 equals clipping y at 0 first."""
-    with span("odt.int8.epilogue"):
-        return quantize(dequant(acc, deq, bias, resid, resid_scale), out_scale,
-                        0.0 if relu else -127.0)
-
-
 def dequant(
     acc: Tensor,  # int32 accumulator
     deq: Tensor,  # (Cout,) float32
@@ -169,7 +151,9 @@ def dequant(
 ) -> Tensor:
     """``acc.f32 * deq + bias`` [``+ resid.f32 * resid_scale``] in float32,
     each operation rounded (the residual product before it is added): the
-    arithmetic of every requant before its quantize."""
+    arithmetic of every requant before its quantize. A ReLU is the
+    quantize's lower bound 0: dividing by a positive scale and rounding keep
+    the sign, so clipping the code at 0 equals clipping y at 0 first."""
     y = torch.mul(acc, deq).add_(bias)  # acc -> float32 rounds to nearest, as astype does
     if resid is not None:
         y.add_(resid.to(torch.float32).mul_(resid_scale))

@@ -38,9 +38,11 @@ RetinaNet runs the ResNet trunk, then its FPN and shared heads in int8
 calibrated by `run_float_fpn_heads`, which records the absmax at each of
 their requant points.
 
-Every epilogue, from a GEMM's int32 accumulator to the codes, the FPN's
-float32 sums or the logits, is one launch of `kernels.requant_epilogue` on
-the card (its plain version on the CPU).
+Every int8 conv step of the trunk, the FPN and the heads is one call of
+`_conv_step`: the int8 conv (im2col, the int8 GEMM), then the epilogue from
+its int32 accumulator to the codes, the FPN's float32 sums or the logits,
+one launch of `kernels.requant_epilogue` on the card (its plain version on
+the CPU).
 
 While a profiler records, the int8 forwards run under ``odt.forward`` and
 each of their steps under one ``odt.int8.*`` or ``odt.kernel.*`` span
@@ -621,6 +623,56 @@ def _count_epilogue(*tensors: Optional[Tensor]) -> None:
                                             for t in tensors if t is not None))
 
 
+def _conv_step(
+    qp: QuantParams, x_q: Tensor, s_in: float, path: str, stride: int = 1,
+    padding: Any = "SAME", dilation: int = 1, out_scale: Optional[float] = None,
+    relu: bool = False, resid: Optional[Tensor] = None, resid_scale: Optional[float] = None,
+    addend: Optional[Tensor] = None, sum_dtype: Optional[torch.dtype] = None,
+    relu_codes: bool = False,
+) -> epilogue_kernel.Epilogue:
+    """One int8 conv step: the int8 conv of the codes ``x_q`` (at scale
+    ``s_in``) by the conv at ``path``, then its epilogue, one call of
+    `kernels.requant_epilogue.epilogue` under ``odt.int8.epilogue`` (the
+    arguments after ``dilation`` are the epilogue's). The step counts the
+    accumulator, the residual, the addend and the codes where they are asked
+    for, else the sum; with ReLU codes also the codes in and the ReLU codes
+    out, as many bytes as the ReLU codes twice."""
+    acc = int8_ops.conv_int8(x_q, qp.w_int8[path], stride, padding, dilation,
+                             operand=qp.gemm_operand(path))
+    with span("odt.int8.epilogue"):
+        out = epilogue_kernel.epilogue(acc, qp.deq(path, s_in, x_q.device), qp.bias[path],
+                                       out_scale, relu, resid, resid_scale, addend, sum_dtype,
+                                       relu_codes)
+    _count_epilogue(acc, resid, addend, out.sum if out.codes is None else out.codes,
+                    out.relu_codes, out.relu_codes)
+    return out
+
+
+def _head_out(
+    qp: QuantParams, cfg: DetectorConfig, x_q: Tensor, s_in: float, path: str, cls: bool,
+    anchors: int, logits_dtype: torch.dtype, concat: bool,
+) -> Tensor:
+    """A head's out conv on one level: its float sum, no requant (the class
+    logits in ``logits_dtype``, the box offsets in float32), as (B, H*W*a,
+    width), or the conv's native (B, H, W, a*width) where not ``concat``."""
+    y = _conv_step(qp, x_q, s_in, path,
+                   sum_dtype=logits_dtype if cls else torch.float32).sum
+    if not concat:
+        return y
+    b, h, w, _ = y.shape
+    return y.reshape(b, h * w * anchors, _head_width(cfg, cls))
+
+
+def _head_outputs(cls_out: List[Tensor], box_out: List[Tensor],
+                  concat: bool) -> Tuple[Any, Any]:
+    """The heads' levels concatenated under ``odt.int8.concat``, or the
+    per-level tuples where not ``concat``."""
+    if not concat:
+        return tuple(cls_out), tuple(box_out)
+    with span("odt.int8.concat"):
+        return torch.cat(cls_out, dim=1), torch.cat(box_out, dim=1)
+
+
 def run_int8(
     qp: QuantParams,
     spec: Spec,
@@ -651,24 +703,14 @@ def run_int8(
             x = int8_ops.quantize(images.to(torch.float32, copy=True), qp.scale(cur_scale, dev))
     regs: Dict[str, Tuple[Tensor, float]] = {}
     taps: List[Any] = [None] * _num_taps(spec)
-
-    def conv(x: Tensor, op: ConvOp, in_scale: float) -> Tensor:
-        acc = int8_ops.conv_int8(x, qp.w_int8[op.path], op.stride, op.padding, op.dilation,
-                                 operand=qp.gemm_operand(op.path))
-        resid = resid_scale = None
-        if op.add_register is not None:
-            resid, resid_scale = regs[op.add_register]
-        with span("odt.int8.epilogue"):
-            out = epilogue_kernel.epilogue(acc, qp.deq(op.path, in_scale, dev), qp.bias[op.path],
-                                           qp.act_scale[op.path], op.relu, resid,
-                                           resid_scale).codes
-        _count_epilogue(acc, resid, out)
-        return out
-
     for op in spec:
         if isinstance(op, ConvOp):
-            x = conv(x, op, cur_scale)
-            cur_scale = qp.act_scale[op.path]
+            resid, resid_scale = (None, None) if op.add_register is None \
+                else regs[op.add_register]
+            out_scale = qp.act_scale[op.path]
+            x = _conv_step(qp, x, cur_scale, op.path, op.stride, op.padding, op.dilation,
+                           out_scale, op.relu, resid, resid_scale).codes
+            cur_scale = out_scale
         elif isinstance(op, StemPoolPallasOp):
             out_scale = qp.act_scale[op.path]
             packed = qp.derived(("resnet_stem", op.path), lambda: resnet_stem_kernel.pack_weights(
@@ -701,7 +743,7 @@ def run_int8(
             else:
                 packed = qp.derived(("stem", op.path2), lambda: stem_kernel.pack_weights(
                     qp.w_int8[op.path2]))
-                x = conv(x, ConvOp(op.path1), cur_scale)
+                x = _conv_step(qp, x, cur_scale, op.path1, out_scale=s1, relu=True).codes
                 x = stem_fn(x, qp.w_int8[op.path2], qp.deq(op.path2, s1, dev), qp.bias[op.path2],
                             s2, packed=packed)
             cur_scale = s2
@@ -755,21 +797,10 @@ def apply_heads_int8(
 
     cls_out, box_out = [], []
     for level, ((tap, s_tap), a) in enumerate(zip(taps, cfg.anchors.anchors_per_level)):
-        b, h, w, _ = tap.shape
-        for kind, out, width in (("cls", cls_out, cfg.model.num_classes), ("box", box_out, 4)):
-            path = f"head{level}/{kind}"
-            acc = int8_ops.conv_int8(tap, qp.w_int8[path], 1, "SAME", 1,
-                                     operand=qp.gemm_operand(path))
-            with span("odt.int8.epilogue"):
-                y = epilogue_kernel.epilogue(
-                    acc, qp.deq(path, s_tap, tap.device), qp.bias[path],
-                    sum_dtype=logits_dtype if kind == "cls" else torch.float32).sum
-            _count_epilogue(acc, y)
-            out.append(y.reshape(b, h * w * a, width) if concat else y)
-    if not concat:
-        return tuple(cls_out), tuple(box_out)
-    with span("odt.int8.concat"):
-        return torch.cat(cls_out, dim=1), torch.cat(box_out, dim=1)
+        for kind, out in (("cls", cls_out), ("box", box_out)):
+            out.append(_head_out(qp, cfg, tap, s_tap, f"head{level}/{kind}", kind == "cls", a,
+                                 logits_dtype, concat))
+    return _head_outputs(cls_out, box_out, concat)
 
 
 def _head_conv(x: Tensor, weight: Tensor, bias: Tensor, dtype: torch.dtype) -> Tensor:
@@ -865,8 +896,8 @@ def fpn_head_conv_paths(cfg: DetectorConfig) -> List[str]:
     return paths
 
 
-def _head_width(cfg: DetectorConfig, head: str) -> int:
-    return cfg.model.num_classes if head == "cls_head" else 4
+def _head_width(cfg: DetectorConfig, cls: bool) -> int:
+    return cfg.model.num_classes if cls else 4
 
 
 def run_float_fpn_heads(
@@ -906,57 +937,44 @@ def run_float_fpn_heads(
                 absmax[f"{head}/conv{i}@{lvl}"] = x.abs().max()
             y = conv(x, f"{head}/out")
             b, h, w, _ = y.shape
-            outs[head].append(y.reshape(b, h * w * ANCHORS_PER_LOCATION, _head_width(cfg, head)))
+            outs[head].append(y.reshape(b, h * w * ANCHORS_PER_LOCATION,
+                                        _head_width(cfg, head == "cls_head")))
     return torch.cat(outs["cls_head"], dim=1), torch.cat(outs["box_head"], dim=1), absmax
 
 
-def _conv_acc(qp: QuantParams, x_q: Tensor, path: str, stride: int = 1) -> Tensor:
-    """The int8 conv's int32 accumulator (SAME padding)."""
-    return int8_ops.conv_int8(x_q, qp.w_int8[path], stride, "SAME", 1,
-                              operand=qp.gemm_operand(path))
-
-
-def _conv_requant(qp: QuantParams, x_q: Tensor, s_in: float, path: str, key: str,
-                  codes: Optional[Dict[str, Tensor]], relu: bool = False,
-                  stride: int = 1) -> Tuple[Tensor, float]:
-    """Int8 conv, then ``acc.f32 * (s_in * w_scale) + bias`` requanted by the
-    scale of ``key`` (ReLU as the clip's lower bound 0: the requant keeps the
-    sign) in one epilogue, in the reference's op order. The codes go into
-    ``codes`` where it is given."""
-    acc = _conv_acc(qp, x_q, path, stride)
-    s = qp.act_scale[key]
-    with span("odt.int8.epilogue"):
-        q = epilogue_kernel.epilogue(acc, qp.deq(path, s_in, x_q.device), qp.bias[path], s,
-                                     relu).codes
-    _count_epilogue(acc, q)
-    if codes is not None:
-        codes[key] = q
-    return q, s
-
-
-def run_int8_fpn(
-    qp: QuantParams, taps_q: List[Tuple[Tensor, float]],
+def run_int8_fpn_heads(
+    qp: QuantParams, cfg: DetectorConfig, taps_q: List[Tuple[Tensor, float]],
+    logits_dtype: torch.dtype = torch.float32,
+    concat: bool = True,
     codes: Optional[Dict[str, Tensor]] = None,
-) -> Dict[str, Tuple[Tensor, float]]:
-    """The int8 FPN over the trunk's taps (C3, C4, C5 codes and their
-    scales) -> {"P3".."P7": (codes, scale)}. The lateral sums are float32
-    and requanted before the smooth convs, each lateral's epilogue adding
-    the coarser sum's upsample and writing the float32 sum only where the
-    next level reads it; P6's epilogue also writes its ReLU'd codes, P7's
-    input."""
+) -> Tuple[Tensor, Tensor]:
+    """Int8 FPN + shared heads over the int8 trunk taps (C3, C4, C5 codes and
+    their scales) -> (cls_logits in ``logits_dtype``, box_offsets float32),
+    concatenated over levels; with ``concat=False`` per-level tuples of the
+    out convs' native (B, H, W, 9*C) and (B, H, W, 9*4) outputs.
+
+    The FPN's lateral sums are float32 and requanted before the smooth convs,
+    each lateral's epilogue adding the coarser sum's upsample and writing the
+    float32 sum only where the next level reads it; P6's epilogue also writes
+    its ReLU'd codes, P7's input. The heads requant each level with its own
+    scales; the out conv emits float32. ``codes``, where given, receives the
+    int8 codes at every requant point, keyed as their scales are, in the
+    reference's order of requants."""
     (q3, s3), (q4, s4), (q5, s5) = taps_q
+
+    def requant(x_q: Tensor, s_in: float, path: str, key: str, relu: bool = False,
+                stride: int = 1) -> Tuple[Tensor, float]:
+        s = qp.act_scale[key]
+        q = _conv_step(qp, x_q, s_in, path, stride, out_scale=s, relu=relu).codes
+        if codes is not None:
+            codes[key] = q
+        return q, s
 
     def lateral(x_q: Tensor, s_in: float, level: int, coarse: Optional[Tensor] = None,
                 keep_sum: bool = False) -> epilogue_kernel.Epilogue:
-        path = f"fpn/lateral{level}"
-        acc = _conv_acc(qp, x_q, path)
-        with span("odt.int8.epilogue"):
-            out = epilogue_kernel.epilogue(
-                acc, qp.deq(path, s_in, x_q.device), qp.bias[path],
-                qp.act_scale[f"fpn/pre{level}"], addend=coarse,
-                sum_dtype=torch.float32 if keep_sum else None)
-        _count_epilogue(acc, coarse, out.codes)
-        return out
+        return _conv_step(qp, x_q, s_in, f"fpn/lateral{level}",
+                          out_scale=qp.act_scale[f"fpn/pre{level}"], addend=coarse,
+                          sum_dtype=torch.float32 if keep_sum else None)
 
     pre5 = lateral(q5, s5, 5, keep_sum=True)
     pre4 = lateral(q4, s4, 4, pre5.sum, keep_sum=True)
@@ -966,68 +984,24 @@ def run_int8_fpn(
         key = f"fpn/pre{lvl[1]}"
         if codes is not None:
             codes[key] = pre.codes
-        pyramid[lvl] = _conv_requant(qp, pre.codes, qp.act_scale[key], f"fpn/smooth{lvl[1]}",
-                                     f"fpn/{lvl}", codes)
-    acc = _conv_acc(qp, q5, "fpn/p6", stride=2)
+        pyramid[lvl] = requant(pre.codes, qp.act_scale[key], f"fpn/smooth{lvl[1]}", f"fpn/{lvl}")
     s_p6 = qp.act_scale["fpn/P6"]
-    with span("odt.int8.epilogue"):
-        p6 = epilogue_kernel.epilogue(acc, qp.deq("fpn/p6", s5, q5.device), qp.bias["fpn/p6"],
-                                      s_p6, relu_codes=True)
-    _count_epilogue(acc, p6.codes)
-    _count_epilogue(p6.codes, p6.relu_codes)  # the ReLU on P6's codes, in and out
+    p6 = _conv_step(qp, q5, s5, "fpn/p6", 2, out_scale=s_p6, relu_codes=True)
     if codes is not None:
         codes["fpn/P6"] = p6.codes
     pyramid["P6"] = (p6.codes, s_p6)
-    pyramid["P7"] = _conv_requant(qp, p6.relu_codes, s_p6, "fpn/p7", "fpn/P7", codes, stride=2)
-    return pyramid
+    pyramid["P7"] = requant(p6.relu_codes, s_p6, "fpn/p7", "fpn/P7", stride=2)
 
-
-def run_int8_heads(
-    qp: QuantParams, cfg: DetectorConfig, pyramid: Mapping[str, Tuple[Tensor, float]],
-    logits_dtype: torch.dtype = torch.float32,
-    codes: Optional[Dict[str, Tensor]] = None,
-    concat: bool = True,
-) -> Tuple[Tensor, Tensor]:
-    """The shared int8 heads over the FPN's levels -> (cls_logits in
-    ``logits_dtype``, box_offsets float32), concatenated over levels; with
-    ``concat=False`` per-level tuples of the out convs' native
-    (B, H, W, 9*C) and (B, H, W, 9*4) outputs. Each level requants with its
-    own scales; the out conv emits float32."""
     outs: Dict[str, List[Tensor]] = {"cls_head": [], "box_head": []}
     for head in outs:
         for lvl in FPN_LEVELS:
             x_q, s_x = pyramid[lvl]
             for i in range(cfg.model.head_depth):
-                x_q, s_x = _conv_requant(qp, x_q, s_x, f"{head}/conv{i}",
-                                         f"{head}/conv{i}@{lvl}", codes, relu=True)
-            path = f"{head}/out"
-            acc = _conv_acc(qp, x_q, path)
-            with span("odt.int8.epilogue"):
-                y = epilogue_kernel.epilogue(
-                    acc, qp.deq(path, s_x, x_q.device), qp.bias[path],
-                    sum_dtype=logits_dtype if head == "cls_head" else torch.float32).sum
-            _count_epilogue(acc, y)
-            b, h, w, _ = y.shape
-            outs[head].append(y.reshape(b, h * w * ANCHORS_PER_LOCATION, _head_width(cfg, head))
-                              if concat else y)
-    if not concat:
-        return tuple(outs["cls_head"]), tuple(outs["box_head"])
-    with span("odt.int8.concat"):
-        return torch.cat(outs["cls_head"], dim=1), torch.cat(outs["box_head"], dim=1)
-
-
-def run_int8_fpn_heads(
-    qp: QuantParams, cfg: DetectorConfig, taps_q: List[Tuple[Tensor, float]],
-    logits_dtype: torch.dtype = torch.float32,
-    concat: bool = True,
-    codes: Optional[Dict[str, Tensor]] = None,
-) -> Tuple[Tensor, Tensor]:
-    """Int8 FPN + shared heads over the int8 trunk taps (`run_int8_fpn`, then
-    `run_int8_heads`). ``codes``, where given, receives the int8 codes at
-    every requant point, keyed as their scales are, in the reference's
-    order of requants. ``concat`` as in `run_int8_heads`."""
-    pyramid = run_int8_fpn(qp, taps_q, codes)
-    return run_int8_heads(qp, cfg, pyramid, logits_dtype, codes, concat=concat)
+                x_q, s_x = requant(x_q, s_x, f"{head}/conv{i}", f"{head}/conv{i}@{lvl}",
+                                   relu=True)
+            outs[head].append(_head_out(qp, cfg, x_q, s_x, f"{head}/out", head == "cls_head",
+                                        ANCHORS_PER_LOCATION, logits_dtype, concat))
+    return _head_outputs(outs["cls_head"], outs["box_head"], concat)
 
 
 def quantize_retinanet(
@@ -1082,7 +1056,7 @@ def retinanet_int8_forward(
     default) the FPN and heads run int8 (`run_int8_fpn_heads`); otherwise
     the model's float FPN and heads run in ``dtype`` over the dequantized
     taps. ``concat_heads=False`` (int8 FPN and heads only) gives the heads'
-    per-level tuples (`run_int8_heads`). The two kernel functions as in
+    per-level tuples (`run_int8_fpn_heads`). The two kernel functions as in
     `run_int8`."""
     fns = dict(resnet_stem_fn=resnet_stem_fn, bottleneck_fn=bottleneck_fn)
     with span("odt.forward"):

@@ -54,13 +54,13 @@ def _ties(shape, device="cpu"):
 
 
 def _today_chain(acc, deq, bias, s, relu=False, resid=None, rs=None, coarse=None):
-    """The engine's eager chain as it stood: ``requant_epilogue`` where a
-    residual joins, else ``_conv_f32`` (mul, add), the upsample-add and
-    ``_requant`` (quantize by the 0-dim device scale)."""
+    """The engine's eager chain as it stood: ``dequant`` then ``quantize``
+    by the 0-dim device scale where a residual joins, else ``_conv_f32``
+    (mul, add), the upsample-add and ``_requant`` (the same quantize)."""
     if resid is not None:
-        return int8_ops.requant_epilogue(acc, deq, bias, int8_ops.scale_tensor(s, acc.device),
-                                         relu, resid, int8_ops.scale_tensor(rs, acc.device))
-    y = torch.mul(acc, deq).add_(bias)
+        y = int8_ops.dequant(acc, deq, bias, resid, int8_ops.scale_tensor(rs, acc.device))
+    else:
+        y = torch.mul(acc, deq).add_(bias)
     if coarse is not None:
         y = y + ep.fpn_upsample2x(coarse)
     return int8_ops.quantize(y, int8_ops.scale_tensor(s, acc.device), 0.0 if relu else -127.0)

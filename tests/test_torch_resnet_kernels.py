@@ -13,6 +13,7 @@ import torch
 
 from object_detector_tpu.kernels import bottleneck_pallas, resnet_stem_pallas
 from object_detector_tpu_torch.kernels import bottleneck, resnet_stem
+from object_detector_tpu_torch.kernels.requant_epilogue import epilogue_reference
 from object_detector_tpu_torch.ops import int8 as int8_ops
 
 torch.set_num_threads(2)
@@ -71,7 +72,7 @@ def test_resnet_stem_reference_within_one_code_of_the_unfused_chain(kind):
     deq = _t(np.float32(s_in) * w_scale)
     x = int8_ops.quantize(_t(images).clone(), int8_ops.scale_tensor(s_in, torch.device("cpu")))
     acc = int8_ops.conv_int8(x, _t(w_q), stride=2, padding=3)
-    q = int8_ops.requant_epilogue(acc, deq, _t(bias), int8_ops.scale_tensor(s_out, torch.device("cpu")))
+    q = epilogue_reference(acc, deq, _t(bias), s_out, relu=True).codes
     want = int8_ops.max_pool(q, 3, 2, explicit_pad=1).numpy().astype(np.int32)
     got = resnet_stem.resnet_stem_reference(_t(images), _t(w_q), deq, _t(bias), s_in, s_out)
     diff = np.abs(got.numpy().astype(np.int32) - want)

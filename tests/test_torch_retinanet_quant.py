@@ -335,8 +335,8 @@ def test_int8_predict_fn_per_level_heads_matches_reference(quant):
     postprocess_levels, against the reference's op-by-op per-level forward
     and its postprocess_levels on the same scales (the tolerances of
     `_assert_detections_match`). The detection set equals the concat
-    path's, as reference tests/test_quant.py:667-696 holds it; with the
-    float FPN (quantize_fpn_heads=False) the flag is not taken."""
+    path's, as reference tests/test_quant.py:667-696 holds it. The flag
+    rests on the int8 FPN that the predict function always quantizes."""
     from object_detector_tpu.ops.postprocess import postprocess_levels as ref_postprocess_levels
 
     ref_cfg, cfg = (c.override({"eval.per_level_heads": True, "eval.nms_packed_sort": True,
@@ -364,17 +364,7 @@ def test_int8_predict_fn_per_level_heads_matches_reference(quant):
     assert seen == [1]
     _assert_detections_match(got, want)
     assert _detection_set(concat(images)) == _detection_set(got)
-    quantize = engine.quantize_retinanet
-
-    def refuse(*args, **kwargs):
-        raise AssertionError("postprocess_levels without an int8 FPN")
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(engine, "quantize_retinanet", lambda c, p, b: quantize(c, p, b, False))
-        mp.setattr(evaluator, "postprocess_levels", refuse)
-        det = evaluator.make_int8_predict_fn(cfg, quant["state"], anchors, images,
-                                             use_pallas=True, device="cpu")(images)
-    assert det.valid.any()
+    assert set(engine.fpn_head_conv_paths(cfg)) <= set(predict.qp.w_int8)
 
 
 def _postprocess_levels(*args, **kwargs):

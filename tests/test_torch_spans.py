@@ -160,7 +160,8 @@ def test_a_traced_predict_emits_every_span_of_its_path_nested_once(served):
 def test_each_epilogue_span_holds_one_wrapper_call_and_nothing_beside_it(served):
     """On the card the wrapper is one kernel launch, so this is that launch
     alone under ``odt.int8.epilogue``. The hand kernels' plain versions,
-    which run on the CPU only, have epilogue spans of their own."""
+    which run on the CPU only, call the epilogue's plain version under their
+    ``odt.kernel.*`` spans and open no epilogue span of their own."""
     kernels = [r for e in served.events if e.name.startswith("odt.kernel.")
                for r in _ranges([e], e.name)]
     epilogues = [r for r in _ranges(served.events, "odt.int8.epilogue")

@@ -17,6 +17,7 @@ from object_detector_tpu.quant import engine as ref_engine
 from object_detector_tpu_torch.convert import flatten_tree, params_from_jax, quant_params_from_jax
 from object_detector_tpu_torch.core import config
 from object_detector_tpu_torch.kernels import stem, stem_fp
+from object_detector_tpu_torch.kernels.requant_epilogue import epilogue_reference
 from object_detector_tpu_torch.ops import int8 as int8_ops
 from object_detector_tpu_torch.quant import engine
 
@@ -112,11 +113,10 @@ def test_reference_bit_equal_to_unfused_chain(kind):
         # trap a halo'd tile sets) gives other codes on this case.
         x_q, w1, deq1, b1, s1, w2, deq2, b2, s2 = _torch_args(args)
         padded = torch.nn.functional.pad(x_q, (0, 0, 1, 1, 1, 1))
-        halo = int8_ops.requant_epilogue(int8_ops.conv_int8(padded, w1), deq1, b1,
-                                         int8_ops.scale_tensor(s1, x_q.device))
-        unzeroed = int8_ops.max_pool(int8_ops.requant_epilogue(
-            int8_ops.conv_int8(halo, w2, padding="VALID"), deq2, b2,
-            int8_ops.scale_tensor(s2, x_q.device)), 2, 2)
+        halo = epilogue_reference(int8_ops.conv_int8(padded, w1), deq1, b1, s1,
+                                  relu=True).codes
+        unzeroed = int8_ops.max_pool(epilogue_reference(
+            int8_ops.conv_int8(halo, w2, padding="VALID"), deq2, b2, s2, relu=True).codes, 2, 2)
         assert (unzeroed.numpy() != got).any()
     # On CPU tensors the wrapper is the plain version and launches nothing.
     before = stem_fp.stem_fused_producer.launches
