@@ -274,7 +274,7 @@ Phases, each fatal on failure:
      against its plain version (quotients at half-integers, ragged widths,
      unaligned and padded accumulators, every output kind); full-width
      int8 SSD-300 (B4) and RetinaNet at bs=64 and bs=1 with one launch an
-     epilogue step (33 and 74 a forward), every launch held bit-equal to
+     epilogue step (7 and 20 a forward), every launch held bit-equal to
      the plain version on its own inputs and the forward's logits (and
      RetinaNet's codes at every requant point) bit-equal to the same
      forward with the plain version swapped in; a forward's launches timed
@@ -292,7 +292,19 @@ Phases, each fatal on failure:
      by CUDA-graph replay beside their bound (the larger of the bf16
      tensor-core FLOPs and the exponentials at the MUFU's rate), the plain
      version (blocks of 4 images) and the former SDPA call on the same
-     inputs.
+     inputs;
+ 47. the one-kernel 3x3 stride-1 conv (csrc/conv3x3.cu, row 10) on the
+     main paths' own inputs: full-width int8 SSD-300 (B4) at bs=64 and bs=1,
+     RetinaNet at bs=64 and DETR-DC5 at bs=32 on the cell's canvases, with
+     26, 26, 54 and 4 launches a forward; every launch held bit-equal to the
+     plain version (the engine's int8 conv and the plain epilogue) on its
+     own inputs and each forward's outputs bit-equal to the same forward
+     with the plain version swapped in; a forward's launches timed by
+     CUDA-graph replay beside their bound (each call's larger of its int8
+     operations and its codes in, kernel and output once), the plain
+     version (by events) and the chain they replace (im2col,
+     torch._int_mm, the requant epilogue kernel; by graph replay). Every
+     serving phase's launch counts hold the kernel's launches a forward.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -352,15 +364,17 @@ OVERFIT_STEPS, OVERFIT_LR, OVERFIT_FALL = 60, 2e-3, 0.8
 # (ODT_STEM_FP=0): conv1_1 through the engine's int8 conv, then B2.
 INT8_PATH_KERNELS = ("nms_rows", "stem_conv12_pool", "l2norm_requant")
 # Launches of one int8 SSD-300 forward with B4 selected (ODT_STEM_FP=1): the
-# requant epilogue once a conv outside B4 (13 trunk convs, 8 extras, 6 levels
-# x cls and box).
+# one-kernel 3x3 conv (row 10) once a 3x3 stride-1 conv outside B4 (conv2_1
+# to fc6, conv10_2, conv11_2, 6 levels x cls and box), the requant epilogue
+# once another conv (fc7, the extras' 4 1x1s and 2 stride-2 convs).
 STEM_FP_LAUNCHES = {"nms_rows": 1, "nms_rows_bf16": 0, "stem_conv12_pool": 0,
                     "l2norm_requant": 1, "max_pool_bwd": 0, "resnet_stem": 0,
-                    "fused_bottleneck": 0, "stem_fused_producer": 1, "requant_epilogue": 33,
-                    "detr_attention": 0}
+                    "fused_bottleneck": 0, "stem_fused_producer": 1, "requant_epilogue": 7,
+                    "detr_attention": 0, "conv3x3_requant": 26}
 # Requant epilogues of one int8 SSD-300 forward on the B2 route
-# (ODT_STEM_FP=0), which runs conv1_1 through the engine's conv too.
-B2_ROUTE_EPILOGUES = 34
+# (ODT_STEM_FP=0), which runs conv1_1 (3 input channels) through the
+# engine's conv and epilogue too.
+B2_ROUTE_EPILOGUES = 8
 # The evaluate phase: the synthetic set's 64 images at eval.batch_size=48 are
 # two batches, the second overlapping the first by 32 rows.
 EVAL_BATCH, EVAL_IMAGES = 48, 64
@@ -368,21 +382,28 @@ EVAL_BATCH, EVAL_IMAGES = 48, 64
 EVAL_TRAIN_STEPS = 100
 # Launches of one int8 SSD-512/ResNet-50 forward: the stem once, the
 # bottleneck kernel for blocks 2 and later of the four stages (2 + 3 + 5 + 2),
-# the NMS scan once, the requant epilogue once a conv outside B6 and B7 (the
-# four projection blocks' 16, 8 extras, 7 levels x cls and box); no kernel of
-# the VGG path.
+# the NMS scan once; of the convs outside B6 and B7 (the four projection
+# blocks' 16, 8 extras, 7 levels x cls and box), the one-kernel 3x3 conv for
+# stage 1 block 1's 3x3 and the 14 heads, the requant epilogue for the other
+# 23; no kernel of the VGG path.
 SSD512_INT8_LAUNCHES = {"resnet_stem": 1, "fused_bottleneck": 12, "nms_rows": 1,
                         "nms_rows_bf16": 0, "stem_conv12_pool": 0, "l2norm_requant": 0,
-                        "max_pool_bwd": 0, "stem_fused_producer": 0, "requant_epilogue": 38,
-                        "detr_attention": 0}
-# Of one int8 RetinaNet forward: the same trunk; the requant epilogue for its
-# 16, the FPN's 8 and 2 heads x 5 levels x 5 convs.
-RETINANET_INT8_LAUNCHES = {**SSD512_INT8_LAUNCHES, "requant_epilogue": 74}
-# Requant epilogues of one forward on the unfused ResNet-50 spec (no B6, no
-# B7: the stem conv and 52 block convs), SSD-512 and RetinaNet; and of one
-# tiny_retinanet_config forward (head_depth 1: 2 heads x 5 levels x 2 convs).
-SSD512_UNFUSED_EPILOGUES, RETINANET_UNFUSED_EPILOGUES = 75, 111
-TINY_RETINANET_EPILOGUES = 44
+                        "max_pool_bwd": 0, "stem_fused_producer": 0, "requant_epilogue": 23,
+                        "detr_attention": 0, "conv3x3_requant": 15}
+# Of one int8 RetinaNet forward: the same trunk; of its 16 convs, the FPN's 8
+# and 2 heads x 5 levels x 5 convs, the one-kernel 3x3 conv for stage 1
+# block 1's 3x3, the 3 smooths and the 50 head convs, the requant epilogue for
+# the other 20.
+RETINANET_INT8_LAUNCHES = {**SSD512_INT8_LAUNCHES, "requant_epilogue": 20,
+                           "conv3x3_requant": 54}
+# Requant epilogues and one-kernel 3x3 convs of one forward on the unfused
+# ResNet-50 spec (no B6, no B7: the stem conv and 52 block convs, 13 of them
+# 3x3 at stride 1), SSD-512 (48, 27) and RetinaNet (45, 66); and of one
+# tiny_retinanet_config forward (head_depth 1: 2 heads x 5 levels x 2 convs;
+# 20, 24).
+SSD512_UNFUSED_EPILOGUES, RETINANET_UNFUSED_EPILOGUES = 48, 45
+SSD512_UNFUSED_CONVS, RETINANET_UNFUSED_CONVS = 27, 66
+TINY_RETINANET_EPILOGUES, TINY_RETINANET_CONVS = 20, 24
 # (C, Cm, H = W) of the bottleneck kernel's inputs at 512 px, with the number
 # of blocks of each stage that run it.
 RESNET_BLOCKS = ((256, 64, 128, 2), (512, 128, 64, 3), (1024, 256, 32, 5), (2048, 512, 16, 2))
@@ -505,6 +526,7 @@ PROFILE_GROUPS = (
     ("bottleneck_kernel", ("bottleneck_kernel",)),
     ("requant_epilogue_kernel", ("requant_epilogue_kernel",)),
     ("detr_attention_kernel", ("attention_kernel",)),
+    ("conv3x3_kernel", ("conv3x3_requant_kernel",)),
     ("conv_or_gemm", ("conv", "cudnn", "gemm", "xmma", "implicit", "wgrad", "dgrad", "cutlass",
                       "imma", "sm90")),
 )
@@ -1408,7 +1430,8 @@ def main() -> int:
           f"average, over the limits {TAP_MEAN_CODE_DIFF_LIMITS}")
     det_unfused, launches_unfused = counted(lambda: predict_unfused(images512))
     check(launches_unfused == {**{k: 0 for k in wrappers}, "nms_rows": 1,
-                               "requant_epilogue": SSD512_UNFUSED_EPILOGUES},
+                               "requant_epilogue": SSD512_UNFUSED_EPILOGUES,
+                               "conv3x3_requant": SSD512_UNFUSED_CONVS},
           f"the unfused spec launched {launches_unfused}")
     unfused_ms = host_ms(torch, lambda: predict_unfused(images512), 10)
     unfused_img_per_s = 64 / (statistics.median(unfused_ms) / 1e3)
@@ -1831,6 +1854,8 @@ def main() -> int:
     mark_seconds("45")
     att = detr_attention_phase(torch, np, counted, launches, where)
     mark_seconds("46")
+    conv = conv3x3_phase(torch, np, counted, launches, where)
+    mark_seconds("47")
     bf16_at = {preset: {name: t[name] for name in ("default", "coord_bf16", "all")}
                for preset, t in kn["timing"].items()}
     bf16_300 = kn["timing"]["ssd300_infer_bs64"]["coord_bf16"]
@@ -2030,6 +2055,30 @@ def main() -> int:
                          "SSD-300 bs=64 path's at the top); plain_ms: the plain version (the "
                          "former eager chain) on the same inputs; both by CUDA graph replay, "
                          "by_path's plain_eager_ms by CUDA events around eager calls",
+        },
+        {
+            "name": "conv3x3_requant",
+            "route": "cuda",
+            "source": "object_detector_tpu_torch/csrc/conv3x3.cu",
+            "replaces": None,
+            "replaces_none_because": "the reference left its convs to XLA; it replaces the "
+                                     "port's im2col copy, library int8 GEMM and requant "
+                                     "epilogue kernel at every 3x3 stride-1 conv step",
+            **counts("conv3x3_requant"),
+            "max_abs_err": 0,
+            "ms": conv["paths"]["ssd300_int8_bs64"]["ms"],
+            "plain_ms": conv["paths"]["ssd300_int8_bs64"]["plain_ms"],
+            "bound_ms": conv["paths"]["ssd300_int8_bs64"]["bound_ms"],
+            "bound_by": conv["paths"]["ssd300_int8_bs64"]["bound_by"],
+            "library_ms": None,
+            "library_none_because": "no single PyTorch call computes an int8 conv with the "
+                                    "requant; replaced_chain_ms is the chain it replaces",
+            "replaced_chain_ms": conv["paths"]["ssd300_int8_bs64"]["replaced_chain_ms"],
+            "by_path": conv["paths"],
+            "times_are": "sums over one forward's launches at each path's own inputs (the "
+                         "SSD-300 bs=64 path's at the top); kernel and replaced chain (im2col, "
+                         "torch._int_mm, the requant epilogue kernel) by CUDA graph replay, "
+                         "plain (conv_int8 and the plain epilogue) by CUDA events",
         },
         {
             "name": "detr_attention",
@@ -2968,7 +3017,8 @@ def retinanet_phases(torch, np, m, counted, wrappers, launches, gen, rng, image,
     del codes
     det_unfused, launches_unfused = counted(lambda: predict_unfused(images))
     check(launches_unfused == {**{k: 0 for k in wrappers}, "nms_rows": 1,
-                               "requant_epilogue": RETINANET_UNFUSED_EPILOGUES},
+                               "requant_epilogue": RETINANET_UNFUSED_EPILOGUES,
+                               "conv3x3_requant": RETINANET_UNFUSED_CONVS},
           f"the RetinaNet unfused spec launched {launches_unfused}")
     unfused_ms = host_ms(torch, lambda: predict_unfused(images), 10)
     print(json.dumps({"phase": "retinanet_int8_predict_bs64", "quantize_s": quantize_s,
@@ -3144,7 +3194,8 @@ def retinanet_reference_check(torch, np, m, counted, wrappers, launches) -> dict
           and launches["evaluate_retinanet_int8"] == {
               **{k: 0 for k in wrappers}, "nms_rows": batches, "resnet_stem": batches,
               "fused_bottleneck": 12 * batches,
-              "requant_epilogue": TINY_RETINANET_EPILOGUES * batches},
+              "requant_epilogue": TINY_RETINANET_EPILOGUES * batches,
+              "conv3x3_requant": TINY_RETINANET_CONVS * batches},
           f"RetinaNet evaluate launched {launches['evaluate_retinanet_float']} (float), "
           f"{launches['evaluate_retinanet_int8']} (int8)")
     return {"f32_logits_max_abs_err": err_f32,
@@ -3561,7 +3612,8 @@ def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches (the NMS
     scan's two instantiations apart)."""
     from object_detector_tpu_torch.kernels import (
-        attention, bottleneck, l2norm, nms, pool_bwd, requant_epilogue, resnet_stem, stem, stem_fp,
+        attention, bottleneck, conv3x3, l2norm, nms, pool_bwd, requant_epilogue, resnet_stem, stem,
+        stem_fp,
     )
 
     return {"nms_rows": nms.nms_rows, "nms_rows_bf16": nms.nms_rows.bf16,
@@ -3570,7 +3622,7 @@ def kernel_wrappers() -> dict:
             "resnet_stem": resnet_stem.resnet_stem, "fused_bottleneck": bottleneck.fused_bottleneck,
             "stem_fused_producer": stem_fp.stem_fused_producer,
             "requant_epilogue": requant_epilogue.epilogue,
-            "detr_attention": attention.masked_attention}
+            "detr_attention": attention.masked_attention, "conv3x3_requant": conv3x3.conv3x3}
 
 
 def int8_launches(cfg) -> dict:
@@ -5114,6 +5166,159 @@ def detr_attention_phase(torch, np, counted, launches, where) -> dict:
     del calls, kinds, got, plain, predict
     torch.cuda.empty_cache()
     return out
+
+
+# Phase 47: the one-kernel 3x3 conv (row 10) on the main paths' own inputs.
+# Launches a forward: SSD-300 (B4) and RetinaNet as `int8_launches`, DETR-DC5
+# four (stage 1 and stage 4 block 1's 3x3, the two dilated 3x3s).
+DETR_CONV3X3_LAUNCHES = 4
+
+
+def conv3x3_bound_ms(calls):
+    """Least time of the captured conv calls (arguments by name, outputs):
+    each call's larger of its 2 M K N operations at the int8 peak and its
+    codes in, kernel and output moved once at HBM bandwidth, summed; and
+    which of the two bounds the larger share of that sum."""
+    total, by_ops = 0.0, 0.0
+    for kw, out in calls:
+        y = out.codes if out.codes is not None else out.sum
+        ops = 2 * y.numel() * (kw["w"].numel() // kw["w"].shape[-1])
+        moved = kw["x"].numel() + kw["w"].numel() + sum(
+            t.numel() * t.element_size() for t in (out.codes, out.sum) if t is not None)
+        ms, by = bound(moved, ops, INT8_OPS_PER_S)
+        total += ms
+        by_ops += ms if by == "operations" else 0.0
+    return total, ("operations" if by_ops * 2 >= total else "bytes")
+
+
+def conv3x3_chain(int8_ops, ep, kw):
+    """What the kernel replaces, on the same inputs: the im2col copy and the
+    library GEMM (`ops.int8.conv_int8`), then the requant epilogue kernel."""
+    acc = int8_ops.conv_int8(kw["x"], kw["w"], 1, kw["padding"], kw["dilation"],
+                             operand=kw["operand"])
+    return ep.epilogue(acc, kw["deq"], kw["bias"], kw["out_scale"], kw["relu"],
+                       sum_dtype=kw["sum_dtype"])
+
+
+def conv3x3_hold(torch, np, cv, int8_ops, ep, name, forward, steps, counted, launches, where):
+    """Runs ``forward`` (a thunk) counted, then again with every call of the
+    conv kernel recorded; holds each launch bit-equal to the plain version on
+    its own inputs and the forward's outputs bit-equal to the same forward
+    with the plain version in the kernel's place; times the forward's
+    launches by CUDA-graph replay beside their bound, the plain version (by
+    events) and the chain they replace (by graph replay)."""
+    import inspect
+
+    signature = inspect.signature(cv.conv3x3_reference)
+    wrapper, calls = cv.conv3x3, []
+
+    def recording(*args, **kw):
+        """The wrapper, with each call's arguments (by name) and outputs
+        kept. The wrapper counts its launches on the function its module's
+        name holds: this one's, while it stands in."""
+        named = dict(signature.bind(*args, **kw).arguments)
+        out = wrapper(**named)
+        calls.append((named, out))
+        return out
+
+    recording.launches = 0
+    with torch.inference_mode():
+        forward()
+        got, counts = counted(forward)
+        launches[name] = counts
+        cv.conv3x3 = recording
+        try:
+            forward()
+        finally:
+            cv.conv3x3 = wrapper
+        check(counts["conv3x3_requant"] == len(calls) == steps,
+              f"{name}: {counts['conv3x3_requant']} conv launches, {len(calls)} calls, "
+              f"expected {steps}")
+        for kw, out in calls:
+            for g, w in zip(out, cv.conv3x3_reference(**kw)):
+                check(g is None or torch.equal(g, w),
+                      f"{name}: a conv launch differs from the plain version at "
+                      f"{tuple(kw['x'].shape)} x {tuple(kw['w'].shape)} "
+                      f"d{kw['dilation']} {kw['padding']}")
+        cv.conv3x3 = cv.conv3x3_reference
+        try:
+            want = forward()
+        finally:
+            cv.conv3x3 = wrapper
+        # Logits and offsets, or a DETR predict's Detections: tensors all.
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{name}: the forward differs from the plain version's")
+        launched = [kw for kw, _ in calls]
+        ms = graph_ms(torch, lambda: [cv.conv3x3(**kw) for kw in launched], 3)
+        chain_ms = graph_ms(torch, lambda: [conv3x3_chain(int8_ops, ep, kw) for kw in launched], 3)
+        plain_ms = cuda_ms(torch, lambda: [cv.conv3x3_reference(**kw) for kw in launched], 1)
+    bound_ms, bound_by = conv3x3_bound_ms(calls)
+    out = {"launches": len(calls), "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "plain_ms": plain_ms, "replaced_chain_ms": chain_ms, "forward_bit_equal": True,
+           "shapes": sorted({(tuple(kw["x"].shape[1:]), kw["w"].shape[-1], kw["dilation"],
+                              str(kw["padding"])) for kw in launched})}
+    print(json.dumps({"phase": "conv3x3_path", "path": name, **out, **where}))
+    return out
+
+
+def conv3x3_phase(torch, np, counted, launches, where) -> dict:
+    """Phase 47: the one-kernel 3x3 conv on the main paths: full-width int8
+    SSD-300 (B4) at bs=64 and bs=1, RetinaNet at bs=64 (seeded weights,
+    calibrated on seeded images), and int8 DETR-DC5 at bs=32 on the cell's
+    canvases; see `conv3x3_hold`."""
+    from object_detector_tpu_torch.convert import init_params
+    from object_detector_tpu_torch.core.config import get_config
+    from object_detector_tpu_torch.eval.evaluator import make_int8_predict_fn
+    from object_detector_tpu_torch.kernels import conv3x3 as cv
+    from object_detector_tpu_torch.kernels import requant_epilogue as ep
+    from object_detector_tpu_torch.models.retinanet import build_model
+    from object_detector_tpu_torch.ops import int8 as int8_ops
+    from object_detector_tpu_torch.quant import engine
+    from port_bench.detr_weights import make_weights
+
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    paths = {}
+    for preset, batches in (("ssd300_infer_bs64", (64, 1)), ("retinanet_fpn_coco", (64,))):
+        cfg = get_config(preset)
+        size = cfg.model.image_size
+        params = init_params(build_model(cfg), seed=0, random_batch_stats=True).state_dict()
+        params = {k: v.cuda() for k, v in params.items()}
+        calib = torch.randn(4, size, size, 3, generator=gen, device="cuda")
+        if cfg.model.family == "retinanet":
+            qp, spec = engine.quantize_retinanet(cfg, params, [calib])
+            forward, family = engine.retinanet_int8_forward, "retinanet"
+        else:
+            os.environ["ODT_STEM_FP"] = "1"
+            qp, spec = engine.quantize_ssd(cfg, params, [calib])
+            forward, family = engine.int8_forward, "ssd300"
+        qp = qp.to("cuda")
+        del params
+        for batch in batches:
+            images = torch.randn(batch, size, size, 3, generator=gen, device="cuda")
+            name = f"{family}_int8_bs{batch}"
+            paths[name] = conv3x3_hold(
+                torch, np, cv, int8_ops, ep, name,
+                lambda: forward(qp, spec, cfg, images),  # noqa: B023
+                int8_launches(cfg)["conv3x3_requant"], counted, launches, where)
+            del images
+            torch.cuda.empty_cache()
+        del qp
+    cell = json.loads(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "port_bench",
+                                        "configs", "detr_r50_dc5_coco.json")).read())
+    cfg = get_config("detr_r50_dc5_coco")
+    batch, size = cfg.eval.batch_size, cfg.model.image_size
+    extents = np.array([DETR_PORTRAIT if i % 4 == 3 else DETR_LANDSCAPE for i in range(batch)])
+    images = np.random.default_rng(47).integers(0, 256, (batch, size, size, 3), dtype=np.uint8)
+    weights = make_weights(cell["resolved"], cell["weights"], 2 ** 33 + 47, "cuda")
+    predict = make_int8_predict_fn(cfg, weights, None, images[:8], device="cuda",
+                                   calibration_extents=extents[:8])
+    del weights
+    paths["detr_int8_bs32"] = conv3x3_hold(
+        torch, np, cv, int8_ops, ep, "detr_int8_bs32_conv", lambda: predict(images, extents),
+        DETR_CONV3X3_LAUNCHES, counted, launches, where)
+    del predict
+    torch.cuda.empty_cache()
+    return {"paths": paths}
 
 
 def _same_detections(torch, a, b) -> bool:

@@ -21,15 +21,9 @@
 // the codes clip(rint(RN(y / out_scale)), low, 127), low 0 (a ReLU) or
 // -127; and the ReLU'd codes max(code, 0). Outputs are rows x cols, dense.
 //
-// Bit-exactness. Every operation rounds to nearest as the plain version's
-// eager ops do: the products and sums are __fmul_rn / __fadd_rn (and
-// -fmad=false keeps nvcc from contracting anything else), the residual's
-// product is rounded before it is added, the quotient is __fdiv_rn (a
-// multiply by the reciprocal flips codes at rounding boundaries), bf16 is
-// __float2bfloat16_rn. float(acc) and rint-then-clip are int8_mma.cuh's
-// acc_to_float and the 1.5 * 2^23 add, equal bit for bit to __int2float_rn
-// and to rintf (half to even) with the clamp, without the conversion
-// instructions, which issue at a sixteenth of the float32 rate.
+// Bit-exactness. The per-element arithmetic is csrc/requant.cuh's, which
+// csrc/conv3x3.cu shares: every operation rounds to nearest as the plain
+// version's eager ops do (see there).
 //
 // What bounds it on an H100: bytes. An element reads 4 bytes of accumulator
 // (1 of residual or 4 of addend) and writes 1 byte of code (or 4 or 2 of
@@ -51,11 +45,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int8_mma.cuh"
+#include "requant.cuh"
 
 namespace {
-
-using int8mma::acc_to_float;
 
 constexpr int kThreads = 256;
 constexpr int kRowsAhead = 4;  // rows a thread loads before it computes the first
@@ -73,18 +65,11 @@ struct Args {
   float resid_scale;
   const float* addend;  // or null
   int h, w;  // the acc plane's height and width: row = (b * h + y) * w + x
-  float out_scale, low;
+  float out_scale, inv_scale, low;  // inv_scale = RN(1 / out_scale)
   int8_t* codes;  // or null
   int8_t* relu_codes;  // or null
   void* sum;  // float32 or bfloat16, or null
 };
-
-// clip(rint(q), low, 127), half to even: the clip first (rint is monotone),
-// then the add of 1.5 * 2^23, which rounds to an integer as rint does.
-__device__ __forceinline__ int code_of(float q, float low) {
-  q = fminf(fmaxf(q, low), 127.0f);
-  return __float_as_int(__fadd_rn(q, 12582912.0f)) - 0x4B400000;
-}
 
 __device__ __forceinline__ unsigned pack4(const int (&q)[4]) {
   return (q[0] & 0xffu) | ((q[1] & 0xffu) << 8) | ((q[2] & 0xffu) << 16) |
@@ -121,7 +106,7 @@ __device__ __forceinline__ void finish_row(const Args& a, const int (&v)[4], int
                                            int n, const float (&deq)[4], const float (&bias)[4]) {
   float y[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) y[j] = __fadd_rn(__fmul_rn(acc_to_float(v[j]), deq[j]), bias[j]);
+  for (int j = 0; j < 4; ++j) y[j] = int8mma::dequant(v[j], deq[j], bias[j]);
   const long long at = static_cast<long long>(row) * a.cols + c0;
   if (a.resid != nullptr) {
     int r[4];
@@ -134,8 +119,7 @@ __device__ __forceinline__ void finish_row(const Args& a, const int (&v)[4], int
       for (int j = 0; j < 4; ++j) r[j] = j < n ? a.resid[at + j] : 0;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      y[j] = __fadd_rn(y[j], __fmul_rn(acc_to_float(r[j]), a.resid_scale));
+    for (int j = 0; j < 4; ++j) y[j] = requant::add_resid(y[j], r[j], a.resid_scale);
   }
   if (a.addend != nullptr) {
     const float* p = a.addend + coarse_row(a, row) * a.cols + c0;
@@ -166,7 +150,7 @@ __device__ __forceinline__ void finish_row(const Args& a, const int (&v)[4], int
     __nv_bfloat16* s = static_cast<__nv_bfloat16*>(a.sum) + at;
     unsigned short b[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = __bfloat16_as_ushort(__float2bfloat16_rn(y[j]));
+    for (int j = 0; j < 4; ++j) b[j] = requant::bf16_bits(y[j]);
     if (kVec) {
       *reinterpret_cast<uint2*>(s) = make_uint2(b[0] | (static_cast<unsigned>(b[1]) << 16),
                                                 b[2] | (static_cast<unsigned>(b[3]) << 16));
@@ -178,8 +162,7 @@ __device__ __forceinline__ void finish_row(const Args& a, const int (&v)[4], int
   }
   if (a.codes != nullptr) {
     int q[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) q[j] = code_of(__fdiv_rn(y[j], a.out_scale), a.low);
+    requant::codes(y, q, a.out_scale, a.inv_scale, a.low);
     if (kVec) {
       *reinterpret_cast<unsigned*>(a.codes + at) = pack4(q);
     } else {
@@ -275,7 +258,7 @@ extern "C" int requant_epilogue(const int* acc, long long ld, int rows, int cols
                                 float out_scale, int relu, int8_t* codes, int8_t* relu_codes,
                                 void* sum, int sum_kind, void* stream) {
   Args a{acc, ld, rows, cols, (cols + 3) / 4, deq, bias, resid, resid_scale, addend, h, w,
-         out_scale, relu ? 0.0f : -127.0f, codes, relu_codes, sum};
+         out_scale, 1.0f / out_scale, relu ? 0.0f : -127.0f, codes, relu_codes, sum};
   const bool vec = cols % 4 == 0 && ld % 4 == 0 && aligned(acc, 16) && aligned(resid, 4) &&
                    aligned(addend, 16) && aligned(codes, 4) && aligned(relu_codes, 4) &&
                    aligned(sum, sum_kind == kSumBf16 ? 8 : 16);

@@ -39,15 +39,18 @@ calibrated by `run_float_fpn_heads`, which records the absmax at each of
 their requant points.
 
 Every int8 conv step of the trunk, the FPN and the heads is one call of
-`_conv_step`: the int8 conv (im2col, the int8 GEMM), then the epilogue from
-its int32 accumulator to the codes, the FPN's float32 sums or the logits,
-one launch of `kernels.requant_epilogue` on the card (its plain version on
-the CPU).
+`_conv_step`. A 3x3 stride-1 step with nothing to add (no residual, no
+coarser level) and no ReLU'd copy of its codes is one launch of
+`kernels.conv3x3`, the conv and its epilogue in one kernel. Every other step
+is the int8 conv (im2col, the int8 GEMM), then the epilogue from its int32
+accumulator to the codes, the FPN's float32 sums or the logits, one launch
+of `kernels.requant_epilogue`. On the CPU both run their plain versions.
 
 While a profiler records, the int8 forwards run under ``odt.forward`` and
 each of their steps under one ``odt.int8.*`` or ``odt.kernel.*`` span
-(`utils.profiling`), and every epilogue adds its least bytes to the counter
-`EPILOGUE_BYTES`.
+(`utils.profiling`). Every epilogue of the three-stage chain adds its least
+bytes to the counter `EPILOGUE_BYTES`; every one-kernel conv adds its
+operations and least bytes to `CONV_OPS` and `CONV_BYTES`.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ import torch.nn.functional as F
 
 from object_detector_tpu_torch.core.config import DetectorConfig
 from object_detector_tpu_torch.kernels import bottleneck as bottleneck_kernel
+from object_detector_tpu_torch.kernels import conv3x3 as conv3x3_kernel
 from object_detector_tpu_torch.kernels import requant_epilogue as epilogue_kernel
 from object_detector_tpu_torch.kernels import resnet_stem as resnet_stem_kernel
 from object_detector_tpu_torch.kernels import stem as stem_kernel
@@ -84,6 +88,10 @@ Tensor = torch.Tensor
 KernelFn = Callable[..., Tensor]
 # The least bytes of the int8 forward's epilogues (`_count_epilogue`).
 EPILOGUE_BYTES = "odt.int8.epilogue_bytes"
+# The operations (2 a multiply-add) and least bytes of its one-kernel 3x3
+# convs (`_count_conv`).
+CONV_OPS = "odt.int8.conv_ops"
+CONV_BYTES = "odt.int8.conv_bytes"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -623,6 +631,17 @@ def _count_epilogue(*tensors: Optional[Tensor]) -> None:
                                             for t in tensors if t is not None))
 
 
+def _count_conv(x_q: Tensor, w: Tensor, out: epilogue_kernel.Epilogue) -> None:
+    """Adds to `CONV_OPS` the one-kernel conv's 2 * M * K * N operations (M
+    output pixels, K = 9 * Cin, N = Cout) and to `CONV_BYTES` its least
+    bytes: the codes in, the kernel and the output each moved once. Shapes
+    only, while a profiler records."""
+    if profiling.enabled():
+        y = out.sum if out.codes is None else out.codes
+        profiling.count(CONV_OPS, 2 * y.numel() * (w.numel() // w.shape[-1]))
+        profiling.count(CONV_BYTES, x_q.numel() + w.numel() + y.numel() * y.element_size())
+
+
 def _conv_step(
     qp: QuantParams, x_q: Tensor, s_in: float, path: str, stride: int = 1,
     padding: Any = "SAME", dilation: int = 1, out_scale: Optional[float] = None,
@@ -630,15 +649,30 @@ def _conv_step(
     addend: Optional[Tensor] = None, sum_dtype: Optional[torch.dtype] = None,
     relu_codes: bool = False,
 ) -> epilogue_kernel.Epilogue:
-    """One int8 conv step: the int8 conv of the codes ``x_q`` (at scale
-    ``s_in``) by the conv at ``path``, then its epilogue, one call of
-    `kernels.requant_epilogue.epilogue` under ``odt.int8.epilogue`` (the
-    arguments after ``dilation`` are the epilogue's). The step counts the
-    accumulator, the residual, the addend and the codes where they are asked
-    for, else the sum; with ReLU codes also the codes in and the ReLU codes
-    out, as many bytes as the ReLU codes twice."""
-    acc = int8_ops.conv_int8(x_q, qp.w_int8[path], stride, padding, dilation,
-                             operand=qp.gemm_operand(path))
+    """One int8 conv step of the codes ``x_q`` (at scale ``s_in``) by the
+    conv at ``path``, with the epilogue's arguments after ``dilation``.
+
+    A 3x3 stride-1 step over channels `kernels.conv3x3` takes, with one
+    output (the codes or the sum), no ``resid``, no ``addend`` and no
+    ``relu_codes``, is one call of
+    `kernels.conv3x3.conv3x3` under ``odt.int8.conv``, counted by
+    `_count_conv`. Every other step is the int8 conv, then one call of
+    `kernels.requant_epilogue.epilogue` under ``odt.int8.epilogue``, which
+    counts the accumulator, the residual, the addend and the codes where they
+    are asked for, else the sum; with ReLU codes also the codes in and the
+    ReLU codes out, as many bytes as the ReLU codes twice."""
+    w = qp.w_int8[path]
+    kh, kw, cin, _ = w.shape
+    if (kh == kw == 3 and stride == 1 and cin % conv3x3_kernel.CIN_MULTIPLE == 0
+            and (out_scale is None) != (sum_dtype is None)
+            and resid is None and addend is None and not relu_codes):
+        with span("odt.int8.conv"):
+            out = conv3x3_kernel.conv3x3(x_q, w, qp.deq(path, s_in, x_q.device), qp.bias[path],
+                                         padding, dilation, out_scale, relu, sum_dtype,
+                                         operand=qp.gemm_operand(path))
+        _count_conv(x_q, w, out)
+        return out
+    acc = int8_ops.conv_int8(x_q, w, stride, padding, dilation, operand=qp.gemm_operand(path))
     with span("odt.int8.epilogue"):
         out = epilogue_kernel.epilogue(acc, qp.deq(path, s_in, x_q.device), qp.bias[path],
                                        out_scale, relu, resid, resid_scale, addend, sum_dtype,

@@ -1,4 +1,4 @@
-"""The one launch path of the nine kernel wrappers (`kernels/build.py`): each
+"""The one launch path of the ten kernel wrappers (`kernels/build.py`): each
 refuses a device that is neither CPU nor CUDA with the shared message before
 it launches, and every entry point's ctypes signature matches its C
 declaration under ``csrc/``. CPU only: nothing here builds or loads a
@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from object_detector_tpu_torch.kernels import (
-    attention, bottleneck, build, l2norm, nms, pool_bwd, requant_epilogue, resnet_stem, stem,
-    stem_fp,
+    attention, bottleneck, build, conv3x3, l2norm, nms, pool_bwd, requant_epilogue, resnet_stem,
+    stem, stem_fp,
 )
 
 
@@ -33,6 +33,8 @@ def _vec(n=64):
 WRAPPERS = [
     ("epilogue", requant_epilogue.epilogue,
      lambda f: f(_meta(2, 4, 4, 8, dtype=torch.int32), _vec(8), _vec(8), 0.1)),
+    ("conv3x3", conv3x3.conv3x3,
+     lambda f: f(_i8(2, 4, 4, 64), _i8(3, 3, 64, 16), _vec(16), _vec(16), out_scale=0.1)),
     ("masked_attention", attention.masked_attention,
      lambda f: f(_meta(2, 10, 64, dtype=torch.bfloat16), _meta(2, 12, 64, dtype=torch.bfloat16),
                  _meta(2, 12, 64, dtype=torch.bfloat16), 2,

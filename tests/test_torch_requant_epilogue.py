@@ -21,11 +21,12 @@ import torch
 from object_detector_tpu_torch.kernels import requant_epilogue as ep
 from object_detector_tpu_torch.ops import int8 as int8_ops
 
-# Launches of one int8 forward at full width: SSD-300 with VGG block 1 as
-# one kernel (13 trunk convs, 8 extras, 6 levels x cls and box) and
-# RetinaNet (16 convs of the ResNet trunk outside its fused kernels, the
-# FPN's 3 laterals, 3 smooths, P6 and P7, 2 heads x 5 levels x 5 convs).
-SSD300_EPILOGUES, RETINANET_EPILOGUES = 33, 74
+# Launches of one int8 forward at full width, its 3x3 stride-1 steps being
+# the one-kernel conv's (`kernels.conv3x3`): SSD-300 with VGG block 1 as one
+# kernel (fc7 and the extras' 4 1x1s and 2 stride-2 convs) and RetinaNet (15
+# convs of the ResNet trunk outside its fused kernels, the FPN's 3 laterals,
+# P6 and P7).
+SSD300_EPILOGUES, RETINANET_EPILOGUES = 7, 20
 
 
 def _case(shape, seed, big=False, device="cpu"):

@@ -2,9 +2,10 @@
 the int8 serving path, on the CPU: nothing recorded without a profiler,
 every span of the path and its nesting under one, one call of the epilogue
 wrapper under each epilogue span and nothing beside it, the epilogue's byte
-count against the shapes of the float path and against its fixed total, and
-the same detections either way; for DETR its ``odt.detr.*`` spans, each
-operation of its forward under one leaf, and its valid-token counter."""
+count and the one-kernel convs' operation and byte counts against the shapes
+of the float path, the epilogue's against its fixed total, and the same
+detections either way; for DETR its ``odt.detr.*`` spans, each operation of
+its forward under one leaf, and its valid-token counter."""
 
 import dataclasses
 import json
@@ -28,12 +29,15 @@ from object_detector_tpu_torch.utils import profiling
 torch.set_num_threads(2)
 
 CHILDREN = ("odt.int8.", "odt.kernel.")
+# The spans of the kernel wrappers whose plain versions, on the CPU only, run
+# engine steps inside them: the hand kernels' and the one-kernel 3x3 conv's.
+WRAPPED = ("odt.kernel.", "odt.int8.conv")
 # The spans one int8 predict of each family reaches on the CPU. The hand
 # kernels' wrappers run their plain versions here: RetinaNet's pool is the
 # ResNet stem's.
 COMMON = {"odt.predict", "odt.upload", "odt.normalize", "odt.forward", "odt.int8.input",
-          "odt.int8.im2col", "odt.int8.gemm", "odt.int8.epilogue", "odt.int8.pool",
-          "odt.int8.concat", "odt.postprocess", "odt.kernel.nms"}
+          "odt.int8.im2col", "odt.int8.gemm", "odt.int8.epilogue", "odt.int8.conv",
+          "odt.int8.pool", "odt.int8.concat", "odt.postprocess", "odt.kernel.nms"}
 SPANS = {
     "ssd": COMMON | {"odt.kernel.stem_fp", "odt.kernel.l2norm"},
     "retinanet": COMMON | {"odt.kernel.resnet_stem", "odt.kernel.bottleneck"},
@@ -44,9 +48,11 @@ CONFIGS = {"ssd": config.tiny_test_config, "retinanet": config.tiny_retinanet_co
 # A range the traced call opens around each call of the epilogue wrapper.
 EPILOGUE_CALL = "test.requant_epilogue"
 # `EPILOGUE_BYTES` of one traced predict of two images, as the engine's
-# eager epilogue chain counted it before the one-pass epilogue: tiny_test
-# (64 px) and tiny_retinanet_config (128 px).
-EPILOGUE_BYTES_OF_TWO = {"ssd": 6179840, "retinanet": 15790960}
+# eager epilogue chain counted it before the one-pass epilogue, less the 3x3
+# stride-1 steps that the one-kernel conv took over (before it: 6179840 and
+# 15790960): tiny_test (64 px; fc7 alone is left) and tiny_retinanet_config
+# (128 px).
+EPILOGUE_BYTES_OF_TWO = {"ssd": 163840, "retinanet": 14466112}
 
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
@@ -143,11 +149,11 @@ def test_a_traced_predict_emits_every_span_of_its_path_nested_once(served):
             assert _inside(rng, [predict_range]), name
             assert _inside(rng, ranges) == 1, f"{name} nests inside itself"
     # Every operation of the forward that can move data lies under one engine
-    # step, or under a hand kernel's wrapper (whose plain version runs engine
-    # steps inside it on the CPU only). A reshape or a cast that copies does
-    # so in an operation of its own, which is held here too.
+    # step, or under a kernel's wrapper (whose plain version runs engine steps
+    # inside it on the CPU only). A reshape or a cast that copies does so in
+    # an operation of its own, which is held here too.
     steps = {n: _ranges(events, n) for n in names if n.startswith(CHILDREN)}
-    kernels = [r for n, rs in steps.items() if n.startswith("odt.kernel.") for r in rs]
+    kernels = [r for n, rs in steps.items() if n.startswith(WRAPPED) for r in rs]
     engine_steps = [r for n, rs in steps.items() if n.startswith("odt.int8.") for r in rs]
     ops = [(e.name, (e.time_range.start, e.time_range.end)) for e in events
            if e.name.startswith("aten::") and e.name not in VIEWS]
@@ -184,15 +190,19 @@ def test_the_epilogue_byte_count_is_the_eager_chains_at_a_fixed_shape(served):
 
 
 def _float_conv_sizes(family, cfg, params, predict, batch):
-    """(path, output elements) of every conv the float trunk, FPN and heads
-    run on a batch of ``batch`` images, in order: the shapes of the int8
-    path's epilogues, found on another path."""
+    """(path, output elements, input elements, kernel elements, output
+    channels, routed) of every conv the float trunk, FPN and heads run on a
+    batch of ``batch`` images, in order: the shapes of the int8 path's steps,
+    found on another path. ``routed``: a 3x3 stride-1 conv over a multiple
+    of 32 channels without a residual, a step of the one-kernel conv."""
     sizes = []
     conv = engine._conv_float
 
     def recording(x, weight, op):
         y = conv(x, weight, op)
-        sizes.append((op.path, y.numel()))
+        routed = (tuple(weight.shape[-2:]) == (3, 3) and op.stride == 1
+                  and x.shape[-1] % 32 == 0 and op.add_register is None)
+        sizes.append((op.path, y.numel(), x.numel(), weight.numel(), y.shape[-1], routed))
         return y
 
     s = cfg.model.image_size
@@ -217,33 +227,41 @@ def test_the_epilogue_byte_count_is_the_least_bytes_of_the_shapes(served):
     """The accumulator read once (4 B), a residual (1 B) or an upsampled
     coarser level (4 B) read once, the output written once (codes 1 B,
     logits in their dtype, offsets 4 B), at every epilogue of the engine
-    (those inside the hand kernels are theirs)."""
+    (those inside the hand kernels are theirs). A step of the one-kernel
+    conv counts no epilogue bytes: its 2 M K N operations and its codes in,
+    kernel and output, each moved once, go to the conv's two counters."""
     family, cfg = served.family, served.cfg
     sizes = _float_conv_sizes(family, cfg, served.params, served.predict,
                               served.plain.scores.shape[0])
     logit = (torch.bfloat16 if cfg.eval.int8_logits_bf16 else torch.float32).itemsize
     trunk = {op.path: op for op in served.predict.spec if isinstance(op, engine.ConvOp)}
-    want = 0
-    for path, n in sizes:
+    want = ops = moved = heads = 0
+    for path, n, x_n, w_n, cout, routed in sizes:
         if path in trunk:
-            want += n * (4 + 1 + (trunk[path].add_register is not None))
+            out, read = 1, 4 + (trunk[path].add_register is not None)
+        elif path == "head":  # SSD: cls, then box, of each level
+            out, read = (logit if heads % 2 == 0 else 4), 4
+            heads += 1
+        elif path.startswith("fpn/") or "_head/" in path:
+            out, read = 1, 4
+            if path.endswith("/out"):
+                out = logit if path.startswith("cls_head") else 4
+        else:
+            continue  # inside a hand kernel
+        if routed:
+            ops += 2 * n * (w_n // cout)
+            moved += x_n + w_n + n * out
+        else:
+            want += n * (read + out)
     if family == "ssd":
-        heads = [n for path, n in sizes if path == "head"]  # cls, box of each level
-        assert len(heads) == 2 * len(cfg.anchors.feature_sizes)
-        for i, n in enumerate(heads):
-            want += n * (4 + (logit if i % 2 == 0 else 4))
+        assert heads == 2 * len(cfg.anchors.feature_sizes)
     else:
-        fpn = {path: n for path, n in sizes if path.startswith("fpn/")}
-        want += sum(5 * fpn[f"fpn/{p}"] for p in (
-            "lateral3", "lateral4", "lateral5", "smooth3", "smooth4", "smooth5", "p6", "p7"))
+        fpn = {path: n for path, n, *_ in sizes if path.startswith("fpn/")}
         want += 4 * (fpn["fpn/lateral5"] + fpn["fpn/lateral4"])  # the upsampled addends
         want += 2 * fpn["fpn/p6"]  # ReLU on P6's codes, in and out
-        for path, n in ((p, n) for p, n in sizes if "_head/" in p):
-            if path.endswith("/out"):
-                want += n * (4 + (logit if path.startswith("cls_head") else 4))
-            else:
-                want += 5 * n
     assert want > 0 and served.counters[engine.EPILOGUE_BYTES] == want
+    assert ops > 0 and served.counters[engine.CONV_OPS] == ops
+    assert served.counters[engine.CONV_BYTES] == moved
 
 
 def test_detections_are_bit_identical_with_and_without_a_profiler(served):
@@ -257,7 +275,8 @@ def test_detections_are_bit_identical_with_and_without_a_profiler(served):
 # exactly one of its four stages.
 DETR_STAGES = ("odt.detr.backbone", "odt.detr.encoder", "odt.detr.decoder", "odt.detr.heads")
 DETR_SPANS = {"odt.predict", "odt.upload", "odt.normalize", "odt.forward", "odt.int8.input",
-              "odt.int8.im2col", "odt.int8.gemm", "odt.int8.epilogue", "odt.int8.pool",
+              "odt.int8.im2col", "odt.int8.gemm", "odt.int8.epilogue", "odt.int8.conv",
+              "odt.int8.pool",
               "odt.kernel.resnet_stem", "odt.kernel.bottleneck", "odt.detr.attention",
               "odt.detr.postprocess", *DETR_STAGES}
 # (h, w) of the two images of the traced call on the 128 px canvas.
@@ -320,7 +339,7 @@ def test_every_detr_operation_lies_under_one_leaf(detr_served):
     stages = [r for n in DETR_STAGES for r in _ranges(events, n)]
     backbone = _ranges(events, "odt.detr.backbone")
     attention = _ranges(events, "odt.detr.attention")
-    kernels = [r for e in events if e.name.startswith("odt.kernel.") for r in _ranges([e], e.name)]
+    kernels = [r for e in events if e.name.startswith(WRAPPED) for r in _ranges([e], e.name)]
     engine_steps = [r for e in events if e.name.startswith("odt.int8.")
                     for r in _ranges([e], e.name)]
     ops = [(e.name, (e.time_range.start, e.time_range.end)) for e in events
