@@ -304,7 +304,20 @@ Phases, each fatal on failure:
      operations and its codes in, kernel and output once), the plain
      version (by events) and the chain they replace (im2col,
      torch._int_mm, the requant epilogue kernel; by graph replay). Every
-     serving phase's launch counts hold the kernel's launches a forward.
+     serving phase's launch counts hold the kernel's launches a forward;
+ 48. the multi-scale deformable attention kernel (csrc/msda.cu, row 11):
+     int8 Deformable DETR at bs=32 on its benchmark cell's canvases (1088
+     px, landscape and portrait extents 3:1, seeded weights of its
+     configuration), the forward's launches of every kernel counted (12 of
+     row 11: 6 encoder calls over 24,565 tokens a canvas, 6 decoder calls
+     over 300 queries); each of the 12 calls held against the plain version
+     on its own inputs within 2^-7 relative; the served detections beside
+     the same forward with the plain version swapped in (printed: the
+     sorted scores slot by slot, the boxes of the best 50 as a set); the
+     launches timed by CUDA-graph replay beside their bound (each call's
+     larger of its float32 operations on the unmasked query rows and its
+     rows' bytes, as port_bench/deformable_counts.py counts them) and the
+     plain version (by events).
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -370,7 +383,7 @@ INT8_PATH_KERNELS = ("nms_rows", "stem_conv12_pool", "l2norm_requant")
 STEM_FP_LAUNCHES = {"nms_rows": 1, "nms_rows_bf16": 0, "stem_conv12_pool": 0,
                     "l2norm_requant": 1, "max_pool_bwd": 0, "resnet_stem": 0,
                     "fused_bottleneck": 0, "stem_fused_producer": 1, "requant_epilogue": 7,
-                    "detr_attention": 0, "conv3x3_requant": 26}
+                    "detr_attention": 0, "conv3x3_requant": 26, "msda": 0}
 # Requant epilogues of one int8 SSD-300 forward on the B2 route
 # (ODT_STEM_FP=0), which runs conv1_1 (3 input channels) through the
 # engine's conv and epilogue too.
@@ -389,7 +402,7 @@ EVAL_TRAIN_STEPS = 100
 SSD512_INT8_LAUNCHES = {"resnet_stem": 1, "fused_bottleneck": 12, "nms_rows": 1,
                         "nms_rows_bf16": 0, "stem_conv12_pool": 0, "l2norm_requant": 0,
                         "max_pool_bwd": 0, "stem_fused_producer": 0, "requant_epilogue": 23,
-                        "detr_attention": 0, "conv3x3_requant": 15}
+                        "detr_attention": 0, "conv3x3_requant": 15, "msda": 0}
 # Of one int8 RetinaNet forward: the same trunk; of its 16 convs, the FPN's 8
 # and 2 heads x 5 levels x 5 convs, the one-kernel 3x3 conv for stage 1
 # block 1's 3x3, the 3 smooths and the 50 head convs, the requant epilogue for
@@ -527,6 +540,7 @@ PROFILE_GROUPS = (
     ("requant_epilogue_kernel", ("requant_epilogue_kernel",)),
     ("detr_attention_kernel", ("attention_kernel",)),
     ("conv3x3_kernel", ("conv3x3_requant_kernel",)),
+    ("msda_kernel", ("msda_kernel",)),
     ("conv_or_gemm", ("conv", "cudnn", "gemm", "xmma", "implicit", "wgrad", "dgrad", "cutlass",
                       "imma", "sm90")),
 )
@@ -1856,6 +1870,8 @@ def main() -> int:
     mark_seconds("46")
     conv = conv3x3_phase(torch, np, counted, launches, where)
     mark_seconds("47")
+    sampling = deformable_phase(torch, np, counted, launches, where)
+    mark_seconds("48")
     bf16_at = {preset: {name: t[name] for name in ("default", "coord_bf16", "all")}
                for preset, t in kn["timing"].items()}
     bf16_300 = kn["timing"]["ssd300_infer_bs64"]["coord_bf16"]
@@ -2101,6 +2117,29 @@ def main() -> int:
                          "cell's canvases (by_call: the 6 of each kind), at the path's own "
                          "inputs; kernel and library (the former SDPA call) ms by CUDA graph "
                          "replay, plain ms by CUDA events over blocks of 4 images",
+        },
+        {
+            "name": "msda",
+            "route": "cuda",
+            "source": "object_detector_tpu_torch/csrc/msda.cu",
+            "replaces": None,
+            "replaces_none_because": "the JAX package has no Deformable DETR; the public code's "
+                                     "PyTorch form is F.grid_sample once a level",
+            **counts("msda"),
+            "max_abs_err": sampling["max_abs_err"],
+            "max_rel_err": sampling["max_rel_err"],
+            "ms": sampling["timing"]["forward"]["ms"],
+            "plain_ms": sampling["timing"]["forward"]["plain_ms"],
+            "bound_ms": sampling["timing"]["forward"]["bound_ms"],
+            "bound_by": sampling["timing"]["forward"]["bound_by"],
+            "library_ms": None,
+            "library_none_because": "no single PyTorch call computes the multi-scale sampling "
+                                    "with its softmax and weighted sum",
+            "by_call": sampling["timing"],
+            "times_are": "sums over the 12 launches of one int8 Deformable DETR forward at bs=32 "
+                         "on its cell's canvases (by_call: the 6 encoder and the 6 decoder "
+                         "calls), at the path's own inputs; kernel ms by CUDA graph replay, "
+                         "plain ms by CUDA events over blocks of 8 images",
         },
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -3612,8 +3651,8 @@ def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches (the NMS
     scan's two instantiations apart)."""
     from object_detector_tpu_torch.kernels import (
-        attention, bottleneck, conv3x3, l2norm, nms, pool_bwd, requant_epilogue, resnet_stem, stem,
-        stem_fp,
+        attention, bottleneck, conv3x3, l2norm, msda, nms, pool_bwd, requant_epilogue, resnet_stem,
+        stem, stem_fp,
     )
 
     return {"nms_rows": nms.nms_rows, "nms_rows_bf16": nms.nms_rows.bf16,
@@ -3622,7 +3661,8 @@ def kernel_wrappers() -> dict:
             "resnet_stem": resnet_stem.resnet_stem, "fused_bottleneck": bottleneck.fused_bottleneck,
             "stem_fused_producer": stem_fp.stem_fused_producer,
             "requant_epilogue": requant_epilogue.epilogue,
-            "detr_attention": attention.masked_attention, "conv3x3_requant": conv3x3.conv3x3}
+            "detr_attention": attention.masked_attention, "conv3x3_requant": conv3x3.conv3x3,
+            "msda": msda.msda}
 
 
 def int8_launches(cfg) -> dict:
@@ -5319,6 +5359,159 @@ def conv3x3_phase(torch, np, counted, launches, where) -> dict:
     del predict
     torch.cuda.empty_cache()
     return {"paths": paths}
+
+
+# Phase 48: the sampling kernel (row 11) on the int8 Deformable DETR path at
+# its cell's shapes. Launches a forward: the undilated trunk (B6 once, B7 for
+# 12 blocks, row 10 for stage 1 block 1's 3x3, row 8 for the other 15 convs
+# outside B6 and B7), row 9 for the decoder's 6 self-attentions over 300
+# queries, row 11 for the 6 encoder and the 6 decoder calls.
+DEFORMABLE_INT8_LAUNCHES = {"nms_rows": 0, "nms_rows_bf16": 0, "stem_conv12_pool": 0,
+                            "l2norm_requant": 0, "max_pool_bwd": 0, "resnet_stem": 1,
+                            "fused_bottleneck": 12, "stem_fused_producer": 0,
+                            "requant_epilogue": 15, "detr_attention": 6, "conv3x3_requant": 1,
+                            "msda": 12}
+# The kernel against the plain version on the path's own inputs, relative to
+# |plain| + 1e-2: one bfloat16 rounding of the output (the kernel and the
+# plain version sum the same float32 products in another order), as
+# tests/test_torch_deformable_detr.py holds it.
+MSDA_REL_LIMIT, MSDA_REL_FLOOR = 2 ** -7, 1e-2
+MSDA_CORNERS = 4
+MSDA_PLAIN_BLOCK = 8
+# The served top 100 with the kernel and with the plain version are held as
+# sets: their best MSDA_SET_TOP detections against the other's 100.
+MSDA_SET_TOP = 50
+
+
+def served_set_box_gap(a, b, top: int) -> float:
+    """The largest distance, in px, from one of ``a``'s ``top`` best
+    detections to the nearest of ``b``'s detections of its class (the
+    corners' largest difference). A top-k set is compared as a set: near-equal
+    scores trade places between two forms of one forward, so slot k of one
+    can be another query's detection than slot k of the other."""
+    d = (a.boxes[:, :top, None, :].float() - b.boxes[:, None, :, :].float()).abs().amax(-1)
+    same = a.classes[:, :top, None] == b.classes[:, None, :]
+    return float(d.masked_fill(~same, float("inf")).amin(-1).max())
+
+
+def msda_bound_ms(calls) -> dict:
+    """Least time of the captured sampling calls (arguments by name): each
+    call's larger of its float32 operations (2 a corner and channel, on the
+    unmasked query rows) at the non-FMA float32 rate and its rows' bytes
+    (reference points, offsets and logits in float32 read once, the bf16
+    output written once) at the HBM rate, summed. The value rows are left
+    out: which of them a call reads depends on where the offsets point."""
+    total, by = 0.0, {"operations": 0, "bytes": 0}
+    for kw in calls:
+        value, ref, logits, pad = kw["value"], kw["ref"], kw["logits"], kw.get("query_pad")
+        b, lq = ref.shape[:2]
+        rows = b * lq if pad is None else int((~pad).sum())
+        points = logits.shape[2]
+        ops = rows * points * MSDA_CORNERS * value.shape[3] * 2
+        row_bytes = 4 * ref.shape[2] * 2 + 4 * points * 2 + 4 * points \
+            + 2 * value.shape[2] * value.shape[3]
+        ms, kind = bound(rows * row_bytes, ops, F32_OPS_PER_S)
+        total += ms
+        by[kind] += 1
+    return {"bound_ms": total, "bound_by": max(by, key=by.get)}
+
+
+def msda_plain(torch, msda, kw, block: int = MSDA_PLAIN_BLOCK):
+    """The plain version image block by image block (its float32 corners of
+    an encoder call over eight of the cell's canvases take about 6 GB)."""
+    batched = ("value", "ref", "offsets", "logits", "query_pad")
+    return torch.cat([
+        msda.msda_reference(**{k: (v[i:i + block] if k in batched and v is not None else v)
+                               for k, v in kw.items()})
+        for i in range(0, kw["ref"].shape[0], block)])
+
+
+def deformable_phase(torch, np, counted, launches, where) -> dict:
+    """Phase 48: the sampling kernel on the int8 Deformable DETR path at its
+    cell's shapes (see the module docstring)."""
+    import inspect
+
+    from object_detector_tpu_torch.core.config import get_config
+    from object_detector_tpu_torch.eval.evaluator import make_int8_predict_fn
+    from object_detector_tpu_torch.kernels import msda
+    from object_detector_tpu_torch.models import deformable_detr
+    from port_bench.deformable_weights import make_weights
+
+    cell = json.loads(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "port_bench",
+                                        "configs", "deformable_detr_r50_coco.json")).read())
+    cfg = get_config("deformable_detr_r50_coco")
+    batch, size = cfg.eval.batch_size, cfg.model.image_size
+    layers = cfg.deformable.enc_layers + cfg.deformable.dec_layers
+    extents = np.array([DETR_PORTRAIT if i % 4 == 3 else DETR_LANDSCAPE for i in range(batch)])
+    images = np.random.default_rng(48).integers(0, 256, (batch, size, size, 3), dtype=np.uint8)
+    weights = make_weights(cell["resolved"], cell["weights"], 2 ** 33 + 48, "cuda")
+    predict = make_int8_predict_fn(cfg, weights, None, images[:8], device="cuda",
+                                   calibration_extents=extents[:8])
+    del weights
+    signature = inspect.signature(msda.msda)
+    wrapper, calls = deformable_detr.msda, []
+
+    def recording(*args, **kw):
+        named = dict(signature.bind(*args, **kw).arguments)
+        out = wrapper(**named)
+        calls.append(named)
+        return out
+
+    predict(images, extents)
+    got, counts = counted(lambda: predict(images, extents))
+    launches["deformable_int8_bs32"] = counts
+    check(counts == DEFORMABLE_INT8_LAUNCHES,
+          f"Deformable DETR bs={batch}: launches {counts}, expected {DEFORMABLE_INT8_LAUNCHES}")
+    deformable_detr.msda = recording
+    try:
+        predict(images, extents)
+    finally:
+        deformable_detr.msda = wrapper
+    check(len(calls) == layers, f"{len(calls)} sampling calls a forward, expected {layers}")
+    tokens = sum(h * w for h, w in calls[0]["shapes"])
+    kinds = {"encoder": calls[:cfg.deformable.enc_layers],
+             "decoder": calls[cfg.deformable.enc_layers:]}
+    check(all(kw["ref"].shape[1] == tokens and kw["query_pad"] is not None
+              for kw in kinds["encoder"])
+          and all(kw["ref"].shape[1] == cfg.deformable.queries for kw in kinds["decoder"]),
+          "the sampling calls are not the forward's kinds")
+    max_abs, max_rel = 0.0, 0.0
+    with torch.inference_mode():
+        for name, group in kinds.items():
+            for kw in group:
+                out = msda.msda(**kw).float()
+                want = msda_plain(torch, msda, kw).float()
+                diff = (out - want).abs()
+                rel = float((diff / (want.abs() + MSDA_REL_FLOOR)).max())
+                max_abs, max_rel = max(max_abs, float(diff.max())), max(max_rel, rel)
+                check(rel < MSDA_REL_LIMIT, f"Deformable DETR {name} sampling: the kernel is "
+                                            f"off its plain version by {rel} relative")
+                del out, want, diff
+        # The forward with the plain version in the kernel's place.
+        deformable_detr.msda = msda.msda_reference
+        try:
+            plain = predict(images, extents)
+        finally:
+            deformable_detr.msda = wrapper
+        score_gap = float((got.scores - plain.scores).abs().max())
+        box_gap = served_set_box_gap(got, plain, MSDA_SET_TOP)
+
+        timing = {}
+        for name, group in (*kinds.items(), ("forward", calls)):
+            ms = graph_ms(torch, lambda: [msda.msda(**kw) for kw in group], 3)
+            plain_ms = cuda_ms(torch, lambda: [msda_plain(torch, msda, kw) for kw in group], 1)
+            timing[name] = {"ms": ms, "plain_ms": plain_ms, **msda_bound_ms(group)}
+            timing[name]["bound_share_pct"] = 100.0 * timing[name]["bound_ms"] / ms
+            print(json.dumps({"phase": "deformable_sampling", "calls": name,
+                              "launches": len(group), **timing[name], **where}))
+    out = {"max_abs_err": max_abs, "max_rel_err": max_rel, "score_gap_vs_plain": score_gap,
+           f"box_gap_px_vs_plain_top{MSDA_SET_TOP}": box_gap, "launches": counts,
+           "timing": timing}
+    print(json.dumps({"phase": "deformable_path", **{k: v for k, v in out.items()
+                                                      if k != "timing"}, **where}))
+    del calls, kinds, got, plain, predict
+    torch.cuda.empty_cache()
+    return out
 
 
 def _same_detections(torch, a, b) -> bool:

@@ -7,8 +7,11 @@ behind each default are documented beside the reference's copy.
 
 The port adds what the reference does not have: the DETR family
 (``family="detr"``, `TransformerConfig`, the preset ``detr_r50_dc5_coco``
-and `tiny_detr_config`). Its section sits in a field of its own,
-``transformer``, so every section the reference has resolves as before.
+and `tiny_detr_config`) and Deformable DETR (``family="deformable_detr"``,
+`DeformableConfig`, the preset ``deformable_detr_r50_coco`` and
+`tiny_deformable_detr_config`). Each family's section sits in a field of its
+own (``transformer``, ``deformable``), so every section the reference has,
+and DETR's, resolves as before.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ class MatcherConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    family: str = "ssd"  # "ssd" | "retinanet" | "detr"
+    family: str = "ssd"  # "ssd" | "retinanet" | "detr" | "deformable_detr"
     backbone: str = "vgg16"  # "vgg16" | "resnet50"
     image_size: int = 300
     num_classes: int = 20  # foreground classes (VOC=20, COCO=80)
@@ -180,6 +183,31 @@ class TransformerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DeformableConfig:
+    """Deformable DETR's transformer (arXiv:2010.04159 section 4.1 and
+    section 5's defaults; single-stage, no box refinement): post-norm layers
+    of width ``d_model`` with ``heads`` heads and a ReLU feed-forward of
+    ``ffn``, multi-scale deformable attention over ``levels`` feature levels
+    (C3 to C5 and a stride-2 conv on C5) with ``enc_points`` and
+    ``dec_points`` sampling points a level and head, GroupNorm of
+    ``gn_groups`` groups after each input projection, ``queries`` learned
+    queries, and the ``top_k`` detections an image of its postprocess. Read
+    only by the deformable_detr family."""
+
+    d_model: int = 256
+    heads: int = 8
+    ffn: int = 1024
+    enc_layers: int = 6
+    dec_layers: int = 6
+    queries: int = 300
+    levels: int = 4
+    enc_points: int = 4
+    dec_points: int = 4
+    gn_groups: int = 32
+    top_k: int = 100
+
+
+@dataclasses.dataclass(frozen=True)
 class MeshConfig:
     data_axis: str = "data"
     data_parallel: int = -1
@@ -196,6 +224,7 @@ class DetectorConfig:
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     transformer: TransformerConfig = dataclasses.field(default_factory=TransformerConfig)
+    deformable: DeformableConfig = dataclasses.field(default_factory=DeformableConfig)
 
     def replace(self, **kw: Any) -> "DetectorConfig":
         return dataclasses.replace(self, **kw)
@@ -319,6 +348,21 @@ def _detr_r50_dc5_coco() -> DetectorConfig:
     )
 
 
+def _deformable_detr_r50_coco() -> DetectorConfig:
+    """Deformable DETR on ResNet-50 (arXiv:2010.04159 Table 1, single-stage,
+    no box refinement), served on 1088 x 1088 canvases as DETR-DC5 is: each
+    image padded to the canvas with its extent. 91 COCO ids, sigmoid scores
+    (no "no object" logit)."""
+    return DetectorConfig(
+        name="deformable_detr_r50_coco",
+        model=ModelConfig(family="deformable_detr", backbone="resnet50", image_size=1088,
+                          num_classes=91),
+        data=DataConfig(dataset="coco"),
+        eval=EvalConfig(batch_size=32, map_style="coco"),
+        deformable=DeformableConfig(),
+    )
+
+
 _PRESETS = {
     "tiny_test": lambda: tiny_test_config(),
     "ssd300_vgg16_voc": _ssd300_vgg16_voc,
@@ -327,6 +371,7 @@ _PRESETS = {
     "ssd300_voc_train_dp8": _ssd300_voc_train_dp8,
     "retinanet_fpn_coco": _retinanet_fpn_coco,
     "detr_r50_dc5_coco": _detr_r50_dc5_coco,
+    "deformable_detr_r50_coco": _deformable_detr_r50_coco,
 }
 
 
@@ -381,6 +426,21 @@ def tiny_detr_config(num_classes: int = 5) -> DetectorConfig:
         eval=EvalConfig(batch_size=4, map_style="coco"),
         transformer=TransformerConfig(d_model=64, heads=4, ffn=128, enc_layers=2,
                                       dec_layers=2, queries=10),
+    )
+
+
+def tiny_deformable_detr_config(num_classes: int = 5) -> DetectorConfig:
+    """Small Deformable DETR (128 px canvas, levels of 16, 8, 4 and 2 cells,
+    d_model 64 in 2 heads of 32, 2 + 2 layers, 10 queries, the top 20) for
+    CPU tests."""
+    return DetectorConfig(
+        name="tiny_deformable_detr",
+        model=ModelConfig(family="deformable_detr", backbone="resnet50", image_size=128,
+                          num_classes=num_classes, compute_dtype="float32"),
+        data=DataConfig(dataset="synthetic", max_boxes=4),
+        eval=EvalConfig(batch_size=4, map_style="coco"),
+        deformable=DeformableConfig(d_model=64, heads=2, ffn=128, enc_layers=2, dec_layers=2,
+                                    queries=10, gn_groups=8, top_k=20),
     )
 
 

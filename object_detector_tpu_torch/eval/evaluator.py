@@ -5,15 +5,19 @@ The port of ``object_detector_tpu/eval/evaluator.py``: ``make_predict_fn``
 serving path: SSD on VGG16 or ResNet-50, and RetinaNet/FPN) and
 ``evaluate_dataset`` (:79, the val sweep into `MeanAPEvaluator`).
 
-Both predict functions also serve the port's DETR family
-(``family="detr"``), which the reference lacks: ``predict(images_u8,
-extents)`` on padded canvases, each image at the top left of its canvas
-with its (h, w) extent, no anchors and one detection an object query
-(`ops.postprocess.detr_postprocess`, boxes in pixels of the image).
+Both predict functions also serve the port's DETR families, which the
+reference lacks (``family="detr"`` and ``"deformable_detr"``):
+``predict(images_u8, extents)`` on padded canvases, each image at the top
+left of its canvas with its (h, w) extent, no anchors; DETR serves one
+detection an object query (`ops.postprocess.detr_postprocess`), Deformable
+DETR the best ``deformable.top_k`` (query, class) scores
+(`ops.postprocess.deformable_detr_postprocess`), boxes in pixels of the
+image. `FAMILIES` maps each family to what its predict functions run.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Callable, Dict, Mapping, Optional
 
@@ -26,11 +30,12 @@ from object_detector_tpu_torch.core.device import resolve_device
 from object_detector_tpu_torch.data.pipeline import DecodedCache
 from object_detector_tpu_torch.data.types import Dataset
 from object_detector_tpu_torch.eval.map import MeanAPEvaluator
-from object_detector_tpu_torch.models import detr
+from object_detector_tpu_torch.models import deformable_detr, detr
 from object_detector_tpu_torch.models.retinanet import build_model
 from object_detector_tpu_torch.ops.augment import normalize
 from object_detector_tpu_torch.ops.nms import Detections
-from object_detector_tpu_torch.ops.postprocess import (detr_postprocess, postprocess,
+from object_detector_tpu_torch.ops.postprocess import (deformable_detr_postprocess,
+                                                       detr_postprocess, postprocess,
                                                        postprocess_levels)
 from object_detector_tpu_torch.quant import engine
 from object_detector_tpu_torch.utils import profiling
@@ -50,20 +55,21 @@ def make_predict_fn(
     array or a tensor) -> batch-stacked Detections on ``device``.
 
     Moves ``model`` to ``device`` in place and puts it in eval mode. For
-    the DETR family ``anchors_center`` may be None and the function is
+    the DETR families ``anchors_center`` may be None and the function is
     predict(images_u8, extents) (module docstring).
     """
     dev = resolve_device(device)
     model.to(dev).eval()
     calls = itertools.count()
-    if cfg.model.family == "detr":
+    family = FAMILIES[cfg.model.family]
+    if family.postprocess is not None:
         @torch.inference_mode()
-        def predict_detr(images_u8, extents) -> Detections:
+        def predict_padded(images_u8, extents) -> Detections:
             with _predict_span(calls):
                 images, ext = _normalized_canvases(cfg, images_u8, extents, dev)
-                return detr_postprocess(*model(images, ext), ext)
+                return family.postprocess(cfg, *model(images, ext), ext)
 
-        return predict_detr
+        return predict_padded
     anchors = torch.as_tensor(np.asarray(anchors_center, np.float32), device=dev)
 
     @torch.inference_mode()
@@ -101,9 +107,9 @@ def _normalized_canvases(cfg: DetectorConfig, images_u8, extents, dev: torch.dev
     """(B, S, S, 3) uint8 canvases and their (B, 2) extents (h, w), host
     arrays or tensors -> (normalized float32 canvases on ``dev``, zero
     beyond each extent as DETR's ``NestedTensor`` pads; the extents as
-    int64 on ``dev``). With ``count``, adds the call's unmasked C5 tokens
-    to `models.detr.VALID_TOKENS` while a profiler records, from the
-    extents' host copy."""
+    int64 on ``dev``). With ``count``, adds the call's unmasked tokens to
+    the family's counter (`Family.count_tokens`) while a profiler records,
+    from the extents' host copy."""
     images = _normalized(images_u8, dev)
     ext = torch.as_tensor(np.asarray(extents), dtype=torch.int64)
     b, h, w, _ = images.shape
@@ -112,15 +118,57 @@ def _normalized_canvases(cfg: DetectorConfig, images_u8, extents, dev: torch.dev
         raise ValueError(f"expected ({b}, 2) extents (h, w) within the {h} x {w} canvas, "
                          f"got {tuple(ext.shape)}: {ext.tolist()}")
     if count and profiling.enabled():
-        f = (detr.trunk_feature_size(h, cfg.transformer.dilate_c5),
-             detr.trunk_feature_size(w, cfg.transformer.dilate_c5))
-        profiling.count(detr.VALID_TOKENS, detr.valid_tokens(ext, (h, w), f))
+        FAMILIES[cfg.model.family].count_tokens(cfg, ext, (h, w))
     with profiling.span("odt.upload"):
         ext = ext.to(dev)
     with profiling.span("odt.normalize"):
         rows = torch.arange(h, device=dev) < ext[:, :1]
         cols = torch.arange(w, device=dev) < ext[:, 1:]
         return images.mul_((rows[:, :, None] & cols[:, None, :])[..., None]), ext
+
+
+def _count_detr_tokens(cfg: DetectorConfig, ext: torch.Tensor, canvas) -> None:
+    """DETR's unmasked C5 tokens, on `models.detr.VALID_TOKENS`."""
+    f = tuple(detr.trunk_feature_size(s, cfg.transformer.dilate_c5) for s in canvas)
+    profiling.count(detr.VALID_TOKENS, detr.valid_tokens(ext, canvas, f))
+
+
+def _count_deformable_tokens(cfg: DetectorConfig, ext: torch.Tensor, canvas) -> None:
+    """Deformable DETR's unmasked tokens over its levels, on
+    `models.deformable_detr.VALID_TOKENS`."""
+    profiling.count(deformable_detr.VALID_TOKENS,
+                    deformable_detr.valid_tokens(ext, canvas, cfg.deformable.levels))
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """What the predict functions run for one ``model.family``: the names of
+    the int8 engine's ``quantize(cfg, params, batches) -> (qp, spec)`` and
+    ``forward(qp, spec, cfg, images[, extents])`` in `quant.engine`, looked
+    up when a predict function is built; and for a family served on padded
+    canvases (predict(images_u8, extents)) its ``postprocess(cfg, logits,
+    boxes, extents)`` and ``count_tokens(cfg, extents, canvas)``; without a
+    ``postprocess``, the anchors' decode and NMS."""
+
+    quantize: str
+    int8_forward: str
+    postprocess: Optional[Callable] = None
+    count_tokens: Optional[Callable] = None
+
+
+FAMILIES: Dict[str, Family] = {
+    "ssd": Family("quantize_ssd", "int8_forward"),
+    "retinanet": Family("quantize_retinanet", "retinanet_int8_forward"),
+    "detr": Family("quantize_detr", "detr_int8_forward",
+                   postprocess=lambda cfg, logits, boxes, ext: detr_postprocess(logits, boxes,
+                                                                                ext),
+                   count_tokens=_count_detr_tokens),
+    "deformable_detr": Family(
+        "quantize_deformable_detr", "deformable_detr_int8_forward",
+        postprocess=lambda cfg, logits, boxes, ext: deformable_detr_postprocess(
+            logits, boxes, ext, cfg.deformable.top_k),
+        count_tokens=_count_deformable_tokens),
+}
 
 
 def make_int8_predict_fn(
@@ -148,40 +196,39 @@ def make_int8_predict_fn(
     `quantize_retinanet`'s default) go to `postprocess_levels`; the
     concatenated logits are never built.
 
-    The DETR family (module docstring) calibrates on canvases with their
-    ``calibration_extents`` (the whole canvas where None), needs no
-    anchors, and serves predict(images_u8, extents) through
-    `engine.detr_int8_forward`."""
+    The DETR families (module docstring) calibrate on canvases with their
+    ``calibration_extents`` (the whole canvas where None), need no
+    anchors, and serve predict(images_u8, extents) through their
+    `Family.int8_forward` (`engine.detr_int8_forward`,
+    `engine.deformable_detr_int8_forward`). Each family's engine functions
+    are looked up by name when the predict function is built."""
     dev = resolve_device(device)
     pallas = cfg.eval.use_pallas_nms if use_pallas is None else use_pallas
     device_params = {k: v.to(dev) for k, v in params.items()}
     calls = itertools.count()
-    if cfg.model.family == "detr":
+    family = FAMILIES[cfg.model.family]
+    quantize, forward = getattr(engine, family.quantize), getattr(engine, family.int8_forward)
+    if family.postprocess is not None:
         if calibration_extents is None:
             n, h, w = np.shape(calibration_images_u8)[:3]
             calibration_extents = np.tile([h, w], (n, 1))
         calib, _ = _normalized_canvases(cfg, calibration_images_u8, calibration_extents, dev,
                                         count=False)
-        qp, spec = engine.quantize_detr(cfg, device_params, [calib])
+        qp, spec = quantize(cfg, device_params, [calib])
         qp = qp.to(dev)
         del calib
 
         @torch.inference_mode()
-        def predict_detr(images_u8, extents) -> Detections:
+        def predict_padded(images_u8, extents) -> Detections:
             with _predict_span(calls):
                 images, ext = _normalized_canvases(cfg, images_u8, extents, dev)
-                logits, boxes = engine.detr_int8_forward(qp, spec, cfg, images, ext)
-                return detr_postprocess(logits, boxes, ext)
+                logits, boxes = forward(qp, spec, cfg, images, ext)
+                return family.postprocess(cfg, logits, boxes, ext)
 
-        predict_detr.qp, predict_detr.spec = qp, spec
-        return predict_detr
+        predict_padded.qp, predict_padded.spec = qp, spec
+        return predict_padded
     calib = _normalized(calibration_images_u8, dev)
-    if cfg.model.family == "retinanet":
-        qp, spec = engine.quantize_retinanet(cfg, device_params, [calib])
-        forward = engine.retinanet_int8_forward
-    else:
-        qp, spec = engine.quantize_ssd(cfg, device_params, [calib])
-        forward = engine.int8_forward
+    qp, spec = quantize(cfg, device_params, [calib])
     qp = qp.to(dev)
     anchors = torch.as_tensor(np.asarray(anchors_center, np.float32), device=dev)
     per_level = cfg.eval.per_level_heads and pallas

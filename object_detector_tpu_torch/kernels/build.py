@@ -33,7 +33,7 @@ SOURCES = {
     "nms": "nms.cu", "stem": "stem.cu", "l2norm": "l2norm.cu", "pool_bwd": "pool_bwd.cu",
     "resnet_stem": "resnet_stem.cu", "bottleneck": "bottleneck.cu", "stem_fp": "stem_fp.cu",
     "requant_epilogue": "requant_epilogue.cu", "detr_attention": "detr_attention.cu",
-    "conv3x3": "conv3x3.cu",
+    "conv3x3": "conv3x3.cu", "msda": "msda.cu",
 }
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -58,6 +58,7 @@ ENTRY_POINTS = {
                                           _P, _I, _I, _I, _I, _F, _P]),
     "conv3x3_requant": ("conv3x3", [_P, _I, _I, _I, _I, _P, _LL, _I, _I, _I, _P, _P, _F, _I, _P,
                                     _P, _I, _P]),
+    "msda": ("msda", [_P, _P, _P, _LL, _LL, _P, _LL, _LL, _P, _P] + [_I] * 12 + [_P]),
 }
 
 # -fmad=false: no contraction of a * b + c into an FMA, so the kernels round

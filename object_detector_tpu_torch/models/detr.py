@@ -98,16 +98,21 @@ def feature_mask(extents: Tensor, canvas: Tuple[int, int], feature_hw: Tuple[int
     return axes[0][:, :, None] | axes[1][:, None, :]
 
 
-def sine_position(mask: Tensor, d_model: int) -> Tensor:
+def sine_position(mask: Tensor, d_model: int, offset: float = 0.0) -> Tensor:
     """DETR's ``PositionEmbeddingSine(d_model / 2, 10000, normalize=True,
     scale=2 pi)`` of a (B, H, W) padding mask -> (B, H*W, d_model) float32:
-    y then x, each d_model / 2 features of interleaved sin and cos."""
+    y then x, each d_model / 2 features of interleaved sin and cos. Each
+    count of unmasked cells is less ``offset`` before it is normalized
+    (Deformable DETR's encoding takes 0.5)."""
     feats = d_model // 2
     not_mask = (~mask).to(torch.float32)
     y = not_mask.cumsum(1)
     x = not_mask.cumsum(2)
-    y = y / (y[:, -1:, :] + POS_EPS) * POS_SCALE
-    x = x / (x[:, :, -1:] + POS_EPS) * POS_SCALE
+    y_last, x_last = y[:, -1:, :], x[:, :, -1:]
+    if offset:
+        y, x = y - offset, x - offset
+    y = y / (y_last + POS_EPS) * POS_SCALE
+    x = x / (x_last + POS_EPS) * POS_SCALE
     dim_t = torch.arange(feats, dtype=torch.float32, device=mask.device)
     dim_t = POS_TEMPERATURE ** (2 * torch.div(dim_t, 2, rounding_mode="floor") / feats)
 
@@ -268,7 +273,11 @@ class DETRModel(nn.Module):
         self.query_embed = nn.Embedding(t.queries, t.d_model)
         self.class_embed = nn.Linear(t.d_model, config.model.num_classes + 1)
         self.bbox_embed = MLP((t.d_model, t.d_model, t.d_model, 4))
-        self.transformer.to(self.compute_dtype)
+        self.hold_transformer_in(self.compute_dtype)
+
+    def hold_transformer_in(self, dtype: torch.dtype) -> None:
+        """The transformer's parameters in ``dtype``."""
+        self.transformer.to(dtype)
 
     def forward(self, images: Tensor, extents: Tensor) -> Tuple[Tensor, Tensor]:
         dtype = self.compute_dtype

@@ -117,11 +117,16 @@ class RetinaNetModel(nn.Module):
 
 
 def build_model(cfg: DetectorConfig) -> nn.Module:
-    """Config -> the model of its family (RetinaNet, DETR or SSD)."""
+    """Config -> the model of its family (RetinaNet, DETR, Deformable DETR or
+    SSD)."""
     if cfg.model.family == "retinanet":
         return RetinaNetModel(cfg)
     if cfg.model.family == "detr":
         from object_detector_tpu_torch.models.detr import DETRModel
 
         return DETRModel(cfg)
+    if cfg.model.family == "deformable_detr":
+        from object_detector_tpu_torch.models.deformable_detr import DeformableDETRModel
+
+        return DeformableDETRModel(cfg)
     return SSDModel(cfg)

@@ -6,7 +6,8 @@ hand-written kernel path (`kernels.nms.decode_nms`); without it, through
 the plain per-class NMS of `ops.nms`. `postprocess_levels` takes the int8
 heads' native per-level tensors (``eval.per_level_heads``) to the same
 kernel path through `kernels.nms.decode_nms_levels`. `detr_postprocess` is
-DETR's own (no anchors, no NMS).
+DETR's own and `deformable_detr_postprocess` Deformable DETR's (no anchors,
+no NMS).
 """
 
 from __future__ import annotations
@@ -115,6 +116,27 @@ def detr_postprocess(logits: Tensor, boxes: Tensor, extents: Tensor) -> nms_ops.
         scores, labels = torch.softmax(logits.float(), dim=-1)[..., :-1].max(dim=-1)
         cx, cy, w, h = boxes.float().unbind(-1)
         corners = torch.stack([cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1)
+        size = extents.to(device=corners.device, dtype=torch.float32)
+        scale = torch.stack([size[:, 1], size[:, 0], size[:, 1], size[:, 0]], dim=-1)
+        return nms_ops.Detections(corners * scale[:, None], scores, labels.to(torch.int32),
+                                  torch.ones_like(scores, dtype=torch.bool))
+
+
+def deformable_detr_postprocess(logits: Tensor, boxes: Tensor, extents: Tensor,
+                                top_k: int) -> nms_ops.Detections:
+    """Deformable DETR's ``PostProcess``: (B, Q, C) logits (sigmoid scores,
+    no "no object") and (B, Q, 4) cx, cy, w, h boxes in [0, 1] of each
+    image's (B, 2) extent (h, w) -> the ``top_k`` best of the Q * C
+    (query, class) scores of each image, best first: index i is query i // C
+    and class i % C, its box in corner form and pixels of the image. Every
+    detection is valid."""
+    with span("odt.deformable.postprocess"):
+        b, _, c = logits.shape
+        scores, index = torch.sigmoid(logits.float()).reshape(b, -1).topk(top_k, dim=1)
+        query, labels = index // c, index % c
+        cx, cy, w, h = boxes.float().unbind(-1)
+        corners = torch.stack([cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1)
+        corners = corners.gather(1, query[..., None].expand(-1, -1, 4))
         size = extents.to(device=corners.device, dtype=torch.float32)
         scale = torch.stack([size[:, 1], size[:, 0], size[:, 1], size[:, 0]], dim=-1)
         return nms_ops.Detections(corners * scale[:, None], scores, labels.to(torch.int32),

@@ -1,6 +1,7 @@
 """Int8 post-training-quantization inference engine, SSD-300/VGG16,
-SSD-512/ResNet-50 and RetinaNet/FPN, and the int8 trunk of the port's own
-DETR-DC5 (`quantize_detr`, `detr_int8_forward`).
+SSD-512/ResNet-50 and RetinaNet/FPN, and the int8 trunks of the port's own
+DETR-DC5 (`quantize_detr`, `detr_int8_forward`) and Deformable DETR
+(`quantize_deformable_detr`, `deformable_detr_int8_forward`).
 
 The port of ``object_detector_tpu/quant/engine.py``.
 The conv trunk is an op list built from the config (`build_spec`) and run
@@ -79,7 +80,8 @@ from object_detector_tpu_torch.kernels.stem import stem_conv12_pool
 from object_detector_tpu_torch.kernels.stem_fp import stem_fused_producer
 from object_detector_tpu_torch.models.detr import DETRModel
 from object_detector_tpu_torch.models.resnet import block_geometry
-from object_detector_tpu_torch.models.retinanet import ANCHORS_PER_LOCATION, RetinaNetModel
+from object_detector_tpu_torch.models.retinanet import (ANCHORS_PER_LOCATION, RetinaNetModel,
+                                                       build_model)
 from object_detector_tpu_torch.ops import int8 as int8_ops
 from object_detector_tpu_torch.utils import profiling
 from object_detector_tpu_torch.utils.profiling import span
@@ -1139,22 +1141,24 @@ def quantize_detr(
     return quantize_params(folded, spec, scales, head_paths=()), spec
 
 
-def _detr_float_model(qp: QuantParams, cfg: DetectorConfig, device: torch.device) -> DETRModel:
-    """The model's parts after the trunk on ``qp.float_params``, on
-    ``device``, the transformer in `DETR_DTYPE`; made once per QuantParams."""
+def _float_after_trunk(qp: QuantParams, cfg: DetectorConfig,
+                       device: torch.device) -> torch.nn.Module:
+    """The model's parts after the trunk on ``qp.float_params`` (DETR's or
+    Deformable DETR's, `DETR_FLOAT_PARTS`), on ``device``, the transformer
+    in `DETR_DTYPE`; made once per QuantParams."""
     def make():
         with torch.device("meta"):
-            model = DETRModel(cfg)
+            model = build_model(cfg)
         model.backbone = None
         for name in DETR_FLOAT_PARTS:
             getattr(model, name).load_state_dict(
                 {k[len(name) + 1:]: v for k, v in qp.float_params.items()
                  if k.startswith(name + ".")}, assign=True)
         model.requires_grad_(False).to(device).eval()
-        model.transformer.to(DETR_DTYPE)
+        model.hold_transformer_in(DETR_DTYPE)
         return model
 
-    return qp.derived(("detr_float", device), make)
+    return qp.derived(("float_after_trunk", device), make)
 
 
 def _detr_input_proj(model: DETRModel, c5_scale: float):
@@ -1179,7 +1183,7 @@ def detr_int8_forward(
     ``odt.detr.backbone`` with ``input_proj``, then the transformer and
     heads of `DETRModel.transform`."""
     dev = images.device
-    model = _detr_float_model(qp, cfg, dev)
+    model = _float_after_trunk(qp, cfg, dev)
     with span("odt.forward"):
         with span("odt.detr.backbone"):
             c5, s5 = run_int8(qp, spec, images, dequantize_taps=False)[-1]
@@ -1188,3 +1192,55 @@ def detr_int8_forward(
             b, h, w, c = c5.shape
             src = F.linear(c5.reshape(b, h * w, c).to(DETR_DTYPE), weight, bias)
         return model.transform(src, extents, tuple(images.shape[1:3]), (h, w), DETR_DTYPE)
+
+
+# --------------------------------------------------------------------------
+# Deformable DETR: int8 ResNet-50 trunk + bfloat16 levels and transformer
+# --------------------------------------------------------------------------
+#
+# The trunk is RetinaNet's (undilated: B6, B7, the one-kernel 3x3 convs), and
+# all three of its taps leave it as codes. Each level's projection takes its
+# tap's codes as bfloat16 integers, the tap's scale folded into its weight;
+# GroupNorm, the transformer and its sampling core (`kernels.msda`) then run
+# as in the float model, in bfloat16 with their statistics, offsets and
+# softmax weights in float32, the heads in float32
+# (`models.deformable_detr.DeformableDETRModel.transform`).
+
+
+def quantize_deformable_detr(
+    cfg: DetectorConfig,
+    params: Mapping[str, Tensor],
+    calibration_batches: Sequence[Tensor],
+) -> Tuple[QuantParams, Spec]:
+    """PTQ for Deformable DETR: fold the trunk's BatchNorm, calibrate the
+    undilated trunk on the batches (normalized canvases, zero beyond each
+    image's extent) and quantize its convs. Everything after the trunk stays
+    in ``qp.float_params``."""
+    spec = build_resnet_trunk_spec()
+    folded = fold_resnet50(params)
+    scales = calibrate_scales(folded, spec, calibration_batches, use_l2norm=False)
+    return quantize_params(folded, spec, scales, head_paths=()), spec
+
+
+def deformable_detr_int8_forward(
+    qp: QuantParams,
+    spec: Spec,
+    cfg: DetectorConfig,
+    images: Tensor,
+    extents: Tensor,
+) -> Tuple[Tensor, Tensor]:
+    """Normalized canvases (B, S, S, 3), zero beyond each image's (B, 2)
+    extent (h, w), -> (logits (B, Q, C), boxes (B, Q, 4) cx, cy, w, h in
+    [0, 1] of the extent), float32. The trunk and the four levels under
+    ``odt.deformable.backbone``, then the transformer and heads of
+    `DeformableDETRModel.transform`."""
+    dev = images.device
+    model = _float_after_trunk(qp, cfg, dev)
+    with span("odt.forward"):
+        with span("odt.deformable.backbone"):
+            taps = run_int8(qp, spec, images, dequantize_taps=False)
+            scales = tuple(s for _, s in taps)
+            proj = qp.derived(("deformable_proj", scales, dev),
+                              lambda: model.projections(DETR_DTYPE, scales))
+            srcs, shapes = model.levels([codes.to(DETR_DTYPE) for codes, _ in taps], proj)
+        return model.transform(srcs, shapes, extents, tuple(images.shape[1:3]), DETR_DTYPE)

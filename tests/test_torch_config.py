@@ -25,8 +25,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 # Sections of the port's DetectorConfig that the reference's lacks: the DETR
-# family's, which no reference preset sets.
-PORT_ONLY_SECTIONS = {"transformer"}
+# families', which no reference preset sets.
+PORT_ONLY_SECTIONS = {"transformer", "deformable"}
 
 
 def _reference_view(ported, ref) -> dict:
@@ -51,31 +51,55 @@ def test_presets_match_reference(name):
     assert ported.model.num_levels == ref.model.num_levels
 
 
-def test_port_only_presets_are_the_detr_family():
+# The port's own presets: each family, sizes, and the benchmark's file.
+PORT_ONLY = {
+    "detr_r50_dc5_coco": ("detr", "transformer", dict(
+        d_model=256, heads=8, ffn=2048, enc_layers=6, dec_layers=6, queries=100,
+        dilate_c5=True)),
+    "deformable_detr_r50_coco": ("deformable_detr", "deformable", dict(
+        d_model=256, heads=8, ffn=1024, enc_layers=6, dec_layers=6, queries=300, levels=4,
+        enc_points=4, dec_points=4, gn_groups=32, top_k=100)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORT_ONLY))
+def test_port_only_presets_are_the_detr_family(name):
     extra = set(config.list_presets()) - set(ref_config.list_presets())
-    assert extra == {"detr_r50_dc5_coco"}
-    cfg = config.get_config("detr_r50_dc5_coco")
-    t = cfg.transformer
+    assert extra == set(PORT_ONLY)
+    family, section, sizes = PORT_ONLY[name]
+    cfg = config.get_config(name)
     assert (cfg.model.family, cfg.model.backbone, cfg.model.image_size,
-            cfg.model.num_classes, cfg.eval.batch_size) == ("detr", "resnet50", 1088, 91, 32)
-    assert (t.d_model, t.heads, t.ffn, t.enc_layers, t.dec_layers, t.queries, t.dilate_c5) == (
-        256, 8, 2048, 6, 6, 100, True)
+            cfg.model.num_classes, cfg.eval.batch_size) == (family, "resnet50", 1088, 91, 32)
+    assert dataclasses.asdict(getattr(cfg, section)) == sizes
+    # The other family's section stays at its defaults.
+    for other in PORT_ONLY_SECTIONS - {section}:
+        assert getattr(cfg, other) == getattr(config.DetectorConfig(), other)
+
+
+def _preset_resolves_to_its_benchmark_file(name: str, sections: set):
+    import json
+
+    with open(os.path.join(REPO, "port_bench", "configs", f"{name}.json")) as f:
+        spec = json.load(f)
+    assert spec["preset"] == name and spec["set"] == {}
+    cfg = config.get_config(spec["preset"])
+    got = json.loads(json.dumps({k: dataclasses.asdict(getattr(cfg, k))
+                                 for k in spec["resolved"]}))
+    assert set(spec["resolved"]) == sections
+    assert got == spec["resolved"]
 
 
 def test_detr_preset_resolves_to_the_benchmark_configuration_file():
     """``port_bench/configs/detr_r50_dc5_coco.json`` holds the preset's
     sections as run; the benchmark refuses a preset that no longer
     resolves to them."""
-    import json
+    _preset_resolves_to_its_benchmark_file("detr_r50_dc5_coco", {"model", "eval", "transformer"})
 
-    with open(os.path.join(REPO, "port_bench", "configs", "detr_r50_dc5_coco.json")) as f:
-        spec = json.load(f)
-    assert spec["preset"] == "detr_r50_dc5_coco" and spec["set"] == {}
-    cfg = config.get_config(spec["preset"])
-    got = json.loads(json.dumps({k: dataclasses.asdict(getattr(cfg, k))
-                                 for k in spec["resolved"]}))
-    assert set(spec["resolved"]) == {"model", "eval", "transformer"}
-    assert got == spec["resolved"]
+
+def test_deformable_detr_preset_resolves_to_the_benchmark_configuration_file():
+    """``port_bench/configs/deformable_detr_r50_coco.json`` likewise."""
+    _preset_resolves_to_its_benchmark_file("deformable_detr_r50_coco",
+                                           {"model", "eval", "deformable"})
 
 
 def test_override_matches_reference():

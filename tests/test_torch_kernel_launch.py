@@ -1,4 +1,4 @@
-"""The one launch path of the ten kernel wrappers (`kernels/build.py`): each
+"""The one launch path of the eleven kernel wrappers (`kernels/build.py`): each
 refuses a device that is neither CPU nor CUDA with the shared message before
 it launches, and every entry point's ctypes signature matches its C
 declaration under ``csrc/``. CPU only: nothing here builds or loads a
@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from object_detector_tpu_torch.kernels import (
-    attention, bottleneck, build, conv3x3, l2norm, nms, pool_bwd, requant_epilogue, resnet_stem,
-    stem, stem_fp,
+    attention, bottleneck, build, conv3x3, l2norm, msda, nms, pool_bwd, requant_epilogue,
+    resnet_stem, stem, stem_fp,
 )
 
 
@@ -39,6 +39,10 @@ WRAPPERS = [
      lambda f: f(_meta(2, 10, 64, dtype=torch.bfloat16), _meta(2, 12, 64, dtype=torch.bfloat16),
                  _meta(2, 12, 64, dtype=torch.bfloat16), 2,
                  _meta(2, 12, dtype=torch.bool))),
+    ("msda", msda.msda,
+     lambda f: f(_meta(2, 27, 8, 32, dtype=torch.bfloat16), ((4, 4), (2, 3), (2, 2), (1, 1)),
+                 _meta(2, 7, 4, 2), _meta(2, 7, 256), _meta(2, 7, 128),
+                 _meta(2, 7, dtype=torch.bool))),
     ("nms_rows", nms.nms_rows,
      lambda f: f(_meta(4, 3, 8), _meta(3, 8), max_out=4, iou_threshold=0.5,
                  score_threshold=0.0)),

@@ -5,10 +5,12 @@ wrapper under each epilogue span and nothing beside it, the epilogue's byte
 count and the one-kernel convs' operation and byte counts against the shapes
 of the float path, the epilogue's against its fixed total, and the same
 detections either way; for DETR its ``odt.detr.*`` spans, each operation of
-its forward under one leaf, and its valid-token counter."""
+its forward under one leaf, and its valid-token counter; for Deformable DETR
+its ``odt.deformable.*`` spans and its two counters."""
 
 import dataclasses
 import json
+import os
 import types
 
 import numpy as np
@@ -366,4 +368,88 @@ def test_the_valid_token_counter_is_the_extents_token_count(detr_served):
 
 def test_detr_detections_are_bit_identical_with_and_without_a_profiler(detr_served):
     for got, want in zip(detr_served.traced, detr_served.plain):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+# Deformable DETR (`models.deformable_detr`, `engine.deformable_detr_int8_forward`):
+# the trunk's steps and the levels lie under ``odt.deformable.backbone``, each
+# launch of the sampling core under ``odt.deformable.sampling`` inside the
+# encoder or the decoder, the decoder's self-attention under DETR's
+# ``odt.detr.attention``.
+DEFORMABLE_STAGES = ("odt.deformable.backbone", "odt.deformable.encoder",
+                     "odt.deformable.decoder", "odt.deformable.heads")
+DEFORMABLE_SPANS = {"odt.predict", "odt.upload", "odt.normalize", "odt.forward",
+                    "odt.int8.input", "odt.int8.im2col", "odt.int8.gemm", "odt.int8.epilogue",
+                    "odt.int8.conv", "odt.int8.pool", "odt.kernel.resnet_stem",
+                    "odt.kernel.bottleneck", "odt.deformable.sampling", "odt.detr.attention",
+                    "odt.deformable.postprocess", *DEFORMABLE_STAGES}
+
+
+@pytest.fixture(scope="module")
+def deformable_served():
+    from port_bench.deformable_weights import make_weights
+
+    cfg = config.tiny_deformable_detr_config()
+    arch = {k: json.loads(json.dumps(dataclasses.asdict(getattr(cfg, k))))
+            for k in ("model", "eval", "deformable")}
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "port_bench", "configs", "deformable_detr_r50_coco.json")) as f:
+        weights = make_weights(arch, json.load(f)["weights"], 5, "cpu")
+    rng = np.random.default_rng(6)
+    images = rng.integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    predict = make_int8_predict_fn(cfg, weights, None, images, device="cpu",
+                                   calibration_extents=DETR_EXTENTS)
+    predict(images, DETR_EXTENTS)
+    profiling.reset_counters()
+    plain = predict(images, DETR_EXTENTS)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = predict(images, DETR_EXTENTS)
+    counters = profiling.counters()
+    profiling.reset_counters()
+    return types.SimpleNamespace(cfg=cfg, plain=plain, traced=traced,
+                                 events=list(prof.events()), counters=counters)
+
+
+def test_a_traced_deformable_predict_emits_its_spans_nested_as_stated(deformable_served):
+    events = deformable_served.events
+    names = {e.name for e in events if e.name.startswith("odt.")}
+    assert names == DEFORMABLE_SPANS
+    (predict_range,) = _ranges(events, "odt.predict")
+    (forward_range,) = _ranges(events, "odt.forward")
+    stages = {n: _ranges(events, n) for n in DEFORMABLE_STAGES}
+    assert all(len(r) == 1 and _inside(r[0], [forward_range]) for r in stages.values())
+    for name in names:
+        for rng in _ranges(events, name):
+            assert _inside(rng, [predict_range]), name
+            assert _inside(rng, _ranges(events, name)) == 1, f"{name} nests inside itself"
+            if name.startswith(CHILDREN):
+                assert _inside(rng, stages["odt.deformable.backbone"]), name
+    c = deformable_served.cfg.deformable
+    sampling = _ranges(events, "odt.deformable.sampling")
+    assert len(sampling) == c.enc_layers + c.dec_layers
+    assert sum(_inside(r, stages["odt.deformable.encoder"]) for r in sampling) == c.enc_layers
+    assert sum(_inside(r, stages["odt.deformable.decoder"]) for r in sampling) == c.dec_layers
+    (post,) = _ranges(events, "odt.deformable.postprocess")
+    assert not _inside(post, [forward_range])
+
+
+def test_the_deformable_counters_are_the_extents_tokens_and_the_sampled_points(
+        deformable_served):
+    from object_detector_tpu_torch.kernels import msda
+    from object_detector_tpu_torch.models import deformable_detr
+
+    # Levels of 16, 8, 4, 2 cells a side, a cell every 8, 16, 32, 64 px:
+    # 96 x 128 keeps 12 x 16, 6 x 8, 3 x 4, 2 x 2; 40 x 70 keeps 5 x 9,
+    # 3 x 5, 2 x 3, 1 x 2.
+    assert deformable_served.counters[deformable_detr.VALID_TOKENS] == (
+        192 + 48 + 12 + 4) + (45 + 15 + 6 + 2)
+    c = deformable_served.cfg.deformable
+    rows = 2 * (c.enc_layers * (256 + 64 + 16 + 4) + c.dec_layers * c.queries)
+    assert deformable_served.counters[msda.SAMPLED_POINTS] == rows * c.heads * 4 * 4
+    assert deformable_served.counters[PREDICT_CALLS] == 1
+
+
+def test_deformable_detections_are_bit_identical_with_and_without_a_profiler(
+        deformable_served):
+    for got, want in zip(deformable_served.traced, deformable_served.plain):
         assert got.dtype == want.dtype and torch.equal(got, want)
