@@ -317,7 +317,18 @@ Phases, each fatal on failure:
      launches timed by CUDA-graph replay beside their bound (each call's
      larger of its float32 operations on the unmasked query rows and its
      rows' bytes, as port_bench/deformable_counts.py counts them) and the
-     plain version (by events).
+     plain version (by events);
+ 49. the entry layer's upload (object_detector_tpu_torch/data/upload.py)
+     against the pageable .to it replaced, at each serving cell's batch of
+     uint8 images (SSD-300 and RetinaNet bs=64, the DETR canvases bs=32),
+     at one image of each and at 2 and 4 RetinaNet images: the device
+     batches as served and staged at every size held bit-equal to the
+     pageable copy's (and from a strided view), ms and GB/s of each by the
+     host clock to a synchronize; at the cells' batches, the host staging
+     copy's rate by intra-op thread count (Tensor.copy_), the pinned DMA's
+     rate whole and in chunks, and the staged upload by chunk size, ring
+     length and thread count: the measurement that sets upload.CHUNK_BYTES,
+     upload.SLOTS and upload.PAGEABLE_BELOW.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1872,6 +1883,8 @@ def main() -> int:
     mark_seconds("47")
     sampling = deformable_phase(torch, np, counted, launches, where)
     mark_seconds("48")
+    upload_phase(torch, np, where)
+    mark_seconds("49")
     bf16_at = {preset: {name: t[name] for name in ("default", "coord_bf16", "all")}
                for preset, t in kn["timing"].items()}
     bf16_300 = kn["timing"]["ssd300_infer_bs64"]["coord_bf16"]
@@ -5512,6 +5525,153 @@ def deformable_phase(torch, np, counted, launches, where) -> dict:
     del calls, kinds, got, plain, predict
     torch.cuda.empty_cache()
     return out
+
+
+# Phase 49: the entry layer's upload (`data/upload.py`) against the pageable
+# copy it replaced, at each serving cell's batch of uint8 images, at one
+# image of each and at 2 and 4 RetinaNet images, (B, H, W); each size cycles
+# through UPLOAD_POOL host batches, as the cells' pools do, for UPLOAD_ITERS
+# timed calls. At the cells' batches the host staging copy is timed by
+# thread count, the pinned DMA alone, and the staged upload at each chunk
+# size and ring length swept and by thread count.
+UPLOAD_BATCHES = {"ssd300_bs64": (64, 300, 300), "retinanet_bs64": (64, 512, 512),
+                  "detr_bs32": (32, 1088, 1088), "ssd300_bs1": (1, 300, 300),
+                  "retinanet_bs1": (1, 512, 512), "retinanet_bs2": (2, 512, 512),
+                  "retinanet_bs4": (4, 512, 512), "detr_bs1": (1, 1088, 1088)}
+UPLOAD_CELL_BATCHES = ("ssd300_bs64", "retinanet_bs64", "detr_bs32")
+UPLOAD_POOL, UPLOAD_ITERS = 4, 24
+UPLOAD_THREADS = (1, 2, 4, 8)
+UPLOAD_CHUNKS_MIB = (4, 8, 12, 16, 24, 32)
+UPLOAD_SLOTS = (2, 3)
+
+
+def cycled_ms(torch, fn, pool, iters: int) -> float:
+    """Median host-clock ms of fn(x) + synchronize, x taken from ``pool`` in
+    turn, after one warm call on each."""
+    for x in pool:
+        fn(x)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(iters):
+        t0 = time.perf_counter()
+        fn(pool[i % len(pool)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def upload_constants(upload, **values):
+    """`data/upload.py`'s constants set to ``values`` for the block."""
+    saved = {k: getattr(upload, k) for k in values}
+    try:
+        for k, v in values.items():
+            setattr(upload, k, v)
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(upload, k, v)
+
+
+def upload_phase(torch, np, where) -> dict:
+    """Phase 49: the upload as served (`upload.StagedUpload`: staged from
+    `upload.PAGEABLE_BELOW` bytes, the pageable ``.to`` below), the staged
+    path at every size, and the pageable ``.to``: host-clock ms and GB/s at
+    every size in UPLOAD_BATCHES, each device batch held bit-equal to the
+    pageable copy's (from a strided view too); at the cells' batches the
+    host staging copy's rate by intra-op thread count, the pinned DMA's rate
+    whole and in the plan's chunks, and the staged upload by chunk size,
+    ring length and thread count (see the module docstring)."""
+    from object_detector_tpu_torch.data import upload
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(49)
+    threads0 = torch.get_num_threads()
+    info = {"cpus": os.cpu_count(), "torch_threads": threads0, "chunk_bytes": upload.CHUNK_BYTES,
+            "slots": upload.SLOTS, "pageable_below": upload.PAGEABLE_BELOW}
+    print(json.dumps({"phase": "upload_host", **info, **where}))
+    threads = [t for t in UPLOAD_THREADS if t <= (os.cpu_count() or 1)]
+
+    def gbps(nbytes: int, ms: float) -> float:
+        return nbytes / ms / 1e6
+
+    sizes = {}
+    for name, (b, h, w) in UPLOAD_BATCHES.items():
+        pool = [rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8) for _ in range(UPLOAD_POOL)]
+        nbytes = pool[0].nbytes
+        served, staged = upload.StagedUpload(dev), upload.StagedUpload(dev)
+        for x in pool + ([pool[1][::2, :, 1:]] if b > 1 else []):
+            want = torch.as_tensor(x).to(dev)
+            with upload_constants(upload, PAGEABLE_BELOW=0):
+                check(torch.equal(staged(x), want), f"{name}: the staged upload differs from "
+                                                    "the pageable copy")
+            check(torch.equal(served(x), want), f"{name}: the upload differs from the pageable "
+                                                "copy")
+        with upload_constants(upload, PAGEABLE_BELOW=0):
+            staged_ms = cycled_ms(torch, staged, pool, UPLOAD_ITERS)
+        pageable_ms = cycled_ms(torch, lambda x: torch.as_tensor(x).to(dev), pool, UPLOAD_ITERS)
+        served_ms = cycled_ms(torch, served, pool, UPLOAD_ITERS)
+        sizes[name] = {"bytes": nbytes, "staged_as_served": nbytes >= upload.PAGEABLE_BELOW,
+                       "chunks": len(upload.chunk_plan(nbytes)),
+                       "pageable_ms": pageable_ms, "pageable_gbps": gbps(nbytes, pageable_ms),
+                       "served_ms": served_ms, "served_gbps": gbps(nbytes, served_ms),
+                       "staged_ms": staged_ms, "staged_gbps": gbps(nbytes, staged_ms),
+                       "speedup": pageable_ms / served_ms, "bit_equal": True}
+        print(json.dumps({"phase": "upload", "batch": name, **sizes[name], **where}))
+        if name not in UPLOAD_CELL_BATCHES:
+            continue
+
+        # The host staging copy alone, chunk by chunk into the ring's slots.
+        plan = upload.chunk_plan(nbytes)
+        slots = [torch.empty(2 * upload.CHUNK_BYTES, dtype=torch.uint8, pin_memory=True)
+                 for _ in range(upload.SLOTS)]
+        flat = [torch.from_numpy(x.reshape(-1)) for x in pool]
+
+        def host_stage(src):
+            for i, (a, e) in enumerate(plan):
+                slots[i % len(slots)][:e - a].copy_(src[a:e])
+
+        host_copy = {}
+        try:
+            for t in threads:
+                torch.set_num_threads(t)
+                ms = cycled_ms(torch, host_stage, flat, UPLOAD_ITERS)
+                host_copy[t] = {"ms": ms, "gbps": gbps(nbytes, ms)}
+        finally:
+            torch.set_num_threads(threads0)
+
+        # The DMA alone from pinned memory: the whole batch, and in chunks.
+        pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        pinned.copy_(flat[0])
+        target = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        whole_ms = cuda_ms(torch, lambda: target.copy_(pinned, non_blocking=True), 10)
+        chunked_ms = cuda_ms(torch, lambda: [target[a:e].copy_(pinned[a:e], non_blocking=True)
+                                             for a, e in plan], 10)
+        dma = {"whole_ms": whole_ms, "whole_gbps": gbps(nbytes, whole_ms),
+               "chunked_ms": chunked_ms, "chunked_gbps": gbps(nbytes, chunked_ms)}
+        del pinned, target, slots, flat
+
+        # The staged upload by chunk size and ring length, then by threads.
+        sweep = {}
+        for mib in UPLOAD_CHUNKS_MIB:
+            for n in UPLOAD_SLOTS:
+                with upload_constants(upload, CHUNK_BYTES=mib << 20, SLOTS=n):
+                    ms = cycled_ms(torch, upload.StagedUpload(dev), pool, UPLOAD_ITERS)
+                sweep[f"{mib}MiB_x{n}"] = {"ms": ms, "gbps": gbps(nbytes, ms)}
+        by_threads = {}
+        try:
+            for t in threads:
+                torch.set_num_threads(t)
+                ms = cycled_ms(torch, served, pool, UPLOAD_ITERS)
+                by_threads[t] = {"ms": ms, "gbps": gbps(nbytes, ms)}
+        finally:
+            torch.set_num_threads(threads0)
+        sizes[name].update(host_copy=host_copy, dma=dma, sweep=sweep,
+                           served_by_threads=by_threads)
+        print(json.dumps({"phase": "upload_parts", "batch": name, "host_copy": host_copy,
+                          "dma": dma, "sweep": sweep, "served_by_threads": by_threads, **where}))
+        del pool, served, staged
+    return {"info": info, "sizes": sizes}
 
 
 def _same_detections(torch, a, b) -> bool:

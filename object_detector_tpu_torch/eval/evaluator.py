@@ -29,6 +29,7 @@ from object_detector_tpu_torch.core.config import DetectorConfig
 from object_detector_tpu_torch.core.device import resolve_device
 from object_detector_tpu_torch.data.pipeline import DecodedCache
 from object_detector_tpu_torch.data.types import Dataset
+from object_detector_tpu_torch.data.upload import StagedUpload
 from object_detector_tpu_torch.eval.map import MeanAPEvaluator
 from object_detector_tpu_torch.models import deformable_detr, detr
 from object_detector_tpu_torch.models.retinanet import build_model
@@ -61,12 +62,13 @@ def make_predict_fn(
     dev = resolve_device(device)
     model.to(dev).eval()
     calls = itertools.count()
+    upload = StagedUpload(dev)
     family = FAMILIES[cfg.model.family]
     if family.postprocess is not None:
         @torch.inference_mode()
         def predict_padded(images_u8, extents) -> Detections:
             with _predict_span(calls):
-                images, ext = _normalized_canvases(cfg, images_u8, extents, dev)
+                images, ext = _normalized_canvases(cfg, images_u8, extents, upload)
                 return family.postprocess(cfg, *model(images, ext), ext)
 
         return predict_padded
@@ -75,7 +77,7 @@ def make_predict_fn(
     @torch.inference_mode()
     def predict(images_u8) -> Detections:
         with _predict_span(calls):
-            cls_logits, box_offsets = model(_normalized(images_u8, dev))
+            cls_logits, box_offsets = model(_normalized(images_u8, upload))
             return postprocess(cls_logits, box_offsets, anchors, cfg, use_pallas)
 
     return predict
@@ -89,28 +91,37 @@ def _predict_span(calls: itertools.count):
     return profiling.span("odt.predict", n)
 
 
-def _normalized(images_u8, dev: torch.device) -> torch.Tensor:
-    """(B, H, W, 3) uint8 images (numpy or tensor) -> normalized float32 on
-    ``dev``."""
-    with profiling.span("odt.upload"):
-        images = torch.as_tensor(images_u8).to(dev)
+def _images(images_u8) -> torch.Tensor:
+    """(B, H, W, 3) uint8 images, a numpy array or a tensor, as a tensor
+    where they are (no copy)."""
+    images = torch.as_tensor(images_u8)
     if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
         raise ValueError(
             f"expected (B, H, W, 3) uint8 images, got {images.dtype} {tuple(images.shape)}"
         )
+    return images
+
+
+def _normalized(images_u8, upload: StagedUpload) -> torch.Tensor:
+    """(B, H, W, 3) uint8 images (numpy or tensor) -> normalized float32 on
+    ``upload.device``."""
+    images = _images(images_u8)
+    with profiling.span("odt.upload"):
+        images = upload(images)
     with profiling.span("odt.normalize"):
         return normalize(images.float() / 255.0)
 
 
-def _normalized_canvases(cfg: DetectorConfig, images_u8, extents, dev: torch.device,
+def _normalized_canvases(cfg: DetectorConfig, images_u8, extents, upload: StagedUpload,
                          count: bool = True):
     """(B, S, S, 3) uint8 canvases and their (B, 2) extents (h, w), host
-    arrays or tensors -> (normalized float32 canvases on ``dev``, zero
-    beyond each extent as DETR's ``NestedTensor`` pads; the extents as
-    int64 on ``dev``). With ``count``, adds the call's unmasked tokens to
-    the family's counter (`Family.count_tokens`) while a profiler records,
-    from the extents' host copy."""
-    images = _normalized(images_u8, dev)
+    arrays or tensors -> (normalized float32 canvases on ``upload.device``,
+    zero beyond each extent as DETR's ``NestedTensor`` pads; the extents as
+    int64 there), both uploaded in the call's one ``odt.upload`` span. With
+    ``count``, adds the call's unmasked tokens to the family's counter
+    (`Family.count_tokens`) while a profiler records, from the extents'
+    host copy."""
+    images = _images(images_u8)
     ext = torch.as_tensor(np.asarray(extents), dtype=torch.int64)
     b, h, w, _ = images.shape
     if (ext.shape != (b, 2) or bool((ext < 1).any()) or bool((ext[:, 0] > h).any())
@@ -120,10 +131,11 @@ def _normalized_canvases(cfg: DetectorConfig, images_u8, extents, dev: torch.dev
     if count and profiling.enabled():
         FAMILIES[cfg.model.family].count_tokens(cfg, ext, (h, w))
     with profiling.span("odt.upload"):
-        ext = ext.to(dev)
+        images, ext = upload(images), upload(ext)
     with profiling.span("odt.normalize"):
-        rows = torch.arange(h, device=dev) < ext[:, :1]
-        cols = torch.arange(w, device=dev) < ext[:, 1:]
+        rows = torch.arange(h, device=upload.device) < ext[:, :1]
+        cols = torch.arange(w, device=upload.device) < ext[:, 1:]
+        images = normalize(images.float() / 255.0)
         return images.mul_((rows[:, :, None] & cols[:, None, :])[..., None]), ext
 
 
@@ -206,13 +218,14 @@ def make_int8_predict_fn(
     pallas = cfg.eval.use_pallas_nms if use_pallas is None else use_pallas
     device_params = {k: v.to(dev) for k, v in params.items()}
     calls = itertools.count()
+    upload = StagedUpload(dev)
     family = FAMILIES[cfg.model.family]
     quantize, forward = getattr(engine, family.quantize), getattr(engine, family.int8_forward)
     if family.postprocess is not None:
         if calibration_extents is None:
             n, h, w = np.shape(calibration_images_u8)[:3]
             calibration_extents = np.tile([h, w], (n, 1))
-        calib, _ = _normalized_canvases(cfg, calibration_images_u8, calibration_extents, dev,
+        calib, _ = _normalized_canvases(cfg, calibration_images_u8, calibration_extents, upload,
                                         count=False)
         qp, spec = quantize(cfg, device_params, [calib])
         qp = qp.to(dev)
@@ -221,13 +234,13 @@ def make_int8_predict_fn(
         @torch.inference_mode()
         def predict_padded(images_u8, extents) -> Detections:
             with _predict_span(calls):
-                images, ext = _normalized_canvases(cfg, images_u8, extents, dev)
+                images, ext = _normalized_canvases(cfg, images_u8, extents, upload)
                 logits, boxes = forward(qp, spec, cfg, images, ext)
                 return family.postprocess(cfg, logits, boxes, ext)
 
         predict_padded.qp, predict_padded.spec = qp, spec
         return predict_padded
-    calib = _normalized(calibration_images_u8, dev)
+    calib = _normalized(calibration_images_u8, upload)
     qp, spec = quantize(cfg, device_params, [calib])
     qp = qp.to(dev)
     anchors = torch.as_tensor(np.asarray(anchors_center, np.float32), device=dev)
@@ -236,7 +249,7 @@ def make_int8_predict_fn(
     @torch.inference_mode()
     def predict(images_u8) -> Detections:
         with _predict_span(calls):
-            images = _normalized(images_u8, dev)
+            images = _normalized(images_u8, upload)
             if per_level:
                 cls_levels, box_levels = forward(qp, spec, cfg, images, concat_heads=False)
                 return postprocess_levels(cls_levels, box_levels, anchors, cfg)

@@ -115,7 +115,8 @@ def test_the_cells_files_are_found_and_its_metrics_listed():
                      "resnet_stem_roofline.serve", "bottleneck_roofline.serve", "idle_pct.serve",
                      "im2col_device_ms.serve", "gemm_device_ms.serve",
                      "epilogue_device_ms.serve", "epilogue_roofline.serve",
-                     "upload_host_ms.serve", "conv_device_ms.serve", "conv_roofline.serve"}
+                     "upload_host_ms.serve", "conv_device_ms.serve", "conv_roofline.serve",
+                     "upload_gbps.serve"}
     for name in names:
         assert callable(harness.load_module(harness.BENCH / "metrics" / f"{name}.py").read)
     assert {x["name"] for x in harness.reported_metrics(M, CELL, traced=False)} == {

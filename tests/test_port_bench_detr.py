@@ -117,7 +117,8 @@ def test_the_cells_files_are_found_and_its_metrics_listed():
     names = {x["name"] for x in harness.reported_metrics(M, CELL, traced=True)}
     assert names == {"detr_backbone_device_ms.serve", "detr_encoder_device_ms.serve",
                      "detr_decoder_device_ms.serve", "detr_attention_roofline.serve",
-                     "detr_mfu_pct.serve", "conv_device_ms.serve", "conv_roofline.serve"}
+                     "detr_mfu_pct.serve", "conv_device_ms.serve", "conv_roofline.serve",
+                     "upload_gbps.serve"}
     for name in names:
         assert callable(harness.load_module(harness.BENCH / "metrics" / f"{name}.py").read)
     assert {x["name"] for x in harness.reported_metrics(M, CELL, traced=False)} == {

@@ -30,6 +30,7 @@ from object_detector_tpu_torch.convert import flatten_tree, params_from_jax, qua
 from object_detector_tpu_torch.core import config
 from object_detector_tpu_torch.data.pipeline import DecodedCache
 from object_detector_tpu_torch.data.synthetic import make_synthetic_dataset
+from object_detector_tpu_torch.data.upload import StagedUpload
 from object_detector_tpu_torch.eval import evaluator
 from object_detector_tpu_torch.kernels import nms as nms_kernel
 from object_detector_tpu_torch.models.ssd import SSDModel
@@ -339,7 +340,7 @@ def test_float_predict_fn_with_the_knobs_matches_reference(overrides):
     got = evaluator.make_predict_fn(cfg, model, anchors, device="cpu")(images)
     if "eval.nms_coord_bf16" in overrides:
         with torch.no_grad():
-            cls, box = model(evaluator._normalized(images, torch.device("cpu")))
+            cls, box = model(evaluator._normalized(images, StagedUpload(torch.device("cpu"))))
         want = nms_kernel.decode_nms(cls, box, torch.from_numpy(anchors), rows_fn=_reference_scan,
                                      **postprocess.nms_kwargs(cfg))
         for g, w in zip(got, want):

@@ -21,6 +21,7 @@ from torch.profiler import ProfilerActivity, profile
 from object_detector_tpu_torch.anchors.priors import anchors_for_model
 from object_detector_tpu_torch.convert import init_params
 from object_detector_tpu_torch.core import config
+from object_detector_tpu_torch.data.upload import StagedUpload
 from object_detector_tpu_torch.eval.evaluator import PREDICT_CALLS, make_int8_predict_fn
 from object_detector_tpu_torch.kernels import requant_epilogue
 from object_detector_tpu_torch.models import detr
@@ -453,3 +454,21 @@ def test_deformable_detections_are_bit_identical_with_and_without_a_profiler(
         deformable_served):
     for got, want in zip(deformable_served.traced, deformable_served.plain):
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("family", ["detr", "deformable_detr"])
+def test_a_padded_predict_uploads_canvases_and_extents_in_one_span(family, request):
+    """One ``odt.upload`` range a call, which holds both uploads (on the CPU
+    each is the plain ``.to``): the canvases', then the extents'."""
+    served = request.getfixturevalue(
+        {"detr": "detr_served", "deformable_detr": "deformable_served"}[family])
+    events = served.events
+    (upload_range,) = _ranges(events, "odt.upload")
+    (predict_range,) = _ranges(events, "odt.predict")
+    assert _inside(upload_range, [predict_range])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        StagedUpload(torch.device("cpu"))(np.zeros(3, np.uint8))
+    one_upload = sum(e.name == "aten::to" for e in prof.events())
+    copies = [rng for rng in _ranges(events, "aten::to") if _inside(rng, [upload_range])]
+    assert one_upload and len(copies) == 2 * one_upload
+    assert served.counters[PREDICT_CALLS] == 1
